@@ -1,0 +1,131 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+kernel build refuses to run without nvcc instead of falling back, its
+wrappers launch nothing on CPU tensors, and unported windows raise."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from watermarking_gpu_tpu_torch import BatchedWatermark, Watermark
+from watermarking_gpu_tpu_torch.ops import cuda as kernels
+from watermarking_gpu_tpu_torch.ops import pipelines
+from watermarking_gpu_tpu_torch.ops.cuda import build
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "watermarking_gpu_tpu_torch"
+
+
+def test_import_loads_no_jax():
+    code = ("import sys; import watermarking_gpu_tpu_torch as p; "
+            "import watermarking_gpu_tpu_torch.ops.cuda, "
+            "watermarking_gpu_tpu_torch.utils; "
+            "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
+            "m.split('.')[0] == 'watermarking_gpu_tpu'); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stdout + result.stderr
+
+
+def test_sources_name_no_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+jax|watermarking_gpu_tpu\b")
+    sources = [path for suffix in ("*.py", "*.cu", "*.cuh")
+               for path in PACKAGE.rglob(suffix)]
+    offenders = [f"{path}:{n}" for path in sources
+                 for n, line in enumerate(path.read_text().splitlines(), 1)
+                 if pattern.search(line)]
+    assert len(sources) > 10
+    assert offenders == []
+
+
+def fake_nvcc(tmp_path: Path, body: str) -> Path:
+    """A CUDA_HOME whose bin/nvcc is a shell script."""
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return home
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(build.KernelBuildError, match="nvcc"):
+        build.build(build_root=tmp_path / "out")
+    assert not (tmp_path / "out").exists()
+
+
+def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
+    home = fake_nvcc(tmp_path, (
+        'while [ $# -gt 0 ]; do [ "$1" = -o ] && out="$2"; shift; done\n'
+        'echo "ptxas info : Used 40 registers" >&2\n: > "$out"\n'))
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    path, log = build.build(build_root=tmp_path / "out")
+    assert path.is_file() and path.parent.name == build.source_hash()
+    assert "Used 40 registers" in log
+    assert build.build(build_root=tmp_path / "out") == (path, "")
+
+
+def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
+    home = fake_nvcc(tmp_path, 'echo "error: bad kernel" >&2\nexit 2\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    with pytest.raises(build.KernelBuildError, match="bad kernel"):
+        build.build(build_root=tmp_path / "out")
+    assert not list((tmp_path / "out").rglob("*.so*"))
+
+
+def test_cpu_tensors_launch_no_kernel():
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(np.clip(rng.normal(128, 40, (2, 24, 40)), 0,
+                                      255).astype(np.float32))
+    wm = torch.from_numpy(rng.normal(size=(24, 40)).astype(np.float32))
+    for mask_type in ("me", "nvf"):
+        marked, _ = pipelines.embed_pipeline(frames, frames, wm, 2.55,
+                                             mask_type, impl="cuda")
+        pipelines.detect_pipeline(marked, wm, mask_type, impl="cuda")
+    assert kernels.launch_counts() == {"me_gram": 0, "embed_field": 0,
+                                       "detect_partials": 0}
+
+
+def test_wrappers_raise_on_other_devices():
+    frames = torch.zeros(1, 8, 8, device="meta")
+    wm = torch.zeros(8, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.me_gram(frames)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.embed_field(frames, wm, None, "nvf")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.detect_partials(frames, wm, torch.zeros(1, 8,
+                                                        device="meta"))
+
+
+@pytest.mark.parametrize("p", [5, 7, 9])
+def test_wide_windows_are_not_ported(p):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        Watermark(16, 16, 3, p=p)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        BatchedWatermark(16, 16, 3, p=p)
+    image = torch.zeros(16, 16)
+    with pytest.raises(NotImplementedError):
+        pipelines.embed_pipeline(image, image, image, 2.55, "nvf", p=p)
+    with pytest.raises(NotImplementedError):
+        pipelines.detect_pipeline(image, image, "me", p=p)
+
+
+def test_kernel_sources_ship_with_the_package():
+    names = {p.name for p in (PACKAGE / "csrc").iterdir()}
+    assert {"me_gram.cu", "fused.cu", "common.cuh"} <= names
+    for name in ("me_gram.cu", "fused.cu"):
+        head = (PACKAGE / "csrc" / name).read_text()[:1500]
+        assert "Replaces:" in head and "ops/pallas/" in head
+    assert os.fspath(build.CSRC_DIR) == os.fspath(PACKAGE / "csrc")

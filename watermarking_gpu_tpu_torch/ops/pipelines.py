@@ -1,0 +1,149 @@
+"""End-to-end embed/detect pipelines (reference ``Watermark.cpp:156-250``).
+
+* ``embed_pipeline``  == ``Watermark::makeWatermark``
+* ``detect_pipeline`` == ``Watermark::detectWatermark``
+
+Images are (H, W) or (B, H, W); outputs may carry a trailing channel axis.
+Solves, strengths and correlations are per image. The solve-failure soft
+path is a per-image ``valid`` flag applied with ``torch.where``, so nothing
+on the path waits for the device.
+
+Implementations:
+
+* ``impl="torch"``: the plain formulation — Gram by elementwise sums, LU
+  solve, normalized mask, reference embed/correlation formulas. The port's
+  oracle, counterpart of the JAX package's ``impl="xla"``.
+* ``impl="cuda"``: the fused algebra of the JAX package's ``impl="pallas"``
+  — Gram kernel, 8x8 Cholesky, then one embed-field or detect-tail kernel,
+  with the AXPY/clamp and the final divisions in torch. On CUDA tensors the
+  three kernels run; on CPU tensors their plain versions do.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Literal
+
+import torch
+
+from .correlation import correlation
+from .cuda import detect_partials, embed_field, me_gram
+from .embed import embed_watermark
+from .me import (me_mask_from_error, me_normal_equations, prediction_error,
+                 require_supported_p, solve_coefficients,
+                 solve_coefficients_spd)
+from .nvf import nvf_mask
+
+MaskTypeName = Literal["nvf", "me"]
+ImplName = Literal["torch", "cuda"]
+IMPLS = ("torch", "cuda")
+
+
+def _check_args(mask_type: str, p: int, impl: str) -> None:
+    require_supported_p(p)
+    if mask_type not in ("me", "nvf"):
+        raise ValueError(f"mask_type must be 'me' or 'nvf', got {mask_type!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _to_f32(x: torch.Tensor) -> torch.Tensor:
+    """Widen integer inputs (u8 lumas) on their device."""
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
+
+
+def _gate(value: torch.Tensor, valid: torch.Tensor,
+          fallback: torch.Tensor) -> torch.Tensor:
+    """where(valid, value, fallback), valid (...,) vs value (..., H, W...)."""
+    extra = value.ndim - valid.ndim
+    return torch.where(valid.reshape(valid.shape + (1,) * extra), value,
+                       fallback)
+
+
+def _fused_analysis(img3: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gram kernel + 8x8 Cholesky -> (coefficients (B, 8), valid (B,))."""
+    gram = me_gram(img3)
+    return solve_coefficients_spd(gram[:, :8, :8], gram[:, :8, 8])
+
+
+def _embed_fused(image, output, watermark, strength_factor_value, mask_type,
+                 p):
+    squeeze = image.ndim == 2
+    img3 = (image[None] if squeeze else image).contiguous()
+    if mask_type == "me":
+        coefficients, valid = _fused_analysis(img3)
+    else:
+        coefficients = None
+        valid = torch.ones(img3.shape[0], dtype=torch.bool,
+                           device=img3.device)
+    u_raw, sum_u2, max_e = embed_field(img3, watermark.contiguous(),
+                                       coefficients, mask_type, p)
+    if squeeze:
+        u_raw, sum_u2, max_e, valid = u_raw[0], sum_u2[0], max_e[0], valid[0]
+    n = image.shape[-2] * image.shape[-1]
+    scale = strength_factor_value * math.sqrt(n) / torch.sqrt(sum_u2)
+    strength = scale * max_e if mask_type == "me" else scale
+    addend = u_raw * scale[..., None, None]
+    if output.ndim == image.ndim + 1:
+        addend = addend[..., None]
+    watermarked = torch.clamp(output + addend, 0.0, 255.0)
+    return (_gate(watermarked, valid, output),
+            torch.where(valid, strength, 0.0))
+
+
+def embed_pipeline(image: torch.Tensor, output: torch.Tensor,
+                   watermark: torch.Tensor, strength_factor_value: float,
+                   mask_type: MaskTypeName, p: int = 3,
+                   impl: ImplName = "cuda"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embed into ``output`` the watermark computed from grayscale ``image``.
+
+    Returns (watermarked, strengths). On an unsolvable ME system the output
+    is returned unmodified and the strength is 0 (Watermark.cpp:164-165).
+    """
+    _check_args(mask_type, p, impl)
+    image, output, watermark = map(_to_f32, (image, output, watermark))
+    if impl == "cuda":
+        return _embed_fused(image, output, watermark, strength_factor_value,
+                            mask_type, p)
+    if mask_type == "me":
+        coefficients, valid = solve_coefficients(*me_normal_equations(image))
+        mask = me_mask_from_error(prediction_error(image, coefficients))
+    else:
+        mask = nvf_mask(image, p)
+        valid = torch.ones(image.shape[:-2], dtype=torch.bool,
+                           device=image.device)
+    watermarked, strength = embed_watermark(output, mask, watermark,
+                                            strength_factor_value)
+    return (_gate(watermarked, valid, output),
+            torch.where(valid, strength, 0.0))
+
+
+def detect_pipeline(image: torch.Tensor, watermark: torch.Tensor,
+                    mask_type: MaskTypeName, p: int = 3,
+                    impl: ImplName = "cuda") -> torch.Tensor:
+    """Detector correlations for (possibly watermarked) grayscale images.
+
+    NVF detection still runs the prediction-error analysis for the
+    coefficients and error sequence, with the NVF mask in place of the ME
+    mask (Watermark.cpp:238-241). Returns 0 where the system is unsolvable.
+    """
+    _check_args(mask_type, p, impl)
+    image, watermark = map(_to_f32, (image, watermark))
+    if impl == "cuda":
+        squeeze = image.ndim == 2
+        img3 = (image[None] if squeeze else image).contiguous()
+        coefficients, valid = _fused_analysis(img3)
+        dot, norm_u, norm_z = detect_partials(img3, watermark.contiguous(),
+                                              coefficients, mask_type, p)
+        corr = dot / torch.sqrt(norm_u * norm_z)
+        if squeeze:
+            corr, valid = corr[0], valid[0]
+        return torch.where(valid, corr, 0.0)
+    coefficients, valid = solve_coefficients(*me_normal_equations(image))
+    e_z = prediction_error(image, coefficients)
+    mask = me_mask_from_error(e_z) if mask_type == "me" else nvf_mask(image,
+                                                                      p)
+    e_u = prediction_error(mask * watermark, coefficients)
+    return torch.where(valid, correlation(e_u, e_z), 0.0)
