@@ -6,9 +6,10 @@ runs on a machine without them; there, skip the JAX-based conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: Gram and reductions rtol 1e-4 (summation order only); u_raw
-rtol 1e-5 + atol 1e-3 (its terms round identically); between the two
-routes, correlations abs 2e-4 and strengths rel 2e-4.
+Tolerances: Gram, lag partials and reductions rtol 1e-4 (summation order
+only); u_raw rtol 1e-5 + atol 1e-3 (its terms round identically); between
+the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
+its fused NVF kernels) and strengths rel 2e-4.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from watermarking_gpu_tpu_torch.models import BatchedWatermark
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import pipelines
 from watermarking_gpu_tpu_torch.ops.me import solve_coefficients
+from watermarking_gpu_tpu_torch.ops.pipelines import _analysis
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -66,8 +68,44 @@ def test_kernels_match_plain_on_card(device, shape):
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after == {"me_gram": before["me_gram"] + 1,
+                     "me_gram_wide": before["me_gram_wide"],
                      "embed_field": before["embed_field"] + 2,
                      "detect_partials": before["detect_partials"] + 2}
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (2, 37, 83), (2, 20, 30),
+                                   (1, 1080, 1920)])
+@pytest.mark.parametrize("p", [5, 7, 9])
+def test_wide_kernels_match_plain_on_card(device, p, shape):
+    """The wide Gram's lane partials and Gram, and the embed field and
+    detect tail at ME and NVF p, against their plain versions. (2, 20, 30)
+    is below the lag geometry at p = 7 and 9, where the Gram takes the
+    direct sums and launches nothing."""
+    frames, wm, _ = make_inputs(shape, device)
+    k = p * p - 1
+    torch.testing.assert_close(kernels.wide_gram_partials(frames, p),
+                               kernels.lag_partials_plain(frames, p),
+                               rtol=1e-4, atol=1e-2)
+    before = kernels.launch_counts()
+    gram = kernels.me_gram_wide(frames, p)
+    plain = kernels.me_gram_wide(frames.cpu(), p).to(device)
+    torch.testing.assert_close(gram, plain, rtol=1e-4, atol=0)
+    launched = kernels.launch_counts()["me_gram_wide"] - before["me_gram_wide"]
+    assert launched == (1 if min(shape[1:]) >= 6 * (p // 2) else 0)
+    coeffs = {"me": _analysis(frames.cpu(), p)[0].to(device),
+              "nvf": _analysis(frames.cpu(), 3)[0].to(device)}
+    for mask_type in ("me", "nvf"):
+        c = coeffs[mask_type]
+        got = kernels.embed_field(frames, wm, c if mask_type == "me" else None,
+                                  mask_type, p)
+        want = kernels.embed_field_plain(frames, wm, c, mask_type, p)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+        got = got[1:] + kernels.detect_partials(frames, wm, c, mask_type, p)
+        want = want[1:] + kernels.detect_partials_plain(frames, wm, c,
+                                                        mask_type, p)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    torch.cuda.synchronize()
 
 
 def test_wrappers_reject_bad_inputs_on_card(device):
@@ -79,31 +117,44 @@ def test_wrappers_reject_bad_inputs_on_card(device):
         kernels.embed_field(frames, wm[:8], None, "nvf")
     with pytest.raises(ValueError, match="coefficients"):
         kernels.detect_partials(frames, wm, torch.zeros(2, 8), "me")
+    with pytest.raises(ValueError, match="coefficients"):
+        kernels.detect_partials(frames, wm, torch.zeros(2, 8, device=device),
+                                "me", 5)
+    with pytest.raises(ValueError, match="coefficients"):
+        kernels.embed_field(frames, wm, torch.zeros(2, 8, device=device),
+                            "me", 7)
 
 
+@pytest.mark.parametrize("p", [3, 5, 7, 9])
 @pytest.mark.parametrize("mask_type", ["me", "nvf"])
-def test_kernel_route_matches_plain_route_on_card(device, mask_type):
+def test_kernel_route_matches_plain_route_on_card(device, mask_type, p):
     frames, wm, _ = make_inputs((3, 64, 96), device)
     results = {}
     for impl in ("cuda", "torch"):
         marked, strength = pipelines.embed_pipeline(frames, frames, wm, 2.55,
-                                                    mask_type, impl=impl)
-        corr = pipelines.detect_pipeline(marked, wm, mask_type, impl=impl)
+                                                    mask_type, p=p, impl=impl)
+        corr = pipelines.detect_pipeline(marked, wm, mask_type, p=p,
+                                         impl=impl)
         results[impl] = (marked, strength, corr)
     (m_k, s_k, c_k), (m_p, s_p, c_p) = results["cuda"], results["torch"]
     torch.testing.assert_close(m_k, m_p, atol=0.1, rtol=0)
     torch.testing.assert_close(s_k, s_p, rtol=2e-4, atol=0)
-    torch.testing.assert_close(c_k, c_p, atol=2e-4, rtol=0)
+    torch.testing.assert_close(c_k, c_p, atol=2e-4 if mask_type == "me"
+                               else 3e-4, rtol=0)
 
 
-def test_engine_runs_on_card(device):
-    engine = BatchedWatermark(64, 96, 7, device=device)
+@pytest.mark.parametrize("p", [3, 5])
+def test_engine_runs_on_card(device, p):
+    engine = BatchedWatermark(64, 96, 7, p=p)
     frames, _, _ = make_inputs((2, 64, 96), device)
     kernels.reset_launch_counts()
     marked, strength = engine.embed(frames)
     corr = engine.detect(marked)
     lumas, _ = engine.embed_luma_u8(frames.to(torch.uint8), "nvf")
+    assert engine.detect(lumas, "nvf").is_cuda   # the 3x3 Gram at every p
     assert marked.is_cuda and strength.is_cuda and corr.is_cuda
     assert lumas.dtype == torch.uint8 and lumas.is_cuda
     assert (corr > 0.02).all()
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop("me_gram_wide") == (2 if p > 3 else 0)
+    assert all(n > 0 for n in counts.values())

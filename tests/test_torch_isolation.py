@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
 kernel build refuses to run without nvcc instead of falling back, its
-wrappers launch nothing on CPU tensors, and unported windows raise."""
+wrappers launch nothing on CPU tensors, its engines run on the card unless
+asked for the CPU, and window sizes other than 3, 5, 7, 9 raise."""
 
+import inspect
 import os
 import re
 import subprocess
@@ -90,10 +92,13 @@ def test_cpu_tensors_launch_no_kernel():
                                       255).astype(np.float32))
     wm = torch.from_numpy(rng.normal(size=(24, 40)).astype(np.float32))
     for mask_type in ("me", "nvf"):
-        marked, _ = pipelines.embed_pipeline(frames, frames, wm, 2.55,
-                                             mask_type, impl="cuda")
-        pipelines.detect_pipeline(marked, wm, mask_type, impl="cuda")
-    assert kernels.launch_counts() == {"me_gram": 0, "embed_field": 0,
+        for p in (3, 5):
+            marked, _ = pipelines.embed_pipeline(frames, frames, wm, 2.55,
+                                                 mask_type, p=p, impl="cuda")
+            pipelines.detect_pipeline(marked, wm, mask_type, p=p,
+                                      impl="cuda")
+    assert kernels.launch_counts() == {"me_gram": 0, "me_gram_wide": 0,
+                                       "embed_field": 0,
                                        "detect_partials": 0}
 
 
@@ -107,25 +112,40 @@ def test_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.detect_partials(frames, wm, torch.zeros(1, 8,
                                                         device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.wide_gram_partials(torch.zeros(1, 16, 16, device="meta"), 5)
 
 
 @pytest.mark.parametrize("p", [5, 7, 9])
 def test_wide_windows_are_not_ported(p):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        Watermark(16, 16, 3, p=p)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        BatchedWatermark(16, 16, 3, p=p)
-    image = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError):
-        pipelines.embed_pipeline(image, image, image, 2.55, "nvf", p=p)
-    with pytest.raises(NotImplementedError):
-        pipelines.detect_pipeline(image, image, "me", p=p)
+    """The wide windows construct and run (the name is the refusal test's
+    this replaced); window sizes outside {3, 5, 7, 9} raise ValueError."""
+    for engine in (Watermark, BatchedWatermark):
+        assert engine(16, 16, 3, p=p, device="cpu").p == p
+        with pytest.raises(ValueError, match="Wrong p"):
+            engine(16, 16, 3, p=p + 1, device="cpu")
+    image = torch.arange(256.0).reshape(16, 16) % 7 * 30
+    marked, strength = pipelines.embed_pipeline(image, image, image, 2.55,
+                                                "nvf", p=p)
+    assert marked.shape == (16, 16) and torch.isfinite(strength)
+    with pytest.raises(ValueError, match="p must be one of"):
+        pipelines.detect_pipeline(image, image, "me", p=p - 1)
+    with pytest.raises(ValueError, match="wide Gram takes p"):
+        kernels.me_gram_wide(image[None], 3)
+
+
+def test_engines_default_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU
+    (checked from the signatures: building an engine here would need one)."""
+    for fn in (Watermark.__init__, Watermark.from_state,
+               BatchedWatermark.__init__, BatchedWatermark.from_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_kernel_sources_ship_with_the_package():
     names = {p.name for p in (PACKAGE / "csrc").iterdir()}
-    assert {"me_gram.cu", "fused.cu", "common.cuh"} <= names
-    for name in ("me_gram.cu", "fused.cu"):
+    assert {"me_gram.cu", "me_gram_wide.cu", "fused.cu", "common.cuh"} <= names
+    for name in ("me_gram.cu", "me_gram_wide.cu", "fused.cu"):
         head = (PACKAGE / "csrc" / name).read_text()[:1500]
         assert "Replaces:" in head and "ops/pallas/" in head
     assert os.fspath(build.CSRC_DIR) == os.fspath(PACKAGE / "csrc")

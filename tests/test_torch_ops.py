@@ -125,11 +125,17 @@ def test_prediction_error_and_mask_match(shape):
 
 
 def test_wide_windows_raise():
+    """Only window sizes outside {3, 5, 7, 9} raise (the wide ones are held
+    to the JAX package in tests/test_torch_wide.py)."""
     image = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tme.me_normal_equations(image, p=5)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tme.prediction_error(image, torch.zeros(24), p=5)
+    for p in (1, 4, 11):
+        with pytest.raises(ValueError, match="p must be one of"):
+            tme.me_normal_equations(image, p=p)
+        with pytest.raises(ValueError, match="p must be one of"):
+            tme.prediction_error(image, torch.zeros(p * p - 1), p=p)
+    rm, rv = tme.me_normal_equations(image, p=5)
+    assert rm.shape == (24, 24) and rv.shape == (24,)
+    assert tme.prediction_error(image, torch.zeros(24), p=5).shape == (16, 16)
 
 
 @pytest.mark.parametrize("channels", [0, 3])

@@ -139,7 +139,8 @@ def test_watermark_from_state_matches_jax(impl):
 def test_batched_watermark_from_state_matches_jax(impl):
     frames, _ = make_case((3, 40, 96), seed=9)
     ref = JaxBatched(40, 96, 11, p=3, psnr=40.0, impl=JAX_IMPL[impl])
-    port = BatchedWatermark.from_state(jax_engine_state(ref), impl=impl)
+    port = BatchedWatermark.from_state(jax_engine_state(ref), device="cpu",
+                                       impl=impl)
     for mask_type in ("me", "nvf"):
         marked, strength = port.embed(frames, mask_type=mask_type)
         corr = port.detect(marked, mask_type)
@@ -161,19 +162,19 @@ def test_batched_watermark_from_state_matches_jax(impl):
 
 
 def test_engine_guards_and_reinitialize():
-    engine = Watermark(16, 24, 3)
+    engine = Watermark(16, 24, 3, device="cpu")
     with pytest.raises(ValueError):
         engine.embed(np.zeros((15, 24), np.float32))
     with pytest.raises(ValueError):   # RGB is not a grayscale analysis input
         engine.detect(np.zeros((16, 24, 3), np.float32))
     with pytest.raises(ValueError):
-        Watermark(16, 24, 3, p=4)
+        Watermark(16, 24, 3, p=4, device="cpu")
     with pytest.raises(ValueError):
-        Watermark(16, 24, 3, psnr=0.0)
+        Watermark(16, 24, 3, psnr=0.0, device="cpu")
     with pytest.raises(ValueError):
-        Watermark(16, 24, np.zeros((4, 4), np.float32))
+        Watermark(16, 24, np.zeros((4, 4), np.float32), device="cpu")
     with pytest.raises(ValueError):
-        Watermark(16, 24, 3, impl="pallas")
+        Watermark(16, 24, 3, impl="pallas", device="cpu")
     engine.reinitialize(5, 8, 10)
     assert tuple(engine.random_matrix.shape) == (8, 10)
     engine.warmup(channels=3)

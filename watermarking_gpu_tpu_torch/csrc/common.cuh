@@ -1,4 +1,5 @@
-// Helpers shared by the port's CUDA kernels (me_gram.cu, fused.cu).
+// Helpers shared by the port's CUDA kernels (me_gram.cu, me_gram_wide.cu,
+// fused.cu).
 //
 // Every kernel reads its neighbours clamp-to-edge with min/max on the
 // indices (the reference's CLK_ADDRESS_CLAMP_TO_EDGE sampler), so one
@@ -51,26 +52,73 @@ __device__ __forceinline__ float prediction_error(const Window& w,
   return e;
 }
 
-// NVF mask var / (1 + var) over the 3x3 window, var = E[x^2] - E[x]^2,
-// summed per row across the columns, then across the rows (ops/nvf.py).
-__device__ __forceinline__ float nvf3(const Window& w) {
-  const float inv9 = 1.0f / 9.0f;
-  const float st = __fadd_rn(__fadd_rn(w.t0, w.t1), w.t2);
-  const float sm = __fadd_rn(__fadd_rn(w.m0, w.m1), w.m2);
-  const float sb = __fadd_rn(__fadd_rn(w.b0, w.b1), w.b2);
-  const float qt = __fadd_rn(__fadd_rn(__fmul_rn(w.t0, w.t0),
-                                       __fmul_rn(w.t1, w.t1)),
-                             __fmul_rn(w.t2, w.t2));
-  const float qm = __fadd_rn(__fadd_rn(__fmul_rn(w.m0, w.m0),
-                                       __fmul_rn(w.m1, w.m1)),
-                             __fmul_rn(w.m2, w.m2));
-  const float qb = __fadd_rn(__fadd_rn(__fmul_rn(w.b0, w.b0),
-                                       __fmul_rn(w.b1, w.b1)),
-                             __fmul_rn(w.b2, w.b2));
-  const float total = __fadd_rn(__fadd_rn(st, sm), sb);
-  const float total_sq = __fadd_rn(__fadd_rn(qt, qm), qb);
-  const float mean = __fmul_rn(total, inv9);
-  const float var = __fsub_rn(__fmul_rn(total_sq, inv9),
+// Predictor coefficients of one image, read as c[k]. Up to 8 (the 3x3
+// window) live in registers; the 24/48/80 of the wide windows stay in the
+// shared-memory array they were staged in, since 80 floats a thread in
+// registers would spill.
+template <int K, bool kInRegisters = (K <= 8)>
+struct Coeffs {
+  float v[K];
+  __device__ __forceinline__ explicit Coeffs(const float* staged) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = staged[k];
+  }
+  __device__ __forceinline__ float operator[](int k) const { return v[k]; }
+};
+
+template <int K>
+struct Coeffs<K, false> {
+  const float* staged;
+  __device__ __forceinline__ explicit Coeffs(const float* s) : staged(s) {}
+  __device__ __forceinline__ float operator[](int k) const {
+    return staged[k];
+  }
+};
+
+// The same prediction error over the (2H+1)^2 - 1 taps of a window held in a
+// row-major array of row stride `stride`, centred on centre[0]: taps in
+// row-major order with the centre left out, subtracted in that order.
+template <int H, typename C>
+__device__ __forceinline__ float prediction_error_at(const float* centre,
+                                                     int stride,
+                                                     const C& c) {
+  float e = centre[0];
+  int k = 0;
+#pragma unroll
+  for (int dr = -H; dr <= H; ++dr) {
+#pragma unroll
+    for (int dc = -H; dc <= H; ++dc) {
+      if (dr == 0 && dc == 0) continue;
+      e = __fsub_rn(e, __fmul_rn(c[k], centre[dr * stride + dc]));
+      ++k;
+    }
+  }
+  return e;
+}
+
+// The NVF mask over the (2H+1)^2 window centred on centre[0], summed as
+// ops/nvf.py sums: per row across the columns, then across the rows; 1/p^2
+// rounded from double to float, as torch rounds the Python scalar.
+template <int H>
+__device__ __forceinline__ float nvf_at(const float* centre, int stride) {
+  constexpr int kP = 2 * H + 1;
+  const float inv_p2 = static_cast<float>(1.0 / (kP * kP));
+  float total = 0.0f, total_sq = 0.0f;
+#pragma unroll
+  for (int dr = -H; dr <= H; ++dr) {
+    const float* row = centre + dr * stride;
+    float sum = row[-H];
+    float sq = __fmul_rn(sum, sum);
+#pragma unroll
+    for (int dc = -H + 1; dc <= H; ++dc) {
+      sum = __fadd_rn(sum, row[dc]);
+      sq = __fadd_rn(sq, __fmul_rn(row[dc], row[dc]));
+    }
+    total = dr == -H ? sum : __fadd_rn(total, sum);
+    total_sq = dr == -H ? sq : __fadd_rn(total_sq, sq);
+  }
+  const float mean = __fmul_rn(total, inv_p2);
+  const float var = __fsub_rn(__fmul_rn(total_sq, inv_p2),
                               __fmul_rn(mean, mean));
   return __fdiv_rn(var, __fadd_rn(1.0f, var));
 }

@@ -4,19 +4,18 @@
 // and its raw twin _me_gram_kernel_raw (body _gram_core, assembled by
 // _assemble_gram).
 //
-// What bounds it on an H100: arithmetic. Every pixel feeds 45 products
-// (36 upper-triangle Rx, 8 rx, and centre^2 so the 9x9 is complete) into 45
-// running sums: 45 FMAs against 4 bytes read from device memory. At 1080p
-// x 8 frames that is 0.75 G FMA (about 22 us at the card's f32 rate) against
-// 66 MB (about 20 us at 3.35 TB/s), so the two are close and the FMAs win.
+// What bounds it on an H100: device memory. The Gram needs 13 lag products
+// a pixel (the TPU kernel's form), 0.22 G FMA at 1080p x 8 frames (about
+// 6 us at the card's f32 rate), against 66 MB read once (about 20 us at
+// 3.35 TB/s).
 //
 // What the design does about it: each thread owns one column and walks
 // kRows rows down it, keeping the 3x3 window in registers and loading only
-// the three new values of the next row (coalesced across the warp); the 45
-// sums stay in registers, and each block writes one row of 45 partial sums.
-// The TPU kernel's lag decomposition and boundary-row corrections existed to
-// keep its vector unit on full-width planes; a GPU thread does the 45 FMAs
-// directly, so none of that is needed.
+// the three new values of the next row (coalesced across the warp). It does
+// the 45 products of the upper triangle (36 Rx, 8 rx, centre^2) directly
+// into 45 register sums, 0.75 G FMA (22 us), more than the lag form needs
+// but without its boundary-row corrections; each block writes one row of
+// 45 partial sums.
 #include "common.cuh"
 
 namespace {

@@ -1,9 +1,10 @@
 """Batched (multi-frame) embed/detect.
 
 The pipelines take a leading batch axis natively: one call embeds or
-detects B frames, the per-frame 8x8 solves run as one batched solve, and the
-kernels see the whole stack as one grid. ``BatchedWatermark`` wraps them
-with the same engine ergonomics as ``Watermark``.
+detects B frames, at any p in {3, 5, 7, 9}; the per-frame solves run as
+one batched solve, and the kernels see the whole stack as one grid.
+``BatchedWatermark`` wraps them with the same engine ergonomics as
+``Watermark``.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 Same public contract as the JAX package's ``Watermark`` (and the
 reference's, ``Watermark.hpp:26-72``): a constructor with dims, watermark,
 p and psnr; ``embed`` == ``makeWatermark``; ``detect`` == ``detectWatermark``;
-``reinitialize``. The engine lives on an explicit ``device``; the watermark
-matrix is uploaded there once per ``reinitialize``. Results are tensors on
-that device (call ``float()`` on a strength or correlation to read it).
+``reinitialize``. The engine lives on a ``device``, the card unless the
+caller asks for another; the watermark matrix is uploaded there once per
+``reinitialize``. Results are tensors on that device (call ``float()`` on a
+strength or correlation to read it).
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ import torch
 
 from ..io.matfile import generate_watermark, load_watermark
 from ..ops.embed import strength_factor
-from ..ops.me import require_supported_p
 from ..ops.pipelines import IMPLS, detect_pipeline, embed_pipeline
 from .masks import MaskType
 
@@ -41,21 +41,24 @@ class Watermark:
     rows, cols : image dimensions this engine is specialized for.
     watermark  : path to a raw float32 ``.dat`` file, an array of shape
                  (rows, cols), or an integer seed to generate one.
-    p          : mask window size. The port implements p=3 (the reference's
-                 only predictor); 5, 7 and 9 raise ``NotImplementedError``.
+    p          : mask window size, 3, 5, 7 or 9: the NVF variance window,
+                 and the ME predictor's (the reference rejects p != 3 for
+                 ME; like the JAX package, ME here generalizes to the
+                 (p*p-1)-tap predictor).
     psnr       : target embedding PSNR in dB (> 0).
     impl       : 'cuda' (fused route: CUDA kernels on a CUDA device, their
                  plain versions on the CPU) or 'torch' (plain formulation).
-    device     : where the watermark lives and the work runs.
+    device     : where the watermark lives and the work runs; "cuda" by
+                 default (without a card, torch raises; pass "cpu" to run
+                 the kernels' plain versions there).
     """
 
     def __init__(self, rows: int, cols: int,
                  watermark: "str | os.PathLike | np.ndarray | int",
                  p: int = 3, psnr: float = 40.0, impl: str = "cuda",
-                 device: "str | torch.device" = "cpu"):
+                 device: "str | torch.device" = "cuda"):
         if p not in _VALID_P:
             raise ValueError(f"Wrong p parameter: {p}!")
-        require_supported_p(p)
         if psnr <= 0:
             raise ValueError("PSNR must be a positive number")
         if impl not in IMPLS:
@@ -68,7 +71,7 @@ class Watermark:
         self.reinitialize(watermark, rows, cols)
 
     @classmethod
-    def from_state(cls, state: dict, device: "str | torch.device" = "cpu",
+    def from_state(cls, state: dict, device: "str | torch.device" = "cuda",
                    impl: str = "cuda") -> "Watermark":
         """Build an engine from another engine's state as numpy:
         ``{"rows", "cols", "p", "psnr", "random_matrix"}`` (the JAX engine's

@@ -8,7 +8,8 @@ from .color import rgb_to_gray
 from .correlation import correlation
 from .embed import embed_watermark, strength_factor
 from .me import (me_mask_from_error, me_normal_equations, predict,
-                 prediction_error, solve_coefficients, solve_coefficients_spd)
+                 prediction_error, solve_coefficients, solve_coefficients_spd,
+                 solve_coefficients_spd_wide)
 from .neighbors import NEIGHBOR_OFFSETS, NUM_NEIGHBORS, pad_edge
 from .nvf import nvf_mask
 from .pipelines import detect_pipeline, embed_pipeline
@@ -18,5 +19,6 @@ __all__ = [
     "embed_pipeline", "embed_watermark", "me_mask_from_error",
     "me_normal_equations", "nvf_mask", "pad_edge",
     "predict", "prediction_error", "rgb_to_gray", "solve_coefficients",
-    "solve_coefficients_spd", "strength_factor",
+    "solve_coefficients_spd", "solve_coefficients_spd_wide",
+    "strength_factor",
 ]

@@ -6,12 +6,14 @@ Importing this package builds nothing: the kernels are compiled by
 counts its launches in a plain integer attribute, ``wrapper.launches``.
 """
 
+from ..me import lag_partials_plain, me_gram_wide_plain
 from .fused import (detect_partials, detect_partials_plain, embed_field,
                     embed_field_plain)
+from .me_gram_wide import me_gram_wide, wide_gram_partials
 from .me_kernel import me_gram, me_gram_plain
 
-KERNELS = {"me_gram": me_gram, "embed_field": embed_field,
-           "detect_partials": detect_partials}
+KERNELS = {"me_gram": me_gram, "me_gram_wide": me_gram_wide,
+           "embed_field": embed_field, "detect_partials": detect_partials}
 
 
 def reset_launch_counts() -> None:
@@ -24,5 +26,7 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = ["KERNELS", "detect_partials", "detect_partials_plain",
-           "embed_field", "embed_field_plain", "launch_counts", "me_gram",
-           "me_gram_plain", "reset_launch_counts"]
+           "embed_field", "embed_field_plain", "lag_partials_plain",
+           "launch_counts", "me_gram", "me_gram_plain", "me_gram_wide",
+           "me_gram_wide_plain", "reset_launch_counts",
+           "wide_gram_partials"]

@@ -2,10 +2,12 @@
 
 The kernels have a plain C interface, so they build with ``nvcc`` alone —
 no PyTorch headers, which keeps the build to seconds — into one shared
-library that is loaded with ``ctypes``:
+library that is loaded with ``ctypes``. Each source compiles in its own
+``nvcc`` process, all started together, and one more links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o libwm_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu     (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libwm_kernels.so *.o
 
 The library goes to ``watermarking_gpu_tpu_torch/_build/<hash>/``, keyed by a
 hash of the sources and the flags, at the first launch in a process. Every C
@@ -31,8 +33,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR / "_build"
 LIBRARY_NAME = "libwm_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -41,12 +44,13 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "wm_me_gram_num_blocks": (_INT, _INT),
     "wm_me_gram": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
-    "wm_embed_field_num_blocks": (_INT, _INT),
+    "wm_me_gram_wide": (_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    "wm_embed_field_num_blocks": (_INT, _INT, _INT, _INT),
     "wm_embed_field": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                       _PTR),
+                       _INT, _PTR),
     "wm_detect_partials_num_blocks": (_INT, _INT),
     "wm_detect_partials": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                           _PTR),
+                           _INT, _PTR),
 }
 
 
@@ -91,17 +95,35 @@ def build(build_root: Path = BUILD_ROOT) -> tuple[Path, str]:
         return library_path, ""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    partial = out_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
-    command = [nvcc, *NVCC_FLAGS, "-o", str(partial),
-               *(str(p) for p in sorted(CSRC_DIR.glob("*.cu")))]
-    result = subprocess.run(command, capture_output=True, text=True)
-    if result.returncode != 0:
-        partial.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({result.returncode}): {' '.join(command)}\n"
-            f"{result.stdout}{result.stderr}")
-    os.replace(partial, library_path)  # atomic next to concurrent builds
-    return library_path, result.stdout + result.stderr
+    tag = f"{os.getpid()}.tmp"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    partial = out_dir / f"{LIBRARY_NAME}.{tag}"
+    commands = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objects)]
+    try:
+        processes = [subprocess.Popen(command, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for command in commands]
+        logs = [process.communicate()[0] for process in processes]
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(partial),
+                *map(str, objects)]
+        failed = [(command, process.returncode, log) for command, process, log
+                  in zip(commands, processes, logs) if process.returncode]
+        if not failed:
+            result = subprocess.run(link, capture_output=True, text=True)
+            logs.append(result.stdout + result.stderr)
+            if result.returncode:
+                failed = [(link, result.returncode, logs[-1])]
+        if failed:
+            raise KernelBuildError("\n".join(
+                f"nvcc failed ({code}): {' '.join(command)}\n{log}"
+                for command, code, log in failed))
+        os.replace(partial, library_path)  # atomic next to concurrent builds
+    finally:
+        for path in (*objects, partial):
+            path.unlink(missing_ok=True)
+    return library_path, "".join(logs)
 
 
 @functools.cache
@@ -126,9 +148,11 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-def num_blocks(name: str, rows: int, cols: int) -> int:
-    """Blocks per frame of kernel ``name``'s grid (its partials' dim 1)."""
-    return int(getattr(library(), f"{name}_num_blocks")(rows, cols))
+def num_blocks(name: str, *dims: int) -> int:
+    """Blocks per frame of kernel ``name``'s grid (its partials' dim 1), for
+    the dims its C function takes: (rows, cols), and for the embed field,
+    whose grid depends on them, the mask type and p."""
+    return int(getattr(library(), f"{name}_num_blocks")(*dims))
 
 
 def check_input(name: str, tensor: torch.Tensor, shape: tuple,

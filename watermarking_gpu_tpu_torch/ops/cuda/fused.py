@@ -1,6 +1,10 @@
 """The fused embed-field and detect-tail kernels (``csrc/fused.cu``) and
 their plain PyTorch versions.
 
+Both take p in {3, 5, 7, 9}: ME predicts with the (p*p-1)-tap window; NVF
+takes its variance over p x p and, in detection, predicts with the fixed
+3x3 window (reference Watermark.cpp:238-241).
+
 * ``embed_field``: the unnormalized watermark field u_raw = mask * W, with
   mask = |e| (ME, e = x - sum_k c_k x_nbr) or the NVF mask, plus per image
   sum(u_raw^2) and max|e| (the max of the NVF mask for NVF, unused there).
@@ -32,13 +36,18 @@ def _mask_code(mask_type: str, p: int) -> int:
     return MASK_CODES[mask_type]
 
 
+def predictor_p(mask_type: str, p: int) -> int:
+    """The predictor's window: p for ME, the reference's 3x3 for NVF."""
+    return p if mask_type == "me" else 3
+
+
 def embed_field_plain(image: torch.Tensor, watermark: torch.Tensor,
                       coefficients: torch.Tensor | None,
                       mask_type: str = "me", p: int = 3
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, H, W) -> (u_raw (B, H, W), sum_u2 (B,), max_e (B,))."""
     if _mask_code(mask_type, p) == MASK_CODES["me"]:
-        mask = prediction_error(image, coefficients).abs()
+        mask = prediction_error(image, coefficients, p).abs()
     else:
         mask = nvf_mask(image, p)
     u_raw = mask * watermark
@@ -52,17 +61,18 @@ def detect_partials_plain(image: torch.Tensor, watermark: torch.Tensor,
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, H, W) -> (dot (B,), ||e_u||^2 (B,), ||e_z||^2 (B,))."""
     code = _mask_code(mask_type, p)
-    e_z = prediction_error(image, coefficients)
+    pred_p = predictor_p(mask_type, p)
+    e_z = prediction_error(image, coefficients, pred_p)
     mask = e_z.abs() if code == MASK_CODES["me"] else nvf_mask(image, p)
-    e_u = prediction_error(mask * watermark, coefficients)
+    e_u = prediction_error(mask * watermark, coefficients, pred_p)
     dims = (-2, -1)
     return ((e_u * e_z).sum(dim=dims), (e_u * e_u).sum(dim=dims),
             (e_z * e_z).sum(dim=dims))
 
 
 def _check_launch(image: torch.Tensor, watermark: torch.Tensor,
-                  coefficients: torch.Tensor | None, need_coefficients: bool
-                  ) -> tuple[int, int, int]:
+                  coefficients: torch.Tensor | None, need_coefficients: bool,
+                  taps: int) -> tuple[int, int, int]:
     if image.device.type != "cuda" or image.ndim != 3:
         raise ValueError(f"expected a (B, H, W) CUDA or CPU tensor, got "
                          f"{tuple(image.shape)} on {image.device}")
@@ -70,7 +80,7 @@ def _check_launch(image: torch.Tensor, watermark: torch.Tensor,
     build.check_input("image", image, (batch, rows, cols), image.device)
     build.check_input("watermark", watermark, (rows, cols), image.device)
     if need_coefficients or coefficients is not None:
-        build.check_input("coefficients", coefficients, (batch, 8),
+        build.check_input("coefficients", coefficients, (batch, taps),
                           image.device)
     return batch, rows, cols
 
@@ -79,8 +89,8 @@ def embed_field(image: torch.Tensor, watermark: torch.Tensor,
                 coefficients: torch.Tensor | None, mask_type: str = "me",
                 p: int = 3
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, H, W) f32 frames, (H, W) watermark, (B, 8) coefficients (ME; may
-    be None for NVF) -> (u_raw (B, H, W), sum_u2 (B,), max_e (B,)).
+    """(B, H, W) f32 frames, (H, W) watermark, (B, p*p-1) coefficients (ME;
+    may be None for NVF) -> (u_raw (B, H, W), sum_u2 (B,), max_e (B,)).
 
     CPU tensors take ``embed_field_plain``; CUDA tensors launch the kernel.
     """
@@ -88,16 +98,16 @@ def embed_field(image: torch.Tensor, watermark: torch.Tensor,
         return embed_field_plain(image, watermark, coefficients, mask_type, p)
     code = _mask_code(mask_type, p)
     batch, rows, cols = _check_launch(image, watermark, coefficients,
-                                      code == MASK_CODES["me"])
+                                      code == MASK_CODES["me"], p * p - 1)
     u_raw = torch.empty_like(image)
     partials = torch.empty(
-        (batch, build.num_blocks("wm_embed_field", rows, cols), 2),
+        (batch, build.num_blocks("wm_embed_field", rows, cols, code, p), 2),
         dtype=torch.float32, device=image.device)
     build.launch("wm_embed_field", image.device, image.data_ptr(),
                  watermark.data_ptr(),
                  None if coefficients is None else coefficients.data_ptr(),
                  u_raw.data_ptr(), partials.data_ptr(), batch, rows, cols,
-                 code)
+                 code, p)
     embed_field.launches += 1
     return u_raw, partials[..., 0].sum(dim=1), partials[..., 1].amax(dim=1)
 
@@ -106,8 +116,8 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
                     coefficients: torch.Tensor, mask_type: str = "me",
                     p: int = 3
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, H, W) f32 frames, (H, W) watermark, (B, 8) coefficients ->
-    (dot (B,), ||e_u||^2 (B,), ||e_z||^2 (B,)).
+    """(B, H, W) f32 frames, (H, W) watermark, (B, k) coefficients (k =
+    p*p-1 for ME, 8 for NVF) -> (dot (B,), ||e_u||^2 (B,), ||e_z||^2 (B,)).
 
     CPU tensors take ``detect_partials_plain``; CUDA tensors launch the
     kernel.
@@ -116,13 +126,15 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
         return detect_partials_plain(image, watermark, coefficients,
                                      mask_type, p)
     code = _mask_code(mask_type, p)
-    batch, rows, cols = _check_launch(image, watermark, coefficients, True)
+    taps = predictor_p(mask_type, p) ** 2 - 1
+    batch, rows, cols = _check_launch(image, watermark, coefficients, True,
+                                      taps)
     partials = torch.empty(
         (batch, build.num_blocks("wm_detect_partials", rows, cols), 3),
         dtype=torch.float32, device=image.device)
     build.launch("wm_detect_partials", image.device, image.data_ptr(),
                  watermark.data_ptr(), coefficients.data_ptr(),
-                 partials.data_ptr(), batch, rows, cols, code)
+                 partials.data_ptr(), batch, rows, cols, code, p)
     detect_partials.launches += 1
     sums = partials.sum(dim=1)
     return sums[:, 0], sums[:, 1], sums[:, 2]

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..me import me_normal_equations
+from ..me import gram_direct
 from . import build
 
 GRAM_SLOTS = 45  # upper triangle of the 9x9, row-major (torch.triu_indices)
@@ -17,11 +17,7 @@ GRAM_SLOTS = 45  # upper triangle of the 9x9, row-major (torch.triu_indices)
 
 def me_gram_plain(image: torch.Tensor) -> torch.Tensor:
     """(B, H, W) -> (B, 9, 9) Gram from the elementwise oracle."""
-    rx_matrix, rx_vector = me_normal_equations(image)
-    center_sq = (image * image).sum(dim=(-2, -1))
-    top = torch.cat([rx_matrix, rx_vector[..., :, None]], dim=-1)
-    bottom = torch.cat([rx_vector, center_sq[..., None]], dim=-1)
-    return torch.cat([top, bottom[..., None, :]], dim=-2)
+    return gram_direct(image, 3)
 
 
 def assemble_gram(upper: torch.Tensor) -> torch.Tensor:

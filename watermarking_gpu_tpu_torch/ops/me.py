@@ -13,48 +13,228 @@ Reference behavior:
   per-image ``valid`` flag that callers apply with ``torch.where`` — no host
   sync, no exception.
 
-Only the reference's p=3 predictor (8 taps) is ported; wider windows raise
-``NotImplementedError``. All functions are batch-polymorphic over leading
-dims: images (..., H, W), coefficients (..., 8), Rx (..., 8, 8), rx (..., 8).
+The reference hard-codes p=3 (8 taps); like the JAX package, every function
+here takes ``p`` in {3, 5, 7, 9} and generalizes to the (p*p-1)-tap
+predictor. All functions are batch-polymorphic over leading dims: images
+(..., H, W), coefficients (..., k), Rx (..., k, k), rx (..., k) with
+k = p*p - 1.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .neighbors import pad_edge, shifted_views
+from .neighbors import neighbor_offsets, pad_edge, shifted_views
 
-SUPPORTED_P = (3,)
+SUPPORTED_P = (3, 5, 7, 9)
 
 
 def require_supported_p(p: int) -> None:
-    """Raise for predictor windows the port does not have yet."""
+    """Raise for a window size the system does not have."""
     if p not in SUPPORTED_P:
-        raise NotImplementedError(
-            f"p={p}: the PyTorch port implements p=3 only; the wide windows "
-            "p in {5, 7, 9} are ROADMAP.md queue 1 item 9")
+        raise ValueError(f"p must be one of {SUPPORTED_P}, got {p}")
+
+
+def wide_lag_geometry(rows: int, cols: int, p: int) -> bool:
+    """Does a (rows, cols) frame take the lag form of the wide Gram?
+
+    The JAX package's rule (``ops/me.py::gram_terms_from_padded``,
+    ``me_gram_wide.py::wide_gram_supported``): p > 3 and at least 6h rows
+    and columns (h = p // 2), so that the boundary-row banks of the lag
+    assembly lie inside the clamp-extended frame. Smaller frames take the
+    direct per-pair sums.
+    """
+    half = p // 2
+    return p != 3 and rows >= 6 * half and cols >= 6 * half
+
+
+def gram_direct(image: torch.Tensor, p: int = 3) -> torch.Tensor:
+    """(..., H, W) -> (..., k+1, k+1) Gram of [k clamped neighbors; center]
+    by direct per-pair sums of elementwise products (full f32; no matmul, so
+    no TF32 question arises on the card)."""
+    require_supported_p(p)
+    rows, cols = image.shape[-2:]
+    views = shifted_views(pad_edge(image, p // 2), rows, cols, p) + [image]
+    n = len(views)
+    gram = image.new_empty(*image.shape[:-2], n, n)
+    for i in range(n):
+        for j in range(i, n):
+            total = (views[i] * views[j]).sum(dim=(-2, -1))
+            gram[..., i, j] = total
+            gram[..., j, i] = total
+    return gram
+
+
+# ---- the lag form of the wide Gram (p > 3) --------------------------------
+#
+# The JAX package's ops/pallas/me_gram_wide.py and ops/me.py::lag_partials:
+# every pair sum of the Gram is a window sum of one lag product plane
+# Q_d[y, x] = P[y, x] * P[y + dr, x + dc] of the clamp-extended image P.
+# Oriented canonically (dr > 0, or dr == 0 and dc >= 0) there are
+# ((4h+1)^2 + 1) / 2 lags, h = p // 2: 41, 85 and 145. The per-lag lane
+# partials V_d[v] = sum_{y in [0, H)} P[y, v - h] * P[y + dr, v - h + dc],
+# lanes v in [0, W + 2h) (image columns [-h, W + h)), are the contract of
+# the wide Gram kernel (ops/cuda/me_gram_wide.py); ``assemble_wide`` turns
+# them into the Gram with a few vectorized ops: each pair's column window is
+# the full lane sum less <= 2h edge lanes, and the pairs whose window is
+# row-shifted take boundary-row corrections from the low and high row banks
+# of the clamp-extended image. It needs rows, cols >= 6h
+# (``wide_lag_geometry``).
+
+
+@functools.cache
+def lag_plan(p: int):
+    """Static per-p assembly plan (the JAX package's ``_plan``, with the
+    center-center pair kept so the Gram is complete).
+
+    Returns (lags, pair_lag, pair_ar, pair_ai, pair_index):
+    lags       -- canonical (dr, dc) lags, dr >= 0 (dc >= 0 when dr == 0)
+    pair_lag   -- per pair, index into lags
+    pair_ar    -- per pair, window row offset in [-h, h]
+    pair_ai    -- per pair, window column index ac + h in [0, 2h]
+    pair_index -- (k+1) x (k+1) nested list of pair ids
+    """
+    h = p // 2
+    offsets = list(neighbor_offsets(p)) + [(0, 0)]   # center last
+    n = len(offsets)
+    lags: list[tuple[int, int]] = []
+    pair_lag, pair_ar, pair_ai, pairs = [], [], [], []
+    for a in range(n):
+        for b in range(a, n):
+            first, second = offsets[a], offsets[b]
+            lag = (second[0] - first[0], second[1] - first[1])
+            if lag < (0, 0):    # reorient: Q_{-d} is a shifted Q_d
+                lag = (-lag[0], -lag[1])
+                first = second
+            if lag not in lags:
+                lags.append(lag)
+            pairs.append((a, b))
+            pair_lag.append(lags.index(lag))
+            pair_ar.append(first[0])
+            pair_ai.append(first[1] + h)
+    pair_index = [[0] * n for _ in range(n)]
+    for i, (a, b) in enumerate(pairs):
+        pair_index[a][b] = pair_index[b][a] = i
+    assert len(lags) == ((4 * h + 1) ** 2 + 1) // 2
+    return tuple(lags), pair_lag, pair_ar, pair_ai, pair_index
+
+
+@functools.lru_cache(maxsize=16)
+def _indices(p: int, rows: int, cols: int, device: torch.device) -> dict:
+    """Index tensors of the assembly for one geometry, on ``device``."""
+    h = p // 2
+    lags, pair_lag, pair_ar, pair_ai, pair_index = lag_plan(p)
+    na = 2 * h + 1
+    lag_t = torch.tensor(lags, dtype=torch.long)
+    pair_lag_t = torch.tensor(pair_lag, dtype=torch.long)
+    ar = torch.tensor(pair_ar, dtype=torch.long)
+    ai = torch.tensor(pair_ai, dtype=torch.long)
+    per_lag = (2 * h + 1) * na
+    bank = torch.arange(-h, 3 * h)
+    index = {
+        "base": pair_lag_t * na + ai,
+        "hi": pair_lag_t * per_lag + (h + ar.clamp(min=0)) * na + ai,
+        "lo": pair_lag_t * per_lag + (h + ar.clamp(max=0)) * na + ai,
+        "sign": ar.sign().to(torch.float32),
+        "pair": torch.tensor(pair_index, dtype=torch.long),
+        # boundary banks: rows [-h, 3h) and [H-h, H+3h), columns
+        # [-3h, W+3h) of the clamp-extended image
+        "low_rows": bank.clamp(0, rows - 1),
+        "high_rows": (rows + bank).clamp(0, rows - 1),
+        "bank_cols": torch.arange(-3 * h, cols + 3 * h).clamp(0, cols - 1),
+        # Q_d's bottom factor in a bank: rows dr + [0, 2h), lanes
+        # 2h + dc + [0, W + 2h)
+        "q_rows": lag_t[:, 0, None] + torch.arange(2 * h),
+        "q_cols": 2 * h + lag_t[:, 1, None] + torch.arange(cols + 2 * h),
+    }
+    return {name: t.to(device) for name, t in index.items()}
+
+
+def lag_partials_plain(image: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, H, W) -> (B, L, W + 2h) per-lag lane partials (the plain version
+    of the wide Gram kernel; the JAX package's ``ops.me.lag_partials`` over
+    a 3h-padded image)."""
+    h = p // 2
+    rows, cols = image.shape[-2:]
+    ext = pad_edge(image, 3 * h)   # image row 0 at 3h, column -h at 2h
+    base = ext[:, 3 * h:3 * h + rows, 2 * h:4 * h + cols]
+    return torch.stack(
+        [(base * ext[:, 3 * h + dr:3 * h + dr + rows,
+                     2 * h + dc:4 * h + dc + cols]).sum(dim=-2)
+         for dr, dc in lag_plan(p)[0]], dim=1)
+
+
+def _edge_windows(x: torch.Tensor, h: int) -> torch.Tensor:
+    """All 2h+1 lane windows [ai, ai + W) of (..., W + 2h) partials: the
+    full sum less the ai left and 2h - ai right edge lanes."""
+    full = x.sum(dim=-1)
+    zero = x.new_zeros(x.shape[:-1] + (1,))
+    left = torch.cat([zero, x[..., :2 * h].cumsum(dim=-1)], dim=-1)
+    right = torch.cat([zero, x[..., -2 * h:].flip(-1).cumsum(dim=-1)],
+                      dim=-1)
+    return full[..., None] - left - right.flip(-1)
+
+
+def assemble_wide(partials: torch.Tensor, image: torch.Tensor,
+                  p: int) -> torch.Tensor:
+    """(B, L, W + 2h) lane partials of the (B, H, W) image
+    -> (B, k+1, k+1) Gram (the JAX package's ``_assemble_wide`` with the
+    boundary rows taken from the raw image at clamped indices)."""
+    h = p // 2
+    batch, rows, cols = image.shape
+    index = _indices(p, rows, cols, image.device)
+
+    # base windows: rows [0, H) of each lag, all 2h+1 column windows
+    base = _edge_windows(partials, h).reshape(batch, -1)[:, index["base"]]
+
+    def q_windows(bank_rows):
+        # Q_d over bank rows [-h, h): row j times row j + dr shifted dc
+        # lanes, then all column windows; cumulated over the block rows with
+        # a zero first, so cum[:, :, m] sums block rows [0, m)
+        bank = image.index_select(1, bank_rows).index_select(
+            2, index["bank_cols"])
+        top = bank[:, None, 0:2 * h, 2 * h:4 * h + cols]
+        bottom = bank[:, index["q_rows"][:, :, None],
+                      index["q_cols"][:, None, :]]
+        windows = _edge_windows(top * bottom, h)       # (B, L, 2h, 2h+1)
+        return torch.cat([torch.zeros_like(windows[:, :, :1]),
+                          windows.cumsum(dim=2)], dim=2)
+
+    # a pair's window rows [ar, H + ar) correct the base rows [0, H) by
+    # sign(ar) * (D[h + max(ar, 0)] - D[h + min(ar, 0)]), D = cumHigh - cumLow
+    diff = (q_windows(index["high_rows"])
+            - q_windows(index["low_rows"])).reshape(batch, -1)
+    values = base + index["sign"] * (diff[:, index["hi"]]
+                                     - diff[:, index["lo"]])
+    return values[:, index["pair"]]
+
+
+def me_gram_wide_plain(image: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, H, W) -> (B, k+1, k+1) Gram of the lag form in plain torch
+    (rows, cols >= 6h)."""
+    return assemble_wide(lag_partials_plain(image, p), image, p)
+
 
 
 def me_normal_equations(image: torch.Tensor, p: int = 3
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Accumulate Rx (..., 8, 8) and rx (..., 8) over all pixels.
+    """Accumulate Rx (..., k, k) and rx (..., k) over all pixels.
 
-    Built from elementwise products and sums (full f32; no matmul, so no
-    TF32 question arises on the card).
+    p > 3 at ``wide_lag_geometry`` takes the lag form of the JAX package's
+    ``_gram_lags_vectorized`` (``lag_partials_plain`` plus
+    ``assemble_wide``); everything else the direct per-pair sums.
     """
     require_supported_p(p)
-    rows, cols = image.shape[-2:]
-    views = shifted_views(pad_edge(image, 1), rows, cols)
-    k = len(views)
-    rx_vector = torch.stack(
-        [(view * image).sum(dim=(-2, -1)) for view in views], dim=-1)
-    rx_matrix = image.new_empty(*image.shape[:-2], k, k)
-    for i in range(k):
-        for j in range(i, k):
-            total = (views[i] * views[j]).sum(dim=(-2, -1))
-            rx_matrix[..., i, j] = total
-            rx_matrix[..., j, i] = total
-    return rx_matrix, rx_vector
+    k = p * p - 1
+    if wide_lag_geometry(*image.shape[-2:], p):
+        lead = image.shape[:-2]
+        gram = me_gram_wide_plain(image.reshape(-1, *image.shape[-2:]), p)
+        gram = gram.reshape(*lead, k + 1, k + 1)
+    else:
+        gram = gram_direct(image, p)
+    return gram[..., :k, :k], gram[..., :k, k]
 
 
 def _gate_finite(coefficients: torch.Tensor, valid: torch.Tensor
@@ -123,6 +303,24 @@ def solve_coefficients_spd(rx_matrix: torch.Tensor, rx_vector: torch.Tensor
                                                       dtype=torch.bool))
 
 
+def solve_coefficients_spd_wide(rx_matrix: torch.Tensor,
+                                rx_vector: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched Cholesky solve for the wide (k = 24/48/80) Gram systems.
+
+    ``torch.linalg.cholesky_ex`` reports a non-positive pivot in ``info``
+    instead of raising; ``valid`` is ``info == 0`` and a finite solution,
+    and invalid rows are zeroed. The JAX package's wide solves
+    (``solve_coefficients_spd_vec`` / ``_blocked``) are XLA code, not
+    kernels; unrolled in eager torch their scalar recurrences would launch
+    thousands of tiny ops per solve, so the library factorization takes
+    their place.
+    """
+    lower, info = torch.linalg.cholesky_ex(rx_matrix)
+    solution = torch.cholesky_solve(rx_vector[..., None], lower)[..., 0]
+    return _gate_finite(solution, info == 0)
+
+
 def prediction_error(image: torch.Tensor, coefficients: torch.Tensor,
                      p: int = 3) -> torch.Tensor:
     """Error sequence e = image - sum_k c_k * neighbor_k (clamped), with the
@@ -130,14 +328,16 @@ def prediction_error(image: torch.Tensor, coefficients: torch.Tensor,
     require_supported_p(p)
     rows, cols = image.shape[-2:]
     error = image
-    for k, view in enumerate(shifted_views(pad_edge(image, 1), rows, cols)):
+    for k, view in enumerate(shifted_views(pad_edge(image, p // 2), rows,
+                                           cols, p)):
         error = error - coefficients[..., k, None, None] * view
     return error
 
 
 def predict(image: torch.Tensor, coefficients: torch.Tensor,
             p: int = 3) -> torch.Tensor:
-    """8-tap linear prediction of each pixel from its clamped neighbors."""
+    """(p*p-1)-tap linear prediction of each pixel from its clamped
+    neighbors."""
     return image - prediction_error(image, coefficients, p)
 
 

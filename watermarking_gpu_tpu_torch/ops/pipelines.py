@@ -27,11 +27,12 @@ from typing import Literal
 import torch
 
 from .correlation import correlation
-from .cuda import detect_partials, embed_field, me_gram
+from .cuda import detect_partials, embed_field, me_gram, me_gram_wide
+from .cuda.fused import predictor_p
 from .embed import embed_watermark
 from .me import (me_mask_from_error, me_normal_equations, prediction_error,
                  require_supported_p, solve_coefficients,
-                 solve_coefficients_spd)
+                 solve_coefficients_spd, solve_coefficients_spd_wide)
 from .nvf import nvf_mask
 
 MaskTypeName = Literal["nvf", "me"]
@@ -60,11 +61,26 @@ def _gate(value: torch.Tensor, valid: torch.Tensor,
                        fallback)
 
 
-def _fused_analysis(img3: torch.Tensor
+def _analysis(image: torch.Tensor, p: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain Gram + solve -> (coefficients (..., p*p-1), valid (...,)):
+    the LU at p=3, Cholesky for the wider windows (the JAX package's
+    ``_analysis`` with impl="xla")."""
+    solve = solve_coefficients if p == 3 else solve_coefficients_spd_wide
+    return solve(*me_normal_equations(image, p))
+
+
+def _fused_analysis(img3: torch.Tensor, pred_p: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gram kernel + 8x8 Cholesky -> (coefficients (B, 8), valid (B,))."""
-    gram = me_gram(img3)
-    return solve_coefficients_spd(gram[:, :8, :8], gram[:, :8, 8])
+    """Gram kernel + Cholesky -> (coefficients (B, k), valid (B,)),
+    k = pred_p**2 - 1: the 3x3 Gram and the unrolled 8x8 solve at
+    pred_p=3, the wide lag Gram and the library Cholesky above it."""
+    if pred_p == 3:
+        gram = me_gram(img3)
+        return solve_coefficients_spd(gram[:, :8, :8], gram[:, :8, 8])
+    k = pred_p * pred_p - 1
+    gram = me_gram_wide(img3, pred_p)
+    return solve_coefficients_spd_wide(gram[:, :k, :k], gram[:, :k, k])
 
 
 def _embed_fused(image, output, watermark, strength_factor_value, mask_type,
@@ -72,7 +88,7 @@ def _embed_fused(image, output, watermark, strength_factor_value, mask_type,
     squeeze = image.ndim == 2
     img3 = (image[None] if squeeze else image).contiguous()
     if mask_type == "me":
-        coefficients, valid = _fused_analysis(img3)
+        coefficients, valid = _fused_analysis(img3, p)
     else:
         coefficients = None
         valid = torch.ones(img3.shape[0], dtype=torch.bool,
@@ -108,8 +124,8 @@ def embed_pipeline(image: torch.Tensor, output: torch.Tensor,
         return _embed_fused(image, output, watermark, strength_factor_value,
                             mask_type, p)
     if mask_type == "me":
-        coefficients, valid = solve_coefficients(*me_normal_equations(image))
-        mask = me_mask_from_error(prediction_error(image, coefficients))
+        coefficients, valid = _analysis(image, p)
+        mask = me_mask_from_error(prediction_error(image, coefficients, p))
     else:
         mask = nvf_mask(image, p)
         valid = torch.ones(image.shape[:-2], dtype=torch.bool,
@@ -134,16 +150,18 @@ def detect_pipeline(image: torch.Tensor, watermark: torch.Tensor,
     if impl == "cuda":
         squeeze = image.ndim == 2
         img3 = (image[None] if squeeze else image).contiguous()
-        coefficients, valid = _fused_analysis(img3)
+        coefficients, valid = _fused_analysis(img3,
+                                              predictor_p(mask_type, p))
         dot, norm_u, norm_z = detect_partials(img3, watermark.contiguous(),
                                               coefficients, mask_type, p)
         corr = dot / torch.sqrt(norm_u * norm_z)
         if squeeze:
             corr, valid = corr[0], valid[0]
         return torch.where(valid, corr, 0.0)
-    coefficients, valid = solve_coefficients(*me_normal_equations(image))
-    e_z = prediction_error(image, coefficients)
+    pred_p = predictor_p(mask_type, p)
+    coefficients, valid = _analysis(image, pred_p)
+    e_z = prediction_error(image, coefficients, pred_p)
     mask = me_mask_from_error(e_z) if mask_type == "me" else nvf_mask(image,
                                                                       p)
-    e_u = prediction_error(mask * watermark, coefficients)
+    e_u = prediction_error(mask * watermark, coefficients, pred_p)
     return torch.where(valid, correlation(e_u, e_z), 0.0)
