@@ -14,30 +14,42 @@ prints no result:
    inputs and coefficients, at 8 x 1080 x 1920 and at 3 x 37 x 83: the p=3
    kernels, then for p = 5, 7, 9 the wide Gram's lag partials (and the
    assembled Gram against the direct per-pair sums ``gram_direct(p)``) and
-   the embed field and detect tail at ME and NVF p.
+   the embed field and detect tail at ME and NVF p; then at p = 3, 5, 7, 9
+   the multi-candidate detect at ME and NVF against the 64-candidate bank
+   (5 candidates at the small shape: a partial chunk) and the standalone
+   prediction error and NVF mask.
 3. The main paths, through ``BatchedWatermark(1080, 1920, 28390211, p=P,
    psnr=40, device="cuda")``. P=3: ME and NVF embed then detect of 8
    frames, ``embed_luma_u8`` and one single-frame ``Watermark`` round trip.
-   P = 5, 7, 9: ME and NVF embed then detect of 8 frames. Each is held to
-   numbers the JAX package computed on the CPU from the same frames, and
-   its kernels' launch counters are zeroed just before it and read just
-   after.
+   P = 5, 7, 9: ME and NVF embed then detect of 8 frames. Identification
+   at ME and NVF P = 3, 5, 7, 9: ``IdentifierService`` answers 16
+   single-frame requests (8 marked frames, 8 clean) against the
+   64-candidate bank. Each is held to numbers the JAX package computed on
+   the CPU from the same frames (identification at ME P=3 and 5 and NVF
+   P=3), and its kernels' launch counters are zeroed just before it and
+   read just after.
 4. Timing with CUDA events: the chained 8-frame ME embed+detect step at
    each P through the kernels and through the plain path
-   (``impl="torch"``), and each kernel beside its plain version.
+   (``impl="torch"``), each kernel beside its plain version (the prediction
+   error also beside one ``conv2d``), and the identification of 8 frames
+   against 64 candidates (ME) at each P through the kernel, through the
+   plain route and as 64 looped detects.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
-phase 3;
-``max_abs_err`` of its main output against the plain version at
-8 x 1080 x 1920 (the Gram or lag partials, u_raw, or the correlation formed
-from the detect sums) and ``max_rel_err`` of its reductions; ``ms`` and
-``plain_ms`` per call from phase 4; ``bound_ms``, the least time an H100
-could take for the same work (the larger of the bytes the function must
-move over 3.35 TB/s and the flops it needs over 67 TFLOP/s f32, NVIDIA's
-data-sheet peaks for the SXM part at 700 W; see ``kernel_bound``), and
-``bound_by``; ``library_ms`` is null:
-no single PyTorch call computes any of these functions. The last line is
+phase 3 (0 for the standalone prediction error and NVF mask, which no main
+path runs); ``max_abs_err`` of its main output against the plain version at
+8 x 1080 x 1920 (the Gram or lag partials, u_raw, the correlation formed
+from the detect sums, or the standalone op's output) and ``max_rel_err`` of
+its reductions (of the output, relative to its largest value, for the
+standalone ops); ``ms`` and ``plain_ms`` per call from phase 4;
+``bound_ms``, the least time an H100 could take for the same work (the
+larger of the bytes the function must move over 3.35 TB/s and the flops it
+needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
+700 W; see ``kernel_bound``), and ``bound_by``; ``library_ms``: for the
+prediction error one grouped ``conv2d`` over the edge-padded frames (the
+pad included, cuDNN's TF32 off), null for the rest, which no single
+PyTorch call computes. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -50,7 +62,9 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from watermarking_gpu_tpu_torch import IdentifierService
 from watermarking_gpu_tpu_torch.io.matfile import generate_watermark
 from watermarking_gpu_tpu_torch.models import (BatchedWatermark, Watermark,
                                                batch_detect, batch_embed)
@@ -60,11 +74,20 @@ from watermarking_gpu_tpu_torch.ops.cuda import build
 from watermarking_gpu_tpu_torch.ops.me import (gram_direct,
                                                solve_coefficients_spd,
                                                solve_coefficients_spd_wide)
+from watermarking_gpu_tpu_torch.ops.neighbors import neighbor_offsets
 
 ROWS, COLS, BATCH = 1080, 1920, 8
 SEED = 28390211
 PSNR = 40.0
 WIDE_P = (5, 7, 9)
+ALL_P = (3, *WIDE_P)
+# identification: a bank of 64 candidates, the engines' own watermark in
+# slot ENGINE_CANDIDATE and N(0, 1) decoys from BANK_SEED elsewhere (the
+# geometry of the JAX package's detect_many_1080p_n64_p5 row)
+N_CANDIDATES = 64
+BANK_SEED = 9041
+ENGINE_CANDIDATE = 17
+IDENTIFY_CASES = tuple((mask, p) for p in ALL_P for mask in ("me", "nvf"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same source
 
@@ -225,6 +248,10 @@ CORR_ATOL = 5e-4
 STRENGTH_RTOL = 5e-3
 PIXEL_ATOL, PIXEL_RTOL = 1e-2, 1e-2
 
+# detect_many's column for the engine's own watermark against detect on the
+# same frames: the same kernels' sums, finished in another order
+DETECT_MANY_ATOL = 1e-5
+
 KERNEL_SOURCES = {
     "me_gram": ("watermarking_gpu_tpu_torch/csrc/me_gram.cu",
                 "watermarking_gpu_tpu/ops/pallas/me_kernel.py:101"),
@@ -234,7 +261,15 @@ KERNEL_SOURCES = {
                     "watermarking_gpu_tpu/ops/pallas/fused.py:885"),
     "detect_partials": ("watermarking_gpu_tpu_torch/csrc/fused.cu",
                         "watermarking_gpu_tpu/ops/pallas/fused.py:300"),
+    "detect_many": ("watermarking_gpu_tpu_torch/csrc/fused.cu",
+                    "watermarking_gpu_tpu/ops/pallas/fused.py:683"),
+    "prediction_error": (
+        "watermarking_gpu_tpu_torch/csrc/predict.cu",
+        "watermarking_gpu_tpu/ops/pallas/predict_kernel.py:56"),
+    "nvf_mask": ("watermarking_gpu_tpu_torch/csrc/nvf.cu",
+                 "watermarking_gpu_tpu/ops/pallas/nvf_kernel.py:24"),
 }
+STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
 P3_KERNELS = ("me_gram", "embed_field", "detect_partials")
 
 
@@ -257,6 +292,14 @@ def make_frames() -> np.ndarray:
     return np.clip(base[None] + jitter, 0, 255).astype(np.float32)
 
 
+def make_bank() -> np.ndarray:
+    """The (64, 1080, 1920) f32 candidate bank."""
+    bank = np.random.default_rng(BANK_SEED).standard_normal(
+        (N_CANDIDATES, ROWS, COLS), dtype=np.float32)
+    bank[ENGINE_CANDIDATE] = generate_watermark(ROWS, COLS, SEED)
+    return bank
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
 
@@ -272,7 +315,8 @@ def phase_card_and_build() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    # the port uses no matmul or convolution, but state the f32 modes
+    # the port uses no matmul or convolution; the one convolution timed as
+    # a yardstick (conv_prediction_error) must run in full f32 too
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     start = time.perf_counter()
@@ -506,18 +550,22 @@ def phase_timing(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     return times
 
 
-def wide_coefficients(img: torch.Tensor, p: int) -> dict:
-    """Per-mask predictor coefficients from the plain Gram and solves: the
-    (p*p-1)-tap predictor for ME, the 3x3 one for NVF."""
-    k = p * p - 1
-    gram = kernels.me_gram_wide_plain(img, p)
-    coeffs, valid = solve_coefficients_spd_wide(gram[:, :k, :k],
-                                                gram[:, :k, k])
-    check(bool(valid.all()), f"p={p}: the wide solve flagged a frame")
-    gram3 = kernels.me_gram_plain(img)
-    coeffs3, valid3 = solve_coefficients_spd(gram3[:, :8, :8], gram3[:, :8, 8])
-    check(bool(valid3.all()), "the 3x3 solve flagged a frame")
-    return {"me": coeffs, "nvf": coeffs3}
+def predictor_coefficients(img: torch.Tensor) -> dict[int, torch.Tensor]:
+    """The frames' (p*p-1)-tap ME predictor at each p from the plain Gram
+    and solves (p=3's is also NVF detection's at every p)."""
+    coeffs = {}
+    for p in ALL_P:
+        k = p * p - 1
+        if p == 3:
+            gram = kernels.me_gram_plain(img)
+            coeffs[p], valid = solve_coefficients_spd(gram[:, :k, :k],
+                                                      gram[:, :k, k])
+        else:
+            gram = kernels.me_gram_wide_plain(img, p)
+            coeffs[p], valid = solve_coefficients_spd_wide(gram[:, :k, :k],
+                                                           gram[:, :k, k])
+        check(bool(valid.all()), f"p={p}: the solve flagged a frame")
+    return coeffs
 
 
 def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
@@ -552,12 +600,12 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                 errors[f"me_gram_wide_p{p}"] = (
                     float((lags - lags_plain).abs().max()),
                     rel_err(lags, lags_plain))
-            coeffs = wide_coefficients(img, p)
+            coeffs = predictor_coefficients(img)
             for mask in ("me", "nvf"):
-                got = kernels.embed_field(
-                    img, wm, coeffs[mask] if mask == "me" else None, mask, p)
-                want = kernels.embed_field_plain(img, wm, coeffs[mask], mask,
-                                                 p)
+                c = coeffs[p if mask == "me" else 3]
+                got = kernels.embed_field(img, wm, c if mask == "me" else None,
+                                          mask, p)
+                want = kernels.embed_field_plain(img, wm, c, mask, p)
                 u_err = float((got[0] - want[0]).abs().max())
                 check(torch.allclose(got[0], want[0], rtol=U_RAW_RTOL,
                                      atol=U_RAW_ATOL),
@@ -567,9 +615,8 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                                                              want[1:]))
                 check(sums_err <= SUM_RTOL, f"embed_field {mask} {label}: "
                       f"reduction rel err {sums_err:.3e}")
-                got = kernels.detect_partials(img, wm, coeffs[mask], mask, p)
-                want = kernels.detect_partials_plain(img, wm, coeffs[mask],
-                                                     mask, p)
+                got = kernels.detect_partials(img, wm, c, mask, p)
+                want = kernels.detect_partials_plain(img, wm, c, mask, p)
                 detect_err = max(rel_err(g, w) for g, w in zip(got, want))
                 check(detect_err <= SUM_RTOL, f"detect_partials {mask} "
                       f"{label}: rel err {detect_err:.3e}")
@@ -685,12 +732,12 @@ def phase_wide_timing(frames_d: torch.Tensor, wm_d: torch.Tensor,
           f"{fps['cuda'][1]:.1f}), plain path {max(fps['torch']):.1f} fps "
           f"(runs {fps['torch'][0]:.1f}, {fps['torch'][1]:.1f})", flush=True)
 
-    coeffs = wide_coefficients(frames_d, p)
+    coeffs = predictor_coefficients(frames_d)
     pairs = {f"me_gram_wide_p{p}": (
         lambda: kernels.wide_gram_partials(frames_d, p),
         lambda: kernels.lag_partials_plain(frames_d, p))}
     for mask in ("me", "nvf"):
-        c = coeffs[mask]
+        c = coeffs[p if mask == "me" else 3]
         pairs[f"embed_field_{mask}_p{p}"] = (
             lambda c=c, m=mask: kernels.embed_field(
                 frames_d, wm_d, c if m == "me" else None, m, p),
@@ -713,6 +760,355 @@ def phase_wide_timing(frames_d: torch.Tensor, wm_d: torch.Tensor,
     return times
 
 
+def many_errors(got: tuple, want: tuple) -> tuple[float, float]:
+    """(max abs err of the correlations, max rel err of the sums) of the
+    multi-candidate kernel's (dot, norm_u, norm_z) against the plain
+    version's. A dot's error is taken relative to sqrt(norm_u * norm_z),
+    the most |dot| can be: a candidate that the frame does not carry has a
+    dot near 0, where an error relative to the dot itself means nothing."""
+    dot, norm_u, norm_z = got
+    dot_w, norm_u_w, norm_z_w = want
+    scale = torch.sqrt(norm_u_w * norm_z_w[:, None])
+    sums = max(float(((dot - dot_w).abs() / scale).max()),
+               rel_err(norm_u, norm_u_w), rel_err(norm_z, norm_z_w))
+    corr = dot / torch.sqrt(norm_u * norm_z[:, None])
+    return float((corr - dot_w / scale).abs().max()), sums
+
+
+def phase_identify_kernels(frames_d: torch.Tensor,
+                           bank_d: torch.Tensor) -> dict:
+    """The multi-candidate kernel at ME and NVF p = 3, 5, 7, 9 and the
+    standalone prediction error and NVF mask at each p, against their plain
+    versions on the same inputs, at 8 x 1080 x 1920 with the 64-candidate
+    bank and at 3 x 37 x 83 with 5 candidates (a partial chunk). Returns
+    per-row (max abs err, max rel err) at the main path's shape: for the
+    standalone ops the error of the output, relative to its largest
+    value."""
+    errors = {}
+    gen = np.random.default_rng(7)
+    small = torch.from_numpy(np.clip(gen.normal(128, 40, (3, 37, 83)), 0,
+                                     255).astype(np.float32)).cuda()
+    small_bank = torch.from_numpy(
+        gen.normal(size=(5, 37, 83)).astype(np.float32)).cuda()
+    for img, bank in ((frames_d, bank_d), (small, small_bank)):
+        label = "x".join(str(n) for n in img.shape) + f" N={bank.shape[0]}"
+        coeffs = predictor_coefficients(img)
+        before = kernels.launch_counts()
+        worst = {}
+        for p in ALL_P:
+            for mask in ("me", "nvf"):
+                c = coeffs[p if mask == "me" else 3]
+                name = f"detect_many_{mask}_p{p}"
+                worst[name] = many_errors(
+                    kernels.detect_many_partials(img, bank, c, mask, p),
+                    kernels.detect_many_partials_plain(img, bank, c, mask,
+                                                       p))
+                check(worst[name][1] <= SUM_RTOL,
+                      f"{name} {label}: sums rel err {worst[name][1]:.3e}")
+            for name, got, want in (
+                    (f"prediction_error_p{p}",
+                     kernels.prediction_error(img, coeffs[p], p),
+                     kernels.prediction_error_plain(img, coeffs[p], p)),
+                    (f"nvf_mask_p{p}", kernels.nvf_mask(img, p),
+                     kernels.nvf_mask_plain(img, p))):
+                abs_err = float((got - want).abs().max())
+                check(torch.allclose(got, want, rtol=U_RAW_RTOL,
+                                     atol=U_RAW_ATOL),
+                      f"{name} {label}: max abs err {abs_err:.3e}")
+                worst[name] = (abs_err, abs_err / float(want.abs().max()))
+        after = kernels.launch_counts()
+        check(all(after[k] > before[k] for k in ("detect_many",
+                                                  *STANDALONE_KERNELS)),
+              f"{label}: a launch counter did not rise: {before} -> {after}")
+        torch.cuda.synchronize()
+        many = [v for k, v in worst.items() if k.startswith("detect_many")]
+        alone = [v[0] for k, v in worst.items()
+                 if not k.startswith("detect_many")]
+        print(f"[2] {label}: detect_many at ME and NVF p = 3, 5, 7, 9: sums "
+              f"rel {max(v[1] for v in many):.2e}, corr abs "
+              f"{max(v[0] for v in many):.2e}; prediction_error and nvf_mask "
+              f"at p = 3, 5, 7, 9: max abs {max(alone):.2e}: ok", flush=True)
+        if img is frames_d:
+            errors = worst
+    return errors
+
+
+# Computed by the JAX package (watermarking_gpu_tpu, impl="xla") on the CPU
+# from make_frames()[0] and make_bank(), by
+#   JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py \
+#       --identify me:3 nvf:3 me:5
+# embed_pipeline(frame, frame, W, strength_factor(40), mask, p), then
+# detect_many_pipeline of the marked frame ("marked") and of the clean one
+# ("clean") against the 64 candidates.
+JAX_IDENTIFY_REFERENCE = {
+    "me:3": {
+        "marked": [
+            0.0017552983, 0.00014382071, -0.0018654284, 0.0001468621,
+            0.0017927657, 0.00062137615, -0.00090063305, -0.00042619949,
+            -0.00045865678, 0.00038274075, 0.0017631896, 0.00058080896,
+            0.00064095668, 0.0018760331, 5.8335041e-05, -0.00074456859,
+            -0.0021302777, 0.13074884, 0.0013008174, 0.0016730988,
+            -0.00058278959, -0.001004977, 0.0011185304, -0.0026744769,
+            0.00048616325, -0.00077599147, -0.0003328952, 0.00081145635,
+            0.0014747133, -0.00015034007, 0.001363015, -0.0016008483,
+            -0.0013679459, -0.00025787891, -0.0005918605, 0.0006442481,
+            0.0014857535, -0.00050474418, -1.5598327e-05, -0.0012532339,
+            0.00070143113, -0.00047819992, 0.0001299976, -0.0016357674,
+            -0.0019876733, 0.0012452999, 0.0020823926, -0.0025590986,
+            0.00059093052, 0.0006884234, 0.0013996022, -0.0023637824,
+            -0.00044351231, 0.0010576192, -0.0019242701, 0.0016971288,
+            -0.00039102283, -0.0028198911, 0.00053389109, 0.0012218122,
+            -0.00040352333, -0.00014954612, 0.00074560603, -0.00077578408
+        ],
+        "clean": [
+            0.0017267846, 0.00025560416, -0.0018353035, -8.7694985e-05,
+            0.0017734254, 0.00046537339, -0.00091460889, -0.00055918656,
+            -0.00058077404, 0.00058088318, 0.0018424572, 0.00045071857,
+            0.00058116368, 0.0017080955, -5.993298e-05, -0.00057210075,
+            -0.0022044461, 0.0025358004, 0.0013010749, 0.0016764931,
+            -0.00067069248, -0.0011443954, 0.00099732832, -0.002869467,
+            0.00075503316, -0.00086469162, -0.00026037975, 0.00079075218,
+            0.0016330237, 2.9812172e-05, 0.0012925394, -0.0016199449,
+            -0.0014971279, -0.00044898008, -0.00040614154, 0.00064401963,
+            0.0014739499, -0.00060653285, 0.00016949855, -0.00092805055,
+            0.00075579097, -0.00055393542, -3.6036683e-05, -0.0015370235,
+            -0.0019907432, 0.0010663744, 0.0021840085, -0.0025268288,
+            0.00084589026, 0.00067189493, 0.0015506481, -0.0020951899,
+            -0.0004601808, 0.0010172608, -0.0018797873, 0.0017469638,
+            -0.0005439886, -0.0029137484, 0.00063733722, 0.0013196426,
+            -0.000509798, 0.00011311319, 0.00076401012, -0.0006682729
+        ],
+    },
+    "nvf:3": {
+        "marked": [
+            0.0010897518, -0.00015956207, -0.001705746, -0.0002358171,
+            0.0008560968, 0.00017494419, -0.00066261698, -0.00069295347,
+            -0.00047956032, 0.00035944048, 0.00056917476, 0.00067755836,
+            0.00054929749, 0.0011871544, 0.00013105322, -4.7004123e-05,
+            -0.0013993357, 0.064629048, 0.00073509291, 0.00047868665,
+            -0.00029170068, -0.00046572209, 0.00064929872, -0.0019589493,
+            0.00047422809, -0.00035314402, 0.00024273194, -0.00031655654,
+            0.00072595797, -4.4386663e-05, 0.00022747672, -0.00059329456,
+            -0.00070312154, -0.000197355, -0.00018196579, 0.00023098792,
+            0.00096172717, -0.00023531748, 0.00046521763, -0.00040429295,
+            0.00054482953, -0.00076846546, 1.5431659e-05, -0.0011165764,
+            -0.0016560366, 0.00075277081, 0.0016842539, -0.0019023294,
+            0.00014822048, 0.0008747704, 0.00067494222, -0.0011038077,
+            -0.00019170568, 0.00029556913, -0.00076003972, 0.0011802538,
+            -0.00039353728, -0.0016703639, 0.00026855548, 0.00064459187,
+            1.7453693e-05, -0.00017259442, 0.00051019312, -0.00077316962
+        ],
+        "clean": [
+            0.0010633613, -0.00022940896, -0.0016081939, -0.00022946249,
+            0.000838576, 0.00015674757, -0.00064241519, -0.00066409499,
+            -0.0004397523, 0.00046326368, 0.0005986141, 0.00058678578,
+            0.00055010483, 0.001180599, 9.8895711e-05, -5.688889e-05,
+            -0.0014362235, 0.0010031174, 0.00064474536, 0.00054077368,
+            -0.00027581741, -0.00049798517, 0.00059886416, -0.0020099499,
+            0.00049835467, -0.00033391244, 0.00023770684, -0.0002548726,
+            0.00076621014, -7.1520822e-06, 0.00024938612, -0.00054448837,
+            -0.00068698695, -0.00021345087, -0.00014821715, 0.00024068565,
+            0.00098714931, -0.00027290138, 0.00041630288, -0.00027624305,
+            0.00044931768, -0.00080113148, -1.295463e-05, -0.0010944083,
+            -0.0016094391, 0.00068748015, 0.0015870727, -0.0018314261,
+            0.00023747935, 0.00084795716, 0.00064099109, -0.00099015771,
+            -0.00011965273, 0.00034967682, -0.0008061385, 0.0012515103,
+            -0.00041192718, -0.0016974667, 0.00033930488, 0.00064388983,
+            1.7170951e-05, -0.00023165405, 0.00054546283, -0.0007842757
+        ],
+    },
+    "me:5": {
+        "marked": [
+            0.0010921702, -0.0001131691, -0.0014025306, 0.00047552775,
+            0.00081037841, 0.00046637637, -0.00061571295, -0.00090878457,
+            0.00017740854, 0.00082211115, 0.00095937517, 0.00057844864,
+            0.0011404399, 0.0019181786, 0.00021033989, -0.00088455563,
+            -0.00234053, 0.12827303, 0.0013835474, 0.0012716141,
+            -4.1829386e-05, -0.001418134, 0.0015290165, -0.0028418628,
+            0.00073770009, -0.00063309452, -0.00096036756, 0.00019890592,
+            0.0010983624, -0.0010262864, 0.00077679835, -0.00081793126,
+            -0.001624485, 0.00017870798, -0.00047321123, 0.00094616314,
+            0.0010921274, 1.4619524e-05, 0.00020212936, -0.0014956029,
+            0.00093008351, 4.6851292e-05, 0.0007359155, -0.0014918179,
+            -0.0014105467, 0.0011209545, 0.00039589539, -0.002776809,
+            0.00047802605, -0.00050010614, 0.00092517876, -0.0017550683,
+            -0.00056431186, 0.001146596, -0.0017540314, 0.00057969394,
+            -0.00076561229, -0.0021527261, -0.00044839634, 0.00067821477,
+            -0.00065086235, 0.0006740645, 0.0008439059, -0.001308544
+        ],
+        "clean": [
+            0.0010522075, -3.6737576e-05, -0.0014178704, 0.00029064654,
+            0.00084022258, 0.00041263504, -0.00055605394, -0.0011074878,
+            0.00011833732, 0.00099553517, 0.0011300021, 0.00053352531,
+            0.0011113416, 0.001717019, 5.7098105e-06, -0.00074817485,
+            -0.0023097803, 0.0020096984, 0.0012189421, 0.001211462,
+            -0.00016844361, -0.0015340176, 0.0014314897, -0.0031154773,
+            0.0011099247, -0.00077867083, -0.0010043228, 0.00022511685,
+            0.0012937764, -0.00090821029, 0.000782063, -0.00087854656,
+            -0.0017965343, -7.545657e-05, -0.00041542188, 0.00093036855,
+            0.0012008979, 7.3608255e-08, 0.00030188981, -0.0013403258,
+            0.00097576232, 8.6618202e-05, 0.00052758114, -0.0013861564,
+            -0.0014844654, 0.0010013024, 0.00044941634, -0.0027692113,
+            0.00073779415, -0.00058946974, 0.0011951715, -0.0015547489,
+            -0.00051712431, 0.00096969842, -0.0017540461, 0.00078220799,
+            -0.00090443116, -0.0022667209, -0.00041370094, 0.00082209503,
+            -0.00069406384, 0.00095467299, 0.00080348772, -0.0011433944
+        ],
+    },
+}
+
+
+def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
+    """Identification through ``IdentifierService(BatchedWatermark(1080,
+    1920, 28390211, p=P, psnr=40, device="cuda"), bank)`` at ME and NVF
+    P = 3, 5, 7, 9: 16 single-frame requests, the 8 frames marked by the
+    engine, then the 8 clean ones. Returns each case's launch counts, zeroed
+    just before its requests and read just after."""
+    frames_d = torch.from_numpy(frames).cuda()
+    counts = {}
+    for mask, p in IDENTIFY_CASES:
+        engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR,
+                                  device="cuda")
+        marked, _ = engine.embed(frames_d, mask_type=mask)
+        direct = engine.detect(marked, mask).cpu().numpy()
+        requests = np.concatenate([marked.cpu().numpy(), frames])
+        service = IdentifierService(engine, bank, mask_type=mask,
+                                    batch_size=BATCH)
+        try:
+            service.warmup()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            futures = [service.submit(frame) for frame in requests]
+            scores = np.stack([f.result(timeout=600) for f in futures])
+            seconds = time.perf_counter() - start
+            torch.cuda.synchronize()
+            counts[(mask, p)] = kernels.launch_counts()
+            stats = service.stats()
+        finally:
+            service.close()
+        label = f"P={p} {mask}"
+        gram = "me_gram_wide" if mask == "me" and p > 3 else "me_gram"
+        check(counts[(mask, p)]["detect_many"] > 0
+              and counts[(mask, p)][gram] > 0,
+              f"{label}: a kernel was never launched: {counts[(mask, p)]}")
+        check(scores.shape == (2 * BATCH, N_CANDIDATES)
+              and bool(np.isfinite(scores).all()),
+              f"{label}: bad scores {scores.shape}")
+        own = scores[:BATCH, ENGINE_CANDIDATE]
+        check((scores[:BATCH].argmax(axis=1) == ENGINE_CANDIDATE).all(),
+              f"{label}: marked frames' argmax "
+              f"{scores[:BATCH].argmax(axis=1)}, not {ENGINE_CANDIDATE}")
+        clean_max = float(np.abs(scores[BATCH:]).max())
+        check(clean_max < 0.2 * own.min(),
+              f"{label}: clean frames correlate too well: {clean_max} vs "
+              f"{own.min()}")
+        own_err = float(np.abs(own - direct).max())
+        check(own_err <= DETECT_MANY_ATOL,
+              f"{label}: detect_many's own column {own} vs detect {direct}")
+        ref = JAX_IDENTIFY_REFERENCE.get(f"{mask}:{p}")
+        jax_note = ""
+        if ref is not None:
+            jax_err = max(np.abs(scores[0] - ref["marked"]).max(),
+                          np.abs(scores[BATCH] - ref["clean"]).max())
+            check(jax_err <= CORR_ATOL,
+                  f"{label}: correlations differ from JAX's by {jax_err}")
+            jax_note = f", JAX max abs diff {jax_err:.2e}"
+        print(f"[3] identify {label}: {len(requests)} requests in "
+              f"{stats['batches']} batches, {seconds:.3f} s; argmax "
+              f"{ENGINE_CANDIDATE} on every marked frame (corr "
+              f"{own.mean():.6f}, best decoy "
+              f"{np.delete(scores[:BATCH], ENGINE_CANDIDATE, 1).max():.2e}, "
+              f"clean max {clean_max:.2e}), own column vs detect "
+              f"{own_err:.1e}{jax_note}; launches {counts[(mask, p)]}: ok",
+              flush=True)
+    return counts
+
+
+def conv_prediction_error(img: torch.Tensor, weight: torch.Tensor,
+                          p: int) -> torch.Tensor:
+    """The prediction error by one PyTorch call: a grouped conv2d over the
+    edge-padded frames (the pad included), weight 1 at the centre and -c_k
+    at the taps (``prediction_weight``)."""
+    h = p // 2
+    padded = F.pad(img[None], (h, h, h, h), mode="replicate")
+    return F.conv2d(padded, weight, groups=img.shape[0])[0]
+
+
+def prediction_weight(coeffs: torch.Tensor, p: int) -> torch.Tensor:
+    h = p // 2
+    weight = torch.zeros(coeffs.shape[0], 1, p, p, device=coeffs.device)
+    weight[:, 0, h, h] = 1.0
+    for k, (dr, dc) in enumerate(neighbor_offsets(p)):
+        weight[:, 0, h + dr, h + dc] = -coeffs[:, k]
+    return weight
+
+
+def phase_identify_timing(frames_d: torch.Tensor,
+                          bank_d: torch.Tensor) -> dict:
+    """CUDA events: each new kernel beside its plain version (and the
+    prediction error beside one conv2d), then the identification of 8 frames
+    against 64 candidates (ME) at each p through the kernel, through the
+    plain route, and as 64 looped detects."""
+    coeffs = predictor_coefficients(frames_d)
+    times = {}
+    for p in ALL_P:
+        for mask in ("me", "nvf"):
+            c = coeffs[p if mask == "me" else 3]
+            times[f"detect_many_{mask}_p{p}"] = (
+                cuda_ms(lambda: kernels.detect_many_partials(
+                    frames_d, bank_d, c, mask, p), iters=5, warmup=1),
+                cuda_ms(lambda: kernels.detect_many_partials_plain(
+                    frames_d, bank_d, c, mask, p), iters=2, warmup=1))
+        weight = prediction_weight(coeffs[p], p)
+        library_err = float((conv_prediction_error(frames_d, weight, p)
+                             - kernels.prediction_error_plain(
+                                 frames_d, coeffs[p], p)).abs().max())
+        check(library_err < 1e-2, f"p={p}: conv2d's prediction error differs "
+              f"from the plain version by {library_err}")
+        times[f"prediction_error_p{p}"] = (
+            cuda_ms(lambda: kernels.prediction_error(frames_d, coeffs[p], p)),
+            cuda_ms(lambda: kernels.prediction_error_plain(frames_d,
+                                                           coeffs[p], p)),
+            cuda_ms(lambda: conv_prediction_error(frames_d, weight, p)))
+        times[f"nvf_mask_p{p}"] = (
+            cuda_ms(lambda: kernels.nvf_mask(frames_d, p)),
+            cuda_ms(lambda: kernels.nvf_mask_plain(frames_d, p)))
+        print(f"[4] p={p} at 8x1080x1920 (N=64): " + "; ".join(
+            f"{name} kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms"
+            + (f", conv2d {t[2]:.4f} ms (max abs diff {library_err:.1e})"
+               if len(t) > 2 else "")
+            for name, t in times.items() if name.endswith(f"_p{p}")),
+            flush=True)
+
+    for p in ALL_P:
+        kernel_engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR,
+                                         device="cuda")
+        plain_engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR,
+                                        impl="torch", device="cuda")
+        kernel_ms = cuda_ms(lambda: kernel_engine.detect_many(frames_d,
+                                                              bank_d),
+                            iters=5, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        plain_ms = cuda_ms(lambda: plain_engine.detect_many(frames_d, bank_d),
+                           iters=2, warmup=1)
+        peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        looped_ms = cuda_ms(lambda: [batch_detect(frames_d, bank_d[c], "me",
+                                                  p=p)
+                                     for c in range(N_CANDIDATES)],
+                            iters=2, warmup=1)
+        print(f"[4] p={p} identify 8x1080p against 64 candidates (ME): "
+              f"kernel {kernel_ms:.3f} ms ({BATCH * 1e3 / kernel_ms:.1f} "
+              f"fps), plain route {plain_ms:.3f} ms "
+              f"({BATCH * 1e3 / plain_ms:.1f} fps, peak {peak_gb:.2f} GB "
+              f"above the resident {resident / 1e9:.2f}), 64 looped detects "
+              f"{looped_ms:.3f} ms ({BATCH * 1e3 / looped_ms:.1f} fps)",
+              flush=True)
+    return times
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what binds it) for moving ``nbytes`` and doing ``flops``
     on an H100 SXM at its data-sheet peaks."""
@@ -732,7 +1128,12 @@ def kernel_bound(kernel: str, mask: str, p: int) -> tuple[float, str]:
     * the NVF mask: separable p x p box sums of x and x^2, shared by
       neighbouring centres as ops/nvf.py shares its row sums (4(p-1) adds),
       one square, and 6 for the mean, E[x^2], the variance and var/(1+var);
-    * a (p*p-1)-tap prediction error: a product and a subtraction a tap.
+    * a (p*p-1)-tap prediction error: a product and a subtraction a tap;
+    * the multi-candidate detect: it reads the frames and the 64-candidate
+      bank once each and writes two sums per frame and candidate; per
+      frame, candidate and pixel u = mask * W_c, e_u and the two sums
+      (2k + 5 flops, k taps), and per frame and pixel e_z, the mask and
+      e_z^2.
     """
     pixels = BATCH * ROWS * COLS
     frame_bytes = 4 * pixels
@@ -750,21 +1151,34 @@ def kernel_bound(kernel: str, mask: str, p: int) -> tuple[float, str]:
         mask_flops = 2 * k + 1 if mask == "me" else nvf_flops
         return bound(2 * frame_bytes + wm_bytes + 8 * BATCH,
                      (mask_flops + 4) * pixels)    # u, u^2, max
-    taps = 2 * (k if mask == "me" else 8)          # detect tail
+    if kernel == "prediction_error":
+        return bound(2 * frame_bytes + 4 * BATCH * k, 2 * k * pixels)
+    if kernel == "nvf_mask":
+        return bound(2 * frame_bytes, nvf_flops * pixels)
+    taps = k if mask == "me" else 8
     mask_flops = 1 if mask == "me" else nvf_flops
-    return bound(frame_bytes + wm_bytes + 12 * BATCH,
-                 (2 * taps + mask_flops + 7) * pixels)   # u, three sums
+    if kernel == "detect_many":
+        n = N_CANDIDATES
+        return bound(frame_bytes + n * wm_bytes + 4 * BATCH * (taps + 2 * n
+                                                               + 1),
+                     ((2 * taps + 5) * n + 2 * taps + mask_flops + 2)
+                     * pixels)
+    return bound(frame_bytes + wm_bytes + 12 * BATCH,       # detect tail
+                 (4 * taps + mask_flops + 7) * pixels)      # u, three sums
 
 
 def kernel_row(name: str, kernel: str, mask: str, p: int, launches: int,
                errors: tuple, times: tuple) -> dict:
+    """One row of the kernels line; ``times`` is (ms, plain ms) or (ms,
+    plain ms, library ms)."""
     source, replaces = KERNEL_SOURCES[kernel]
     bound_ms, bound_by = kernel_bound(kernel, mask, p)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": errors[0], "max_rel_err": errors[1],
             "ms": times[0], "plain_ms": times[1], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by,
+            "library_ms": times[2] if len(times) > 2 else None}
 
 
 def main() -> int:
@@ -778,13 +1192,19 @@ def main() -> int:
     wm_d = torch.from_numpy(
         generate_watermark(ROWS, COLS, SEED).astype(np.float32)).cuda()
 
+    bank = make_bank()
+    bank_d = torch.from_numpy(bank).cuda()
+
     errors = phase_kernels(frames_d, wm_d)
     errors.update(phase_wide_kernels(frames_d, wm_d))
+    errors.update(phase_identify_kernels(frames_d, bank_d))
     counts = phase_main_path(frames)
     wide_counts = {p: phase_wide_main_path(frames, p) for p in WIDE_P}
+    identify_counts = phase_identify(frames, bank)
     times = phase_timing(frames_d, wm_d)
     for p in WIDE_P:
         times.update(phase_wide_timing(frames_d, wm_d, p))
+    times.update(phase_identify_timing(frames_d, bank_d))
 
     rows = [kernel_row("me_gram", "me_gram", "me", 3,
                        counts["all"]["me_gram"], errors["me_gram"],
@@ -809,6 +1229,24 @@ def main() -> int:
                 rows.append(kernel_row(name, kernel, mask, p,
                                        launched[kernel], errors[name],
                                        times[name]))
+    for p in ALL_P:
+        for mask in ("me", "nvf"):
+            name = f"detect_many_{mask}_p{p}"
+            rows.append(kernel_row(
+                name, "detect_many", mask, p,
+                identify_counts[(mask, p)]["detect_many"], errors[name],
+                times[name]))
+    # the standalone ops: no main path launches them (their modules say why)
+    runs = [counts["all"], *(wide_counts[p][mask] for p in WIDE_P
+                             for mask in ("me", "nvf")),
+            *identify_counts.values()]
+    for kernel in STANDALONE_KERNELS:
+        launched = sum(run[kernel] for run in runs)
+        check(launched == 0, f"{kernel} ran on a main path {launched} times")
+        for p in ALL_P:
+            name = f"{kernel}_p{p}"
+            rows.append(kernel_row(name, kernel, "me", p, launched,
+                                   errors[name], times[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

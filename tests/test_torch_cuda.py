@@ -7,9 +7,10 @@ runs on a machine without them; there, skip the JAX-based conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: Gram, lag partials and reductions rtol 1e-4 (summation order
-only); u_raw rtol 1e-5 + atol 1e-3 (its terms round identically); between
-the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
-its fused NVF kernels) and strengths rel 2e-4.
+only); u_raw, the prediction error and the NVF mask rtol 1e-5 + atol 1e-3
+(their terms round identically); between the two routes, correlations abs
+2e-4 (3e-4 for NVF, as the JAX suite holds its fused NVF kernels) and
+strengths rel 2e-4.
 """
 
 import numpy as np
@@ -67,8 +68,7 @@ def test_kernels_match_plain_on_card(device, shape):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert after == {"me_gram": before["me_gram"] + 1,
-                     "me_gram_wide": before["me_gram_wide"],
+    assert after == {**before, "me_gram": before["me_gram"] + 1,
                      "embed_field": before["embed_field"] + 2,
                      "detect_partials": before["detect_partials"] + 2}
 
@@ -108,6 +108,62 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("shape,n", [((3, 40, 96), 10), ((2, 37, 83), 5),
+                                     ((2, 1, 5), 3), ((2, 1080, 1920), 9)])
+@pytest.mark.parametrize("p", [3, 5, 7, 9])
+def test_detect_many_matches_plain_on_card(device, p, shape, n):
+    """The multi-candidate kernel against its plain version, with banks of
+    a full chunk and more (10, 9) and a partial one (5, 3); each candidate's
+    sums also against the detect tail's for that watermark alone."""
+    frames, _, _ = make_inputs(shape, device)
+    rng = np.random.default_rng(p)
+    bank = torch.from_numpy(rng.normal(size=(n,) + shape[1:]).astype(
+        np.float32)).to(device)
+    for mask_type in ("me", "nvf"):
+        pred_p = p if mask_type == "me" else 3
+        coeffs = _analysis(frames.cpu(), pred_p)[0].to(device)
+        before = kernels.launch_counts()
+        got = kernels.detect_many_partials(frames, bank, coeffs, mask_type, p)
+        want = kernels.detect_many_partials_plain(frames, bank, coeffs,
+                                                  mask_type, p)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        for c in (0, n - 1):
+            tail = kernels.detect_partials(frames, bank[c], coeffs, mask_type,
+                                           p)
+            torch.testing.assert_close(got[0][:, c], tail[0], rtol=1e-5,
+                                       atol=1e-6)
+            torch.testing.assert_close(got[1][:, c], tail[1], rtol=1e-5,
+                                       atol=1e-6)
+        torch.testing.assert_close(got[2], tail[2], rtol=1e-5, atol=1e-6)
+        after = kernels.launch_counts()
+        assert after["detect_many"] == before["detect_many"] + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 96), (2, 37, 83), (2, 1, 5),
+                                   (2, 1080, 1920)])
+@pytest.mark.parametrize("p", [3, 5, 7, 9])
+def test_standalone_ops_match_plain_on_card(device, p, shape):
+    frames, _, _ = make_inputs(shape, device)
+    rng = np.random.default_rng(p)
+    coeffs = torch.from_numpy(rng.normal(0, 0.1, (shape[0], p * p - 1)).astype(
+        np.float32)).to(device)
+    before = kernels.launch_counts()
+    torch.testing.assert_close(kernels.prediction_error(frames, coeffs, p),
+                               kernels.prediction_error_plain(frames, coeffs,
+                                                              p),
+                               rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(kernels.nvf_mask(frames, p),
+                               kernels.nvf_mask_plain(frames, p),
+                               rtol=1e-5, atol=1e-3)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after == {**before,
+                     "prediction_error": before["prediction_error"] + 1,
+                     "nvf_mask": before["nvf_mask"] + 1}
+
+
 def test_wrappers_reject_bad_inputs_on_card(device):
     frames = torch.zeros(2, 16, 16, device=device)
     wm = torch.zeros(16, 16, device=device)
@@ -123,6 +179,17 @@ def test_wrappers_reject_bad_inputs_on_card(device):
     with pytest.raises(ValueError, match="coefficients"):
         kernels.embed_field(frames, wm, torch.zeros(2, 8, device=device),
                             "me", 7)
+    with pytest.raises(ValueError, match="bank"):
+        kernels.detect_many_partials(frames, wm[None, :8],
+                                     torch.zeros(2, 8, device=device))
+    with pytest.raises(ValueError, match="coefficients"):
+        kernels.detect_many_partials(frames, wm[None],
+                                     torch.zeros(2, 8, device=device),
+                                     "me", 5)
+    with pytest.raises(ValueError, match="coefficients"):
+        kernels.prediction_error(frames, torch.zeros(2, 8, device=device), 5)
+    with pytest.raises(ValueError, match="p must be one of"):
+        kernels.nvf_mask(frames, 11)
 
 
 @pytest.mark.parametrize("p", [3, 5, 7, 9])
@@ -155,6 +222,12 @@ def test_engine_runs_on_card(device, p):
     assert marked.is_cuda and strength.is_cuda and corr.is_cuda
     assert lumas.dtype == torch.uint8 and lumas.is_cuda
     assert (corr > 0.02).all()
+    bank = torch.stack([engine.random_matrix,
+                        torch.flip(engine.random_matrix, (0,))])
+    scores = engine.detect_many(marked, bank)
+    assert scores.shape == (2, 2) and scores.is_cuda
+    torch.testing.assert_close(scores[:, 0], corr, rtol=0, atol=1e-5)
     counts = kernels.launch_counts()
-    assert counts.pop("me_gram_wide") == (2 if p > 3 else 0)
+    assert counts.pop("me_gram_wide") == (3 if p > 3 else 0)
+    assert counts.pop("prediction_error") == counts.pop("nvf_mask") == 0
     assert all(n > 0 for n in counts.values())

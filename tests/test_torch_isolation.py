@@ -28,7 +28,8 @@ PACKAGE = REPO / "watermarking_gpu_tpu_torch"
 def test_import_loads_no_jax():
     code = ("import sys; import watermarking_gpu_tpu_torch as p; "
             "import watermarking_gpu_tpu_torch.ops.cuda, "
-            "watermarking_gpu_tpu_torch.utils; "
+            "watermarking_gpu_tpu_torch.utils, "
+            "watermarking_gpu_tpu_torch.serving; "
             "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
             "m.split('.')[0] == 'watermarking_gpu_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -97,9 +98,16 @@ def test_cpu_tensors_launch_no_kernel():
                                                  mask_type, p=p, impl="cuda")
             pipelines.detect_pipeline(marked, wm, mask_type, p=p,
                                       impl="cuda")
+            pipelines.detect_many_pipeline(marked, torch.stack([wm, -wm]),
+                                           mask_type, p=p, impl="cuda")
+            kernels.prediction_error(frames, torch.zeros(2, p * p - 1), p)
+            kernels.nvf_mask(frames, p)
     assert kernels.launch_counts() == {"me_gram": 0, "me_gram_wide": 0,
                                        "embed_field": 0,
-                                       "detect_partials": 0}
+                                       "detect_partials": 0,
+                                       "detect_many": 0,
+                                       "prediction_error": 0,
+                                       "nvf_mask": 0}
 
 
 def test_wrappers_raise_on_other_devices():
@@ -114,6 +122,13 @@ def test_wrappers_raise_on_other_devices():
                                                         device="meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.wide_gram_partials(torch.zeros(1, 16, 16, device="meta"), 5)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.detect_many_partials(frames, wm[None],
+                                     torch.zeros(1, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.prediction_error(frames, torch.zeros(1, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.nvf_mask(frames)
 
 
 @pytest.mark.parametrize("p", [5, 7, 9])
@@ -143,9 +158,11 @@ def test_engines_default_to_the_card():
 
 
 def test_kernel_sources_ship_with_the_package():
+    sources = ("me_gram.cu", "me_gram_wide.cu", "fused.cu", "predict.cu",
+               "nvf.cu")
     names = {p.name for p in (PACKAGE / "csrc").iterdir()}
-    assert {"me_gram.cu", "me_gram_wide.cu", "fused.cu", "common.cuh"} <= names
-    for name in ("me_gram.cu", "me_gram_wide.cu", "fused.cu"):
+    assert {*sources, "common.cuh"} <= names
+    for name in sources:
         head = (PACKAGE / "csrc" / name).read_text()[:1500]
         assert "Replaces:" in head and "ops/pallas/" in head
     assert os.fspath(build.CSRC_DIR) == os.fspath(PACKAGE / "csrc")

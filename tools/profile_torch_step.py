@@ -2,14 +2,18 @@
 """Where the time of the PyTorch port's main-path step goes, on one GPU.
 
     python tools/profile_torch_step.py --p 3 5 7 9 --impl cuda torch
+    python tools/profile_torch_step.py --identify --p 3 5 7 9 --impl cuda
 
 For each window p and route, the chained 8-frame 1080p ME embed+detect
 step that ``chip_smoke.py`` phase 4 times: 20 warm-up steps, then
-``torch.profiler`` (CPU and CUDA activities) over 5 steps. Prints per step:
-wall ms (host clock around the synchronised window), device busy ms (the
-sum of the kernels' device time; one stream, so they do not overlap), the
-busy share, the number of device kernels, and the kernels that take the
-most device time. Needs a GPU; imports nothing of JAX.
+``torch.profiler`` (CPU and CUDA activities) over 5 steps. With
+``--identify`` the step is instead ``BatchedWatermark.detect_many`` of the
+8 frames against ``chip_smoke.make_bank()``'s 64 candidates (ME), after 3
+warm-up steps. Prints per step: wall ms (host clock around the
+synchronised window), device busy ms (the sum of the kernels' device time;
+one stream, so they do not overlap), the busy share, the number of device
+kernels, and the kernels that take the most device time. Needs a GPU;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,18 +28,19 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import BATCH, COLS, PSNR, ROWS, SEED, make_frames  # noqa: E402
+from chip_smoke import (BATCH, COLS, PSNR, ROWS, SEED,  # noqa: E402
+                        make_bank, make_frames)
 from watermarking_gpu_tpu_torch.io.matfile import \
     generate_watermark  # noqa: E402
-from watermarking_gpu_tpu_torch.models import (batch_detect,  # noqa: E402
-                                               batch_embed)
+from watermarking_gpu_tpu_torch.models import (  # noqa: E402
+    BatchedWatermark, batch_detect, batch_embed)
 from watermarking_gpu_tpu_torch.ops import strength_factor  # noqa: E402
 
 STEPS = 5
 
 
-def profile(p: int, impl: str, frames: torch.Tensor, wm: torch.Tensor,
-            top: int) -> None:
+def round_trip_step(p: int, impl: str, frames: torch.Tensor,
+                    wm: torch.Tensor):
     sf = strength_factor(PSNR)
     state = {"frames": frames}
 
@@ -44,8 +49,18 @@ def profile(p: int, impl: str, frames: torch.Tensor, wm: torch.Tensor,
                                 "me", p=p, impl=impl)
         batch_detect(marked, wm, "me", p=p, impl=impl)
         state["frames"] = marked
+    return step
 
-    for _ in range(20):
+
+def identify_step(p: int, impl: str, frames: torch.Tensor,
+                  bank: torch.Tensor):
+    engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR, impl=impl,
+                              device="cuda")
+    return lambda: engine.detect_many(frames, bank)
+
+
+def profile(p: int, impl: str, step, warmup: int, top: int) -> None:
+    for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -78,17 +93,25 @@ def main() -> int:
     parser.add_argument("--p", type=int, nargs="+", default=[3, 5, 7, 9])
     parser.add_argument("--impl", nargs="+", default=["cuda", "torch"])
     parser.add_argument("--top", type=int, default=8)
+    parser.add_argument("--identify", action="store_true",
+                        help="profile detect_many against 64 candidates")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a GPU: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     frames = torch.from_numpy(make_frames()).cuda()
-    wm = torch.from_numpy(generate_watermark(ROWS, COLS, SEED).astype(
-        np.float32)).cuda()
+    if args.identify:
+        make_step, warmup = identify_step, 3
+        data = torch.from_numpy(make_bank()).cuda()
+    else:
+        make_step, warmup = round_trip_step, 20
+        data = torch.from_numpy(generate_watermark(ROWS, COLS, SEED).astype(
+            np.float32)).cuda()
     for p in args.p:
         for impl in args.impl:
-            profile(p, impl, frames, wm, args.top)
+            profile(p, impl, make_step(p, impl, frames, data), warmup,
+                    args.top)
     return 0
 
 

@@ -13,8 +13,10 @@ with ``nvcc`` at first use) or raises.
 
 from .models import BatchedWatermark, MaskType, Watermark
 from .ops import strength_factor
+from .serving import DetectorService, EmbedderService, IdentifierService
 
 __version__ = "0.1.0"
 
-__all__ = ["BatchedWatermark", "MaskType", "Watermark", "strength_factor",
+__all__ = ["BatchedWatermark", "DetectorService", "EmbedderService",
+           "IdentifierService", "MaskType", "Watermark", "strength_factor",
            "__version__"]

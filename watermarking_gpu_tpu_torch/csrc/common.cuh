@@ -1,5 +1,5 @@
 // Helpers shared by the port's CUDA kernels (me_gram.cu, me_gram_wide.cu,
-// fused.cu).
+// fused.cu, predict.cu, nvf.cu).
 //
 // Every kernel reads its neighbours clamp-to-edge with min/max on the
 // indices (the reference's CLK_ADDRESS_CLAMP_TO_EDGE sampler), so one
@@ -27,6 +27,48 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
+}
+
+// The tile that the stencil kernels stage in shared memory with its halo:
+// kTileH x kTileW pixels of one frame, kTileThreads threads a block.
+constexpr int kTileW = 64;
+constexpr int kTileH = 32;
+constexpr int kTileThreadsX = 32;
+constexpr int kTileThreadsY = 8;
+constexpr int kTileThreads = kTileThreadsX * kTileThreadsY;
+const dim3 kTileBlock(kTileThreadsX, kTileThreadsY);
+
+// Taps of the (2 half + 1)^2 window with the centre left out.
+__host__ __device__ constexpr int taps(int half) {
+  return (2 * half + 1) * (2 * half + 1) - 1;
+}
+
+// Grid of one block per tile of each of `planes` (rows, cols) planes.
+inline dim3 tile_grid(int planes, int rows, int cols) {
+  return dim3(ceil_div(cols, kTileW), ceil_div(rows, kTileH), planes);
+}
+
+// Stage frame(clamp(y0 - halo + r), clamp(x0 - halo + q)) into s[r][q].
+template <int kRows, int kCols>
+__device__ __forceinline__ void stage_tile(float (*s)[kCols],
+                                           const float* __restrict__ frame,
+                                           int y0, int x0, int halo, int rows,
+                                           int cols, int tid, int n_threads) {
+  for (int i = tid; i < kRows * kCols; i += n_threads) {
+    const int r = i / kCols;
+    const int q = i % kCols;
+    const int gy = clampi(y0 - halo + r, 0, rows - 1);
+    const int gx = clampi(x0 - halo + q, 0, cols - 1);
+    s[r][q] = __ldg(frame + static_cast<size_t>(gy) * cols + gx);
+  }
+}
+
+// Stage the K predictor coefficients of frame b.
+template <int K>
+__device__ __forceinline__ void stage_coeffs(float* s_c,
+                                             const float* __restrict__ coeffs,
+                                             int b, int tid, int n_threads) {
+  for (int k = tid; k < K; k += n_threads) s_c[k] = __ldg(coeffs + b * K + k);
 }
 
 // A 3x3 clamp-to-edge window: t = row above, m = centre row, b = row below;

@@ -3,7 +3,8 @@
 Same public contract as the JAX package's ``Watermark`` (and the
 reference's, ``Watermark.hpp:26-72``): a constructor with dims, watermark,
 p and psnr; ``embed`` == ``makeWatermark``; ``detect`` == ``detectWatermark``;
-``reinitialize``. The engine lives on a ``device``, the card unless the
+``reinitialize``; and ``detect_many``, identification against a bank of
+candidate watermarks. The engine lives on a ``device``, the card unless the
 caller asks for another; the watermark matrix is uploaded there once per
 ``reinitialize``. Results are tensors on that device (call ``float()`` on a
 strength or correlation to read it).
@@ -18,7 +19,8 @@ import torch
 
 from ..io.matfile import generate_watermark, load_watermark
 from ..ops.embed import strength_factor
-from ..ops.pipelines import IMPLS, detect_pipeline, embed_pipeline
+from ..ops.pipelines import (IMPLS, detect_many_pipeline, detect_pipeline,
+                             embed_pipeline, fused_detect_many_applies)
 from .masks import MaskType
 
 _VALID_P = (3, 5, 7, 9)
@@ -143,6 +145,74 @@ class Watermark:
         return detect_pipeline(as_device_input(image, self.device),
                                self.random_matrix, mask_type.value,
                                p=self.p, impl=self.impl)
+
+    # Device memory one detect_many dispatch may take for its per-candidate
+    # intermediates; the candidate axis is chunked to stay inside it. 8 GiB,
+    # a tenth of an H100's 80 GB: the plain route (impl="torch", and the
+    # kernel's plain version on CPU tensors) holds about six (B * chunk, H,
+    # W) f32 planes at its peak (u, its edge-padded copy, the running error,
+    # one tap's product, the next error, a product for the sums), which
+    # leaves the rest of the card to the caching allocator's slack, the bank
+    # and the frames in flight. chip_smoke.py reads the plain route's peak
+    # on the card. The kernel route keeps no such planes (its partials are a
+    # few MB), so it takes the whole bank in one dispatch.
+    _DETECT_MANY_BUDGET_BYTES = 8 * 1024 ** 3
+    _PLAIN_PLANES = 6
+
+    def detect_many(self, image, watermarks,
+                    mask_type: "MaskType | str" = MaskType.ME
+                    ) -> torch.Tensor:
+        """Watermark identification: correlations of grayscale image(s)
+        against N candidate matrices. (rows, cols) image -> (N,); a
+        (B, rows, cols) stack -> (B, N).
+
+        The per-image analysis (Gram, solve, error sequence, mask) runs once
+        and is shared across the candidates (the reference can only loop
+        ``detectWatermark``, Watermark.cpp:234-250). Large banks are chunked
+        along the candidate axis to keep the intermediates inside
+        ``_DETECT_MANY_BUDGET_BYTES``; the last chunk is padded to the chunk
+        size (so every dispatch has one shape and the caching allocator
+        reuses its blocks) and sliced back. A bank that is already an f32
+        tensor on the engine's device is used in place. The engine's own
+        ``random_matrix`` is not implied: pass every candidate.
+        """
+        mask_type = MaskType.parse(mask_type)
+        if (tuple(image.shape[-2:]) != (self.rows, self.cols)
+                or len(image.shape) not in (2, 3)):
+            raise ValueError(
+                f"Images must be ({self.rows}, {self.cols}) or "
+                f"(B, {self.rows}, {self.cols}), got shape "
+                f"{tuple(image.shape)}")
+        if (len(watermarks.shape) != 3
+                or tuple(watermarks.shape[1:]) != (self.rows, self.cols)):
+            raise ValueError(
+                f"Candidate watermarks must be (N, {self.rows}, "
+                f"{self.cols}), got shape {tuple(watermarks.shape)}")
+        image = as_device_input(image, self.device)
+        watermarks = as_device_input(watermarks, self.device).to(
+            torch.float32)
+        batch = image.shape[0] if image.ndim == 3 else 1
+        n = watermarks.shape[0]
+        if (self.device.type == "cuda" and fused_detect_many_applies(
+                n, self.rows, self.cols, mask_type.value, self.p, self.impl)):
+            chunk = n   # the kernel keeps no per-candidate planes
+        else:
+            per_candidate = (self._PLAIN_PLANES * batch * 4 * self.rows
+                             * self.cols)
+            chunk = max(1, self._DETECT_MANY_BUDGET_BYTES // per_candidate)
+
+        def run(bank):
+            return detect_many_pipeline(image, bank, mask_type.value,
+                                        p=self.p, impl=self.impl)
+        if chunk >= n:
+            return run(watermarks)
+        parts = [run(watermarks[start:start + chunk])
+                 for start in range(0, n - n % chunk, chunk)]
+        if n % chunk:
+            tail = watermarks[n - n % chunk:]
+            pad = tail[-1:].expand(chunk - tail.shape[0], -1, -1)
+            parts.append(run(torch.cat([tail, pad]))[..., :tail.shape[0]])
+        return torch.cat(parts, dim=-1)
 
     def _check_dims(self, image) -> None:
         # exact shape: an RGB (H, W, 3) array passed as the grayscale

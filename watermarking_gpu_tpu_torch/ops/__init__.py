@@ -12,11 +12,11 @@ from .me import (me_mask_from_error, me_normal_equations, predict,
                  solve_coefficients_spd_wide)
 from .neighbors import NEIGHBOR_OFFSETS, NUM_NEIGHBORS, pad_edge
 from .nvf import nvf_mask
-from .pipelines import detect_pipeline, embed_pipeline
+from .pipelines import detect_many_pipeline, detect_pipeline, embed_pipeline
 
 __all__ = [
-    "NEIGHBOR_OFFSETS", "NUM_NEIGHBORS", "correlation", "detect_pipeline",
-    "embed_pipeline", "embed_watermark", "me_mask_from_error",
+    "NEIGHBOR_OFFSETS", "NUM_NEIGHBORS", "correlation",
+    "detect_many_pipeline", "detect_pipeline", "embed_pipeline", "embed_watermark", "me_mask_from_error",
     "me_normal_equations", "nvf_mask", "pad_edge",
     "predict", "prediction_error", "rgb_to_gray", "solve_coefficients",
     "solve_coefficients_spd", "solve_coefficients_spd_wide",

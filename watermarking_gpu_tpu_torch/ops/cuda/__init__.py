@@ -1,19 +1,26 @@
-"""Hand-written CUDA kernels for the main path, each beside its plain
-PyTorch version.
+"""Hand-written CUDA kernels, each beside its plain PyTorch version.
 
 Importing this package builds nothing: the kernels are compiled by
 ``build.library()`` at their first launch on a CUDA tensor. Each wrapper
 counts its launches in a plain integer attribute, ``wrapper.launches``.
+``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
+calls (their modules say why); the rest carry the embed, detect and
+identification paths.
 """
 
 from ..me import lag_partials_plain, me_gram_wide_plain
+from .detect_many import detect_many_partials, detect_many_partials_plain
 from .fused import (detect_partials, detect_partials_plain, embed_field,
                     embed_field_plain)
 from .me_gram_wide import me_gram_wide, wide_gram_partials
 from .me_kernel import me_gram, me_gram_plain
+from .nvf import nvf_mask, nvf_mask_plain
+from .predict import prediction_error, prediction_error_plain
 
 KERNELS = {"me_gram": me_gram, "me_gram_wide": me_gram_wide,
-           "embed_field": embed_field, "detect_partials": detect_partials}
+           "embed_field": embed_field, "detect_partials": detect_partials,
+           "detect_many": detect_many_partials,
+           "prediction_error": prediction_error, "nvf_mask": nvf_mask}
 
 
 def reset_launch_counts() -> None:
@@ -25,8 +32,10 @@ def launch_counts() -> dict[str, int]:
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "detect_partials", "detect_partials_plain",
-           "embed_field", "embed_field_plain", "lag_partials_plain",
-           "launch_counts", "me_gram", "me_gram_plain", "me_gram_wide",
-           "me_gram_wide_plain", "reset_launch_counts",
+__all__ = ["KERNELS", "detect_many_partials", "detect_many_partials_plain",
+           "detect_partials", "detect_partials_plain", "embed_field",
+           "embed_field_plain", "lag_partials_plain", "launch_counts",
+           "me_gram", "me_gram_plain", "me_gram_wide", "me_gram_wide_plain",
+           "nvf_mask", "nvf_mask_plain", "prediction_error",
+           "prediction_error_plain", "reset_launch_counts",
            "wide_gram_partials"]

@@ -2,6 +2,8 @@
 
 * ``embed_pipeline``  == ``Watermark::makeWatermark``
 * ``detect_pipeline`` == ``Watermark::detectWatermark``
+* ``detect_many_pipeline``: identification against N candidate watermarks,
+  which the reference can only do as N ``detectWatermark`` calls
 
 Images are (H, W) or (B, H, W); outputs may carry a trailing channel axis.
 Solves, strengths and correlations are per image. The solve-failure soft
@@ -14,9 +16,10 @@ Implementations:
   solve, normalized mask, reference embed/correlation formulas. The port's
   oracle, counterpart of the JAX package's ``impl="xla"``.
 * ``impl="cuda"``: the fused algebra of the JAX package's ``impl="pallas"``
-  — Gram kernel, 8x8 Cholesky, then one embed-field or detect-tail kernel,
-  with the AXPY/clamp and the final divisions in torch. On CUDA tensors the
-  three kernels run; on CPU tensors their plain versions do.
+  — Gram kernel, 8x8 Cholesky, then one embed-field, detect-tail or
+  multi-candidate detect kernel, with the AXPY/clamp and the final divisions
+  in torch. On CUDA tensors the kernels run; on CPU tensors their plain
+  versions do.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from typing import Literal
 import torch
 
 from .correlation import correlation
-from .cuda import detect_partials, embed_field, me_gram, me_gram_wide
+from .cuda import (detect_many_partials, detect_partials, embed_field,
+                   me_gram, me_gram_wide)
 from .cuda.fused import predictor_p
 from .embed import embed_watermark
 from .me import (me_mask_from_error, me_normal_equations, prediction_error,
@@ -165,3 +169,62 @@ def detect_pipeline(image: torch.Tensor, watermark: torch.Tensor,
                                                                       p)
     e_u = prediction_error(mask * watermark, coefficients, pred_p)
     return torch.where(valid, correlation(e_u, e_z), 0.0)
+
+
+def fused_detect_many_applies(n: int, rows: int, cols: int, mask_type: str,
+                              p: int, impl: str) -> bool:
+    """Will ``detect_many_pipeline`` run the multi-candidate kernel? The one
+    place the routing is decided; ``Watermark.detect_many`` sizes its
+    candidate chunks by it.
+
+    True for ``impl="cuda"`` at every geometry, bank size and window. The
+    JAX package's kernel has an envelope (its strips of nc candidate planes
+    must fit a TPU core's VMEM, so large frames shrink nc and the largest
+    fall back to XLA); this one has none: a block stages one fixed tile of
+    one frame, whatever the frame's size, and scores the bank in chunks of a
+    fixed size read in place, so its shared memory does not grow with the
+    frame or the bank.
+    """
+    del n, rows, cols, mask_type, p
+    return impl == "cuda"
+
+
+def detect_many_pipeline(image: torch.Tensor, watermarks: torch.Tensor,
+                         mask_type: MaskTypeName, p: int = 3,
+                         impl: ImplName = "cuda") -> torch.Tensor:
+    """Watermark identification: which of N candidate matrices does an image
+    carry? (..., H, W) images + (N, H, W) watermarks -> (..., N)
+    correlations: (H, W) gives (N,), (B, H, W) gives (B, N).
+
+    The image-only analysis (Gram, solve, e_z, mask) runs once per image and
+    is shared by all N candidates; the reference can only loop N full
+    detections (``Watermark.cpp:234-250``). ``impl="cuda"`` runs the Gram
+    kernel and then the multi-candidate kernel, which never materializes the
+    (B, N, H, W) u and e_u of ``impl="torch"``'s formulation. Returns 0 for
+    every candidate of an unsolvable image.
+    """
+    _check_args(mask_type, p, impl)
+    image, watermarks = map(_to_f32, (image, watermarks))
+    n, rows, cols = watermarks.shape
+    batch_shape = image.shape[:-2]
+    pred_p = predictor_p(mask_type, p)
+    if fused_detect_many_applies(n, rows, cols, mask_type, p, impl):
+        img3 = image.reshape(-1, rows, cols).contiguous()
+        coefficients, valid = _fused_analysis(img3, pred_p)
+        dot, norm_u, norm_z = detect_many_partials(
+            img3, watermarks.contiguous(), coefficients, mask_type, p)
+        corr = dot / torch.sqrt(norm_u * norm_z[:, None])
+        corr = torch.where(valid[:, None], corr, 0.0)
+        return corr.reshape(batch_shape + (n,))
+    coefficients, valid = _analysis(image, pred_p)
+    e_z = prediction_error(image, coefficients, pred_p)
+    mask = me_mask_from_error(e_z) if mask_type == "me" else nvf_mask(image,
+                                                                      p)
+    u = mask[..., None, :, :] * watermarks               # (..., N, H, W)
+    e_u = prediction_error(u, coefficients[..., None, :], pred_p)
+    dims = (-2, -1)
+    dot = (e_u * e_z[..., None, :, :]).sum(dim=dims)
+    norm_u = torch.sqrt((e_u * e_u).sum(dim=dims))
+    norm_z = torch.sqrt((e_z * e_z).sum(dim=dims))
+    return torch.where(valid[..., None], dot / (norm_u * norm_z[..., None]),
+                       0.0)
