@@ -16,8 +16,8 @@ prints no result:
    assembled Gram against the direct per-pair sums ``gram_direct(p)``) and
    the embed field and detect tail at ME and NVF p; then at p = 3, 5, 7, 9
    the multi-candidate detect at ME and NVF against the 64-candidate bank
-   (5 candidates at the small shape: a partial chunk) and the standalone
-   prediction error and NVF mask.
+   (70 at the small shape: a full chunk of 64 and a partial one) and the
+   standalone prediction error and NVF mask.
 3. The main paths, through ``BatchedWatermark(1080, 1920, 28390211, p=P,
    psnr=40, device="cuda")``. P=3: ME and NVF embed then detect of 8
    frames, ``embed_luma_u8`` and one single-frame ``Watermark`` round trip.
@@ -261,7 +261,7 @@ KERNEL_SOURCES = {
                     "watermarking_gpu_tpu/ops/pallas/fused.py:885"),
     "detect_partials": ("watermarking_gpu_tpu_torch/csrc/fused.cu",
                         "watermarking_gpu_tpu/ops/pallas/fused.py:300"),
-    "detect_many": ("watermarking_gpu_tpu_torch/csrc/fused.cu",
+    "detect_many": ("watermarking_gpu_tpu_torch/csrc/detect_many.cu",
                     "watermarking_gpu_tpu/ops/pallas/fused.py:683"),
     "prediction_error": (
         "watermarking_gpu_tpu_torch/csrc/predict.cu",
@@ -780,16 +780,16 @@ def phase_identify_kernels(frames_d: torch.Tensor,
     """The multi-candidate kernel at ME and NVF p = 3, 5, 7, 9 and the
     standalone prediction error and NVF mask at each p, against their plain
     versions on the same inputs, at 8 x 1080 x 1920 with the 64-candidate
-    bank and at 3 x 37 x 83 with 5 candidates (a partial chunk). Returns
-    per-row (max abs err, max rel err) at the main path's shape: for the
-    standalone ops the error of the output, relative to its largest
+    bank and at 3 x 37 x 83 with 70 (a full chunk and a partial one).
+    Returns per-row (max abs err, max rel err) at the main path's shape: for
+    the standalone ops the error of the output, relative to its largest
     value."""
     errors = {}
     gen = np.random.default_rng(7)
     small = torch.from_numpy(np.clip(gen.normal(128, 40, (3, 37, 83)), 0,
                                      255).astype(np.float32)).cuda()
     small_bank = torch.from_numpy(
-        gen.normal(size=(5, 37, 83)).astype(np.float32)).cuda()
+        gen.normal(size=(70, 37, 83)).astype(np.float32)).cuda()
     for img, bank in ((frames_d, bank_d), (small, small_bank)):
         label = "x".join(str(n) for n in img.shape) + f" N={bank.shape[0]}"
         coeffs = predictor_coefficients(img)
@@ -1052,6 +1052,9 @@ def phase_identify_timing(frames_d: torch.Tensor,
     plain route, and as 64 looped detects."""
     coeffs = predictor_coefficients(frames_d)
     times = {}
+    bounds = {f"detect_many_{mask}_p{p}": kernel_bound("detect_many", mask,
+                                                       p)[0]
+              for (mask, p) in IDENTIFY_CASES}
     for p in ALL_P:
         for mask in ("me", "nvf"):
             c = coeffs[p if mask == "me" else 3]
@@ -1078,6 +1081,8 @@ def phase_identify_timing(frames_d: torch.Tensor,
             f"{name} kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms"
             + (f", conv2d {t[2]:.4f} ms (max abs diff {library_err:.1e})"
                if len(t) > 2 else "")
+            + (f", {t[0] / bounds[name]:.2f}x its bound {bounds[name]:.4f} ms"
+               if name in bounds else "")
             for name, t in times.items() if name.endswith(f"_p{p}")),
             flush=True)
 

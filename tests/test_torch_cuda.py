@@ -109,16 +109,34 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
 
 
 @pytest.mark.parametrize("shape,n", [((3, 40, 96), 10), ((2, 37, 83), 5),
-                                     ((2, 1, 5), 3), ((2, 1080, 1920), 9)])
+                                     ((2, 1, 5), 3), ((2, 1080, 1920), 9),
+                                     ((1, 40, 96), 64), ((9, 37, 83), 65),
+                                     ((2, 45, 4), 130), ((2, 40, 256), 5)])
 @pytest.mark.parametrize("p", [3, 5, 7, 9])
 def test_detect_many_matches_plain_on_card(device, p, shape, n):
     """The multi-candidate kernel against its plain version, with banks of
-    a full chunk and more (10, 9) and a partial one (5, 3); each candidate's
-    sums also against the detect tail's for that watermark alone."""
+    part of a chunk of 64 (10, 5, 3, 9), a full chunk (64), a partial second
+    chunk (65) and a partial third (130); one frame and nine; a frame 4
+    pixels wide. Each candidate's sums also against the detect tail's for
+    that watermark alone. Tiles whose rows lie inside the frame copy a
+    16-byte aligned bank in 16-byte chunks (at 40 x 256 and 1080 x 1920):
+    the same bank starting 4 bytes past an alignment boundary takes the
+    4-byte copies and must give the same sums.
+
+    A dot is held as the correlation it becomes, dot / sqrt(||e_u||^2
+    ||e_z||^2): for a candidate the frame does not carry it is a sum of
+    terms that cancel to near 0, where the kernel's other summation order
+    and its fused multiply-adds in e_u move it by more than 1e-4 of itself
+    (up to 6.4e-4 on these inputs), a change the correlation does not see.
+    The norms, sums of squares, are held as they are."""
     frames, _, _ = make_inputs(shape, device)
     rng = np.random.default_rng(p)
     bank = torch.from_numpy(rng.normal(size=(n,) + shape[1:]).astype(
         np.float32)).to(device)
+    unaligned = torch.empty(bank.numel() + 1, device=device)[1:].view(
+        bank.shape)
+    unaligned.copy_(bank)
+    assert unaligned.data_ptr() % 16 == 4
     for mask_type in ("me", "nvf"):
         pred_p = p if mask_type == "me" else 3
         coeffs = _analysis(frames.cpu(), pred_p)[0].to(device)
@@ -126,18 +144,25 @@ def test_detect_many_matches_plain_on_card(device, p, shape, n):
         got = kernels.detect_many_partials(frames, bank, coeffs, mask_type, p)
         want = kernels.detect_many_partials_plain(frames, bank, coeffs,
                                                   mask_type, p)
-        for g, w in zip(got, want):
+        scale = torch.sqrt(want[1] * want[2][:, None])
+        torch.testing.assert_close(got[0] / scale, want[0] / scale,
+                                   rtol=1e-4, atol=1e-6)
+        for g, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
-        for c in (0, n - 1):
+        for c in sorted({0, n // 2, n - 1}):
             tail = kernels.detect_partials(frames, bank[c], coeffs, mask_type,
                                            p)
-            torch.testing.assert_close(got[0][:, c], tail[0], rtol=1e-5,
-                                       atol=1e-6)
+            scale = torch.sqrt(tail[1] * tail[2])
+            torch.testing.assert_close(got[0][:, c] / scale, tail[0] / scale,
+                                       rtol=1e-5, atol=1e-6)
             torch.testing.assert_close(got[1][:, c], tail[1], rtol=1e-5,
                                        atol=1e-6)
         torch.testing.assert_close(got[2], tail[2], rtol=1e-5, atol=1e-6)
         after = kernels.launch_counts()
         assert after["detect_many"] == before["detect_many"] + 1
+        for g, u in zip(got, kernels.detect_many_partials(
+                frames, unaligned, coeffs, mask_type, p)):
+            assert torch.equal(g, u)
     torch.cuda.synchronize()
 
 

@@ -158,8 +158,8 @@ def test_engines_default_to_the_card():
 
 
 def test_kernel_sources_ship_with_the_package():
-    sources = ("me_gram.cu", "me_gram_wide.cu", "fused.cu", "predict.cu",
-               "nvf.cu")
+    sources = ("me_gram.cu", "me_gram_wide.cu", "fused.cu", "detect_many.cu",
+               "predict.cu", "nvf.cu")
     names = {p.name for p in (PACKAGE / "csrc").iterdir()}
     assert {*sources, "common.cuh"} <= names
     for name in sources:

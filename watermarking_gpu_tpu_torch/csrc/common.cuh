@@ -1,5 +1,5 @@
 // Helpers shared by the port's CUDA kernels (me_gram.cu, me_gram_wide.cu,
-// fused.cu, predict.cu, nvf.cu).
+// fused.cu, detect_many.cu, predict.cu, nvf.cu).
 //
 // Every kernel reads its neighbours clamp-to-edge with min/max on the
 // indices (the reference's CLK_ADDRESS_CLAMP_TO_EDGE sampler), so one
@@ -41,6 +41,13 @@ const dim3 kTileBlock(kTileThreadsX, kTileThreadsY);
 // Taps of the (2 half + 1)^2 window with the centre left out.
 __host__ __device__ constexpr int taps(int half) {
   return (2 * half + 1) * (2 * half + 1) - 1;
+}
+
+// The frame halo the detect kernels (fused.cu, detect_many.cu) stage: the u
+// ring (PH deep) needs e_z and the mask PH further out, the mask a window of
+// NH (NVF) around it.
+__host__ __device__ constexpr int detect_halo(int mask, int ph, int nh) {
+  return mask == kMaskME ? 2 * ph : ph + (nh > ph ? nh : ph);
 }
 
 // Grid of one block per tile of each of `planes` (rows, cols) planes.

@@ -1,5 +1,6 @@
-// Fused embed field, detect tail and multi-candidate detect: everything after
-// the predictor solve, one pass over the frame each, for p in {3, 5, 7, 9}.
+// Fused embed field and detect tail: everything after the predictor solve,
+// one pass over the frame each, for p in {3, 5, 7, 9}. The multi-candidate
+// detect, which shares the detect tail's arithmetic, is detect_many.cu.
 //
 // Replaces:
 //   embed_field_kernel (ME p=3) and embed_field_tile_kernel (the rest)
@@ -7,26 +8,19 @@
 //       its raw twin _embed_field_kernel_raw (body _embed_field_core);
 //   detect_tail_kernel  <- fused.py::_detect_tail_kernel and its raw twin
 //       _detect_tail_kernel_raw (body _detect_tail_core -> _tail_rows, with
-//       _error_region, _nvf_region and _clamp_fix_ring);
-//   detect_many_kernel  <- fused.py::_detect_many_kernel and its raw twin
-//       _detect_many_kernel_raw (body _detect_many_core), behind
-//       fused_detect_many_partials_padded and fused_detect_many_partials.
+//       _error_region, _nvf_region and _clamp_fix_ring).
 //
 // Windows: ME predicts with the (p*p-1)-tap window (half-width PH = p/2);
 // NVF keeps the 3x3 predictor (PH = 1) and takes its variance over p x p
 // (half-width NH = p/2).
 //
 // What bounds them on an H100: device memory, except the ME detect tail at
-// p >= 5 and the multi-candidate detect. The embed field reads the frame and
-// the watermark and writes u_raw: 12 bytes a pixel, about 200 MB at 1080p x 8
-// (59 us at 3.35 TB/s); ME p=9 does some 165 flops a pixel (41 us of f32),
+// p >= 5. The embed field reads the frame and the watermark and writes
+// u_raw: 12 bytes a pixel, about 200 MB at 1080p x 8 (59 us at 3.35 TB/s);
+// ME p=9 does some 165 flops a pixel (41 us of f32),
 // the NVF mask's separable box sums about 4p + 3. The detect tail reads 8
 // bytes a pixel (133 MB, 40 us) but at ME p=9 does two 80-tap predictions a
 // pixel, some 330 flops (81 us of f32), so it is bound by operations there.
-// The multi-candidate detect reads each frame and each candidate once (597 MB
-// for 8 frames and 64 candidates at 1080p, 0.18 ms) and does 2k + 5 flops a
-// frame, candidate and pixel (k taps): bound by operations at every p, 0.33
-// ms at k = 8 and 2.6 ms at k = 80.
 //
 // What the design does about it: each input is read once, coalesced, and
 // nothing intermediate goes to device memory: no padded copies (loads clamp
@@ -48,17 +42,6 @@
 // block stages its tile of the frame with a clamped halo of S pixels in
 // shared memory (S = 2 PH for ME, PH + max(PH, NH) for NVF), computes e_z and
 // u over the tile plus a PH-pixel ring at clamped coordinates, then e_u.
-//
-// Multi-candidate detect: the same, against a bank of n candidate watermarks
-// read in place (no padded copy of the bank; a partial last chunk is
-// guarded). A block takes one tile of one frame and a chunk of kManyNC
-// candidates: it builds e_z and the mask over the tile and its ring once,
-// then for each candidate forms u = mask * W_c at clamped coordinates in the
-// storage the frame tile no longer needs, and reduces that candidate's two
-// sums over the block. The grid runs frame by frame, each frame's chunks in
-// turn, so a frame is re-read once per chunk (n / kManyNC times, mostly from
-// L2) and the bank once per frame: a chunk's planes (66 MB at 1080p) do not
-// stay in the 50 MB L2 until the next frame comes to them.
 #include "common.cuh"
 
 namespace {
@@ -118,19 +101,9 @@ __global__ void __launch_bounds__(kEmbedThreads)
   wm::block_reduce_store<kEmbedSlots, 1>(acc, partials + block * kEmbedSlots);
 }
 
-// ---- tiles in shared memory: embed field, detect tail, detect many ------
+// ---- tiles in shared memory: embed field, detect tail ------------------
 
 constexpr int kDetectSlots = 3;  // sum e_u*e_z, sum e_u^2, sum e_z^2
-constexpr int kManyNC = 8;       // candidates a block of detect_many scores
-// per block of detect_many: (sum e_u*e_z, sum e_u^2) per candidate of the
-// chunk, then sum e_z^2
-constexpr int kManySlots = 2 * kManyNC + 1;
-
-// The frame halo the detect kernels stage: the u ring (PH deep) needs e_z
-// and the mask PH further out, the mask a window of NH (NVF) around it.
-__host__ __device__ constexpr int detect_halo(int mask, int ph, int nh) {
-  return mask == wm::kMaskME ? 2 * ph : ph + (nh > ph ? nh : ph);
-}
 
 // kHalf: the predictor's half-width (ME) or the NVF window's (NVF).
 template <int kMask, int kHalf>
@@ -193,7 +166,7 @@ __global__ void __launch_bounds__(kTileThreads)
                        const float* __restrict__ coeffs,
                        float* __restrict__ partials, int rows, int cols) {
   constexpr int kTaps = wm::taps(kPH);
-  constexpr int kS = detect_halo(kMask, kPH, kNH);
+  constexpr int kS = wm::detect_halo(kMask, kPH, kNH);
   constexpr int kIW = kTileW + 2 * kS;
   constexpr int kUW = kTileW + 2 * kPH;
   constexpr int kUH = kTileH + 2 * kPH;
@@ -254,102 +227,6 @@ __global__ void __launch_bounds__(kTileThreads)
       acc, partials + block * kDetectSlots);
 }
 
-// The detect tail against candidates [first, first + count) of the bank,
-// count <= kManyNC; blockIdx.z = frame * n_chunks + chunk. Partials
-// (batch, n_chunks, n_blocks, kManySlots): the slots of the candidates past
-// the bank's end are written as 0.
-template <int kMask, int kPH, int kNH>
-__global__ void __launch_bounds__(kTileThreads)
-    detect_many_kernel(const float* __restrict__ img,
-                       const float* __restrict__ bank,
-                       const float* __restrict__ coeffs,
-                       float* __restrict__ partials, int n, int rows,
-                       int cols) {
-  constexpr int kTaps = wm::taps(kPH);
-  constexpr int kS = detect_halo(kMask, kPH, kNH);
-  constexpr int kIH = kTileH + 2 * kS;
-  constexpr int kIW = kTileW + 2 * kS;
-  constexpr int kUH = kTileH + 2 * kPH;
-  constexpr int kUW = kTileW + 2 * kPH;
-  constexpr int kScratch = kIH * kIW > kUH * kUW ? kIH * kIW : kUH * kUW;
-  // the frame tile while e_z and the mask are built, then each candidate's
-  // u tile: s_img[r][q] = frame(clamp(y0 - kS + r), clamp(x0 - kS + q)),
-  // s_u[r][q] = u(clamp(y0 - kPH + r), clamp(x0 - kPH + q))
-  __shared__ float s_scratch[kScratch];
-  // s_mask[r][q] = mask(clamp(y0 - kPH + r), clamp(x0 - kPH + q))
-  __shared__ float s_mask[kUH][kUW];
-  // s_ez[r][q] = e_z(y0 + r, x0 + q)
-  __shared__ float s_ez[kTileH][kTileW];
-  __shared__ float s_c[kTaps];
-  float(*s_img)[kIW] = reinterpret_cast<float(*)[kIW]>(s_scratch);
-  float(*s_u)[kUW] = reinterpret_cast<float(*)[kUW]>(s_scratch);
-
-  const int n_chunks = wm::ceil_div(n, kManyNC);
-  const int b = blockIdx.z / n_chunks;
-  const int first = (blockIdx.z % n_chunks) * kManyNC;
-  const int count = min(kManyNC, n - first);
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const size_t plane = static_cast<size_t>(rows) * cols;
-  const int tid = threadIdx.x + threadIdx.y * blockDim.x;
-  float* out = partials + ((static_cast<size_t>(blockIdx.z) * gridDim.y +
-                            blockIdx.y) * gridDim.x + blockIdx.x) * kManySlots;
-  wm::stage_coeffs<kTaps>(s_c, coeffs, b, tid, kTileThreads);
-  wm::stage_tile<kIH, kIW>(s_img, img + b * plane, y0, x0, kS, rows, cols,
-                           tid, kTileThreads);
-  __syncthreads();
-  const wm::Coeffs<kTaps> c(s_c);
-
-  for (int i = tid; i < kUH * kUW; i += kTileThreads) {
-    const int r = i / kUW;
-    const int q = i % kUW;
-    const int cy = wm::clampi(y0 - kPH + r, 0, rows - 1);
-    const int cx = wm::clampi(x0 - kPH + q, 0, cols - 1);
-    const float* centre = &s_img[cy - y0 + kS][cx - x0 + kS];
-    const float e_z = wm::prediction_error_at<kPH>(centre, kIW, c);
-    s_mask[r][q] = kMask == wm::kMaskME ? fabsf(e_z)
-                                        : wm::nvf_at<kNH>(centre, kIW);
-    if (r >= kPH && r < kPH + kTileH && q >= kPH && q < kPH + kTileW)
-      s_ez[r - kPH][q - kPH] = e_z;
-  }
-  __syncthreads();  // the frame tile is dead: s_u takes its storage
-
-  float norm_z[1] = {0.0f};
-  for (int i = tid; i < kTileH * kTileW; i += kTileThreads) {
-    const int r = i / kTileW;
-    const int q = i % kTileW;
-    if (y0 + r < rows && x0 + q < cols) norm_z[0] += s_ez[r][q] * s_ez[r][q];
-  }
-  wm::block_reduce_store<1, 1>(norm_z, out + 2 * kManyNC);
-  if (tid < 2 * (kManyNC - count)) out[2 * count + tid] = 0.0f;
-
-  for (int k = 0; k < count; ++k) {  // count is the same for the whole block
-    const float* wmark = bank + static_cast<size_t>(first + k) * plane;
-    for (int i = tid; i < kUH * kUW; i += kTileThreads) {
-      const int r = i / kUW;
-      const int q = i % kUW;
-      const int cy = wm::clampi(y0 - kPH + r, 0, rows - 1);
-      const int cx = wm::clampi(x0 - kPH + q, 0, cols - 1);
-      s_u[r][q] = __fmul_rn(
-          s_mask[r][q], __ldg(wmark + static_cast<size_t>(cy) * cols + cx));
-    }
-    __syncthreads();
-    float acc[2] = {0.0f, 0.0f};
-    for (int i = tid; i < kTileH * kTileW; i += kTileThreads) {
-      const int r = i / kTileW;
-      const int q = i % kTileW;
-      if (y0 + r < rows && x0 + q < cols) {
-        const float e_u =
-            wm::prediction_error_at<kPH>(&s_u[r + kPH][q + kPH], kUW, c);
-        acc[0] += e_u * s_ez[r][q];
-        acc[1] += e_u * e_u;
-      }
-    }
-    wm::block_reduce_store<2, 2>(acc, out + 2 * k);
-    __syncthreads();  // s_u and the reduction's scratch are read: reuse them
-  }
-}
-
 template <int kMask, int kHalf>
 int launch_embed_tile(const float* img, const float* wmark,
                       const float* coeffs, float* u_raw, float* partials,
@@ -367,17 +244,6 @@ int launch_detect(const float* img, const float* wmark, const float* coeffs,
   detect_tail_kernel<kMask, kPH, kNH>
       <<<wm::tile_grid(batch, rows, cols), wm::kTileBlock, 0, s>>>(
           img, wmark, coeffs, partials, rows, cols);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kMask, int kPH, int kNH>
-int launch_detect_many(const float* img, const float* bank,
-                       const float* coeffs, float* partials, int batch, int n,
-                       int rows, int cols, cudaStream_t s) {
-  const int planes = batch * wm::ceil_div(n, kManyNC);
-  detect_many_kernel<kMask, kPH, kNH>
-      <<<wm::tile_grid(planes, rows, cols), wm::kTileBlock, 0, s>>>(
-          img, bank, coeffs, partials, n, rows, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -469,41 +335,3 @@ extern "C" int wm_detect_partials(const float* img, const float* wmark,
   return cudaErrorInvalidValue;
 }
 
-// Candidates a block of wm_detect_many scores: its partials' chunk size.
-extern "C" int wm_detect_many_chunk() { return kManyNC; }
-
-// img (batch, rows, cols), bank (n, rows, cols) f32; coeffs (batch, k) f32
-// as for wm_detect_partials -> partials (batch, ceil(n / chunk),
-// wm_detect_partials_num_blocks(rows, cols), 2 * chunk + 1) f32 with chunk =
-// wm_detect_many_chunk(): per candidate sum e_u*e_z and sum e_u^2, then
-// sum e_z^2.
-extern "C" int wm_detect_many(const float* img, const float* bank,
-                              const float* coeffs, float* partials,
-                              int batch, int n, int rows, int cols,
-                              int mask_type, int p, void* stream) {
-  if (batch < 1 || n < 1 || rows < 1 || cols < 1 || coeffs == nullptr)
-    return cudaErrorInvalidValue;
-  if (static_cast<long long>(batch) * wm::ceil_div(n, kManyNC) > 65535)
-    return cudaErrorInvalidValue;  // gridDim.z
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define WM_MANY(mask, ph, nh)                                              \
-  launch_detect_many<mask, ph, nh>(img, bank, coeffs, partials, batch, n, \
-                                   rows, cols, s)
-  if (mask_type == wm::kMaskME) {
-    switch (p) {
-      case 3: return WM_MANY(wm::kMaskME, 1, 0);
-      case 5: return WM_MANY(wm::kMaskME, 2, 0);
-      case 7: return WM_MANY(wm::kMaskME, 3, 0);
-      case 9: return WM_MANY(wm::kMaskME, 4, 0);
-    }
-  } else if (mask_type == wm::kMaskNVF) {
-    switch (p) {
-      case 3: return WM_MANY(wm::kMaskNVF, 1, 1);
-      case 5: return WM_MANY(wm::kMaskNVF, 1, 2);
-      case 7: return WM_MANY(wm::kMaskNVF, 1, 3);
-      case 9: return WM_MANY(wm::kMaskNVF, 1, 4);
-    }
-  }
-#undef WM_MANY
-  return cudaErrorInvalidValue;
-}

@@ -1,5 +1,5 @@
-"""The multi-candidate detect kernel (``csrc/fused.cu::detect_many_kernel``)
-and its plain PyTorch version.
+"""The multi-candidate detect kernel (``csrc/detect_many.cu``) and its plain
+PyTorch version.
 
 Watermark identification scores B frames against a bank of N candidate
 watermarks. The image-only part of detection (e_z and the mask) is shared by
@@ -53,9 +53,9 @@ def detect_many_partials(image: torch.Tensor, bank: torch.Tensor,
     ||e_z||^2 (B,)).
 
     CPU tensors take ``detect_many_partials_plain``; CUDA tensors launch the
-    kernel: one block per tile of a frame and chunk of candidates, each
-    writing its sums to a (B, chunks, blocks, 2 * chunk + 1) partials buffer
-    that is finished here.
+    kernel: one block per tile of a frame and chunk of ``chunk`` candidates,
+    each writing its sums to a (B, chunks, blocks, 2 * chunk + 1) partials
+    buffer that is finished here.
     """
     if image.device.type == "cpu":
         return detect_many_partials_plain(image, bank, coefficients,
