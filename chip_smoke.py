@@ -12,9 +12,12 @@ prints no result:
    (seconds and ptxas' register report).
 2. Each kernel against its plain PyTorch version on the card, with the same
    inputs and coefficients, at 8 x 1080 x 1920 and at 3 x 37 x 83: the p=3
-   kernels, then for p = 5, 7, 9 the wide Gram's lag partials (and the
-   assembled Gram against the direct per-pair sums ``gram_direct(p)``) and
-   the embed field and detect tail at ME and NVF p; then at p = 3, 5, 7, 9
+   kernels, then for p = 5, 7, 9 the wide Gram's two kernels (the lag sums
+   over row strips, and the assembly from the plain lag sums), the Gram of
+   both against the plain lag form ``me_gram_wide_plain`` (and, at the small
+   shape, the direct per-pair sums ``gram_direct(p)``), bit-identical over
+   two calls, and the embed field and detect tail at ME and NVF p; then at
+   p = 3, 5, 7, 9
    the multi-candidate detect at ME and NVF against the 64-candidate bank
    (70 at the small shape: a full chunk of 64 and a partial one) and the
    standalone prediction error and NVF mask.
@@ -25,22 +28,26 @@ prints no result:
    at ME and NVF P = 3, 5, 7, 9: ``IdentifierService`` answers 16
    single-frame requests (8 marked frames, 8 clean) against the
    64-candidate bank. Each is held to numbers the JAX package computed on
-   the CPU from the same frames (identification at ME P=3 and 5 and NVF
-   P=3), and its kernels' launch counters are zeroed just before it and
+   the CPU from the same frames (identification at ME P = 3, 5, 7, 9 and
+   NVF P=3), and its kernels' launch counters are zeroed just before it and
    read just after.
 4. Timing with CUDA events: the chained 8-frame ME embed+detect step at
    each P through the kernels and through the plain path
-   (``impl="torch"``), each kernel beside its plain version (the prediction
-   error also beside one ``conv2d``), and the identification of 8 frames
-   against 64 candidates (ME) at each P through the kernel, through the
-   plain route and as 64 looped detects.
+   (``impl="torch"``), each kernel beside its plain version (the wide Gram
+   as its two kernels together; the prediction error also beside one
+   ``conv2d``), and the identification of 8 frames against 64 candidates
+   (ME) at each P through the kernel, through the plain route and as 64
+   looped detects. Last, after every timing, the wide Gram's split between
+   its two kernels by ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
-path runs); ``max_abs_err`` of its main output against the plain version at
-8 x 1080 x 1920 (the Gram or lag partials, u_raw, the correlation formed
-from the detect sums, or the standalone op's output) and ``max_rel_err`` of
+path runs; for the wide Gram both kernels' launches, one each a Gram);
+``max_abs_err`` of
+its main output against the plain version at 8 x 1080 x 1920 (the Gram,
+u_raw, the correlation formed from the detect sums, or the standalone op's
+output) and ``max_rel_err`` of
 its reductions (of the output, relative to its largest value, for the
 standalone ops); ``ms`` and ``plain_ms`` per call from phase 4;
 ``bound_ms``, the least time an H100 could take for the same work (the
@@ -271,6 +278,8 @@ KERNEL_SOURCES = {
 }
 STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
 P3_KERNELS = ("me_gram", "embed_field", "detect_partials")
+# the wide Gram's two kernels (the me_gram_wide rows), each with its count
+WIDE_GRAM_KERNELS = ("wide_lag_strips", "wide_assemble")
 
 
 class SmokeFailure(RuntimeError):
@@ -582,24 +591,39 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             label = f"p={p} " + "x".join(str(n) for n in img.shape)
             main_shape = img is frames_d
             before = kernels.launch_counts()
-            lags = kernels.wide_gram_partials(img, p)
-            lags_plain = kernels.lag_partials_plain(img, p)
-            check(torch.allclose(lags, lags_plain, rtol=SUM_RTOL, atol=0),
-                  f"me_gram_wide {label}: lag partials rel err "
-                  f"{rel_err(lags, lags_plain):.3e}")
-            # the assembled Gram against the direct per-pair sums, which
-            # share nothing with the lag form or its assembly
+            # each kernel against its plain version on the same inputs
+            sums, edges = kernels.wide_lag_strips(img, p)
+            sums_plain, edges_plain = kernels.lag_strips_plain(img, p)
+            lag_err = max(rel_err(sums, sums_plain),
+                          rel_err(edges, edges_plain))
+            check(lag_err <= SUM_RTOL, f"me_gram_wide {label}: lag kernel "
+                  f"rel err {lag_err:.3e}")
+            assembled = kernels.wide_assemble(sums_plain, edges_plain, img, p)
+            assembled_plain = kernels.assemble_strips_plain(
+                sums_plain, edges_plain, img, p)
+            assemble_err = rel_err(assembled, assembled_plain)
+            check(assemble_err <= SUM_RTOL, f"me_gram_wide {label}: "
+                  f"assembly kernel rel err {assemble_err:.3e}")
+            del sums_plain, edges_plain
+            # the Gram of both against the plain lag form and, at the small
+            # shape, the direct per-pair sums, which share nothing with it
             gram = kernels.me_gram_wide(img, p)
-            direct = gram_direct(img, p)
-            check(torch.allclose(gram, direct, rtol=SUM_RTOL, atol=0),
-                  f"me_gram_wide {label}: Gram rel err against the direct "
-                  f"sums {rel_err(gram, direct):.3e}")
-            worst = {"gram": rel_err(gram, direct)}
-            del direct
-            if main_shape:
+            plain = kernels.me_gram_wide_plain(img, p)
+            check(torch.allclose(gram, plain, rtol=SUM_RTOL, atol=0),
+                  f"me_gram_wide {label}: Gram rel err against the plain "
+                  f"lag form {rel_err(gram, plain):.3e}")
+            check(torch.equal(kernels.me_gram_wide(img, p), gram),
+                  f"me_gram_wide {label}: two calls differ")
+            worst = {"gram": rel_err(gram, plain)}
+            if not main_shape:
+                direct = gram_direct(img, p)
+                check(torch.allclose(gram, direct, rtol=SUM_RTOL, atol=0),
+                      f"me_gram_wide {label}: Gram rel err against the "
+                      f"direct sums {rel_err(gram, direct):.3e}")
+                worst["direct"] = rel_err(gram, direct)
+            else:
                 errors[f"me_gram_wide_p{p}"] = (
-                    float((lags - lags_plain).abs().max()),
-                    rel_err(lags, lags_plain))
+                    float((gram - plain).abs().max()), worst["gram"])
             coeffs = predictor_coefficients(img)
             for mask in ("me", "nvf"):
                 c = coeffs[p if mask == "me" else 3]
@@ -630,7 +654,8 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                                                               detect_err)
             after = kernels.launch_counts()
             check(all(after[n] > before[n] for n in
-                      ("me_gram_wide", "embed_field", "detect_partials")),
+                      (*WIDE_GRAM_KERNELS, "embed_field",
+                       "detect_partials")),
                   f"{label}: a launch counter did not rise: {before} -> "
                   f"{after}")
             torch.cuda.synchronize()
@@ -638,10 +663,13 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                 f"{m}: u_raw abs {worst[m][0]:.2e}, sums rel "
                 f"{worst[m][1]:.2e}, detect sums rel {worst[m][3]:.2e}, corr "
                 f"abs {worst[m][2]:.2e}" for m in ("me", "nvf"))
-            print(f"[2] {label}: me_gram_wide lags rel "
-                  f"{rel_err(lags, lags_plain):.2e}, Gram rel (against the "
-                  f"direct sums) {worst['gram']:.2e}; {masks}: ok",
-                  flush=True)
+            direct_note = (f", against the direct sums "
+                           f"{worst['direct']:.2e}" if "direct" in worst
+                           else "")
+            print(f"[2] {label}: me_gram_wide lag kernel rel {lag_err:.2e}, "
+                  f"assembly kernel rel {assemble_err:.2e}, Gram rel against "
+                  f"the plain lag form {worst['gram']:.2e}{direct_note}, two "
+                  f"calls bit-identical; {masks}: ok", flush=True)
     return errors
 
 
@@ -665,7 +693,8 @@ def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
     torch.cuda.synchronize()
     total = kernels.launch_counts()
 
-    check(counts["me"]["me_gram_wide"] > 0 and counts["nvf"]["me_gram"] > 0
+    check(all(counts["me"][n] > 0 for n in WIDE_GRAM_KERNELS)
+          and counts["nvf"]["me_gram"] > 0
           and total["embed_field"] > 0 and total["detect_partials"] > 0,
           f"p={p}: a kernel was never launched on the main path: {counts}")
     for mask, (marked, strength, corr, clean) in results.items():
@@ -734,8 +763,8 @@ def phase_wide_timing(frames_d: torch.Tensor, wm_d: torch.Tensor,
 
     coeffs = predictor_coefficients(frames_d)
     pairs = {f"me_gram_wide_p{p}": (
-        lambda: kernels.wide_gram_partials(frames_d, p),
-        lambda: kernels.lag_partials_plain(frames_d, p))}
+        lambda: kernels.me_gram_wide(frames_d, p),
+        lambda: kernels.me_gram_wide_plain(frames_d, p))}
     for mask in ("me", "nvf"):
         c = coeffs[p if mask == "me" else 3]
         pairs[f"embed_field_{mask}_p{p}"] = (
@@ -753,11 +782,32 @@ def phase_wide_timing(frames_d: torch.Tensor, wm_d: torch.Tensor,
         times[name] = (cuda_ms(kernel_fn), cuda_ms(plain_fn))
         print(f"[4] {name} at 8x1080x1920: kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms", flush=True)
-    gram_ms = cuda_ms(lambda: kernels.me_gram_wide(frames_d, p))
-    plain_gram_ms = cuda_ms(lambda: kernels.me_gram_wide_plain(frames_d, p))
-    print(f"[4] p={p} assembled Gram (lag kernel + assembly) {gram_ms:.4f} "
-          f"ms, plain {plain_gram_ms:.4f} ms", flush=True)
     return times
+
+
+def wide_gram_split(frames_d: torch.Tensor, p: int, calls: int = 20) -> dict:
+    """Device ms a call of each of the wide Gram's two kernels, from
+    torch.profiler's kernel records over ``calls`` calls of me_gram_wide
+    (CUDA events around a call would count the wrappers' host time when it
+    exceeds a kernel's). Run after every other timing: the profiler's
+    tracing may stay attached and slow later launches."""
+    kernels.me_gram_wide(frames_d, p)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernels.me_gram_wide(frames_d, p)
+        torch.cuda.synchronize()
+    split = dict.fromkeys(WIDE_GRAM_KERNELS, 0.0)
+    for event in prof.events():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in split:
+            if name in event.name:
+                split[name] += event.device_time_total / 1e3 / calls
+    check(all(split.values()), f"p={p}: the profiler saw no wide Gram "
+          f"kernel: {split}")
+    return split
 
 
 def many_errors(got: tuple, want: tuple) -> tuple[float, float]:
@@ -837,6 +887,9 @@ def phase_identify_kernels(frames_d: torch.Tensor,
 # from make_frames()[0] and make_bank(), by
 #   JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py \
 #       --identify me:3 nvf:3 me:5
+# and, for ME P = 7 and 9,
+#   JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py \
+#       --identify me:7 me:9
 # embed_pipeline(frame, frame, W, strength_factor(40), mask, p), then
 # detect_many_pipeline of the marked frame ("marked") and of the clean one
 # ("clean") against the 64 candidates.
@@ -955,6 +1008,82 @@ JAX_IDENTIFY_REFERENCE = {
             -0.00069406384, 0.00095467299, 0.00080348772, -0.0011433944
         ],
     },
+    "me:7": {
+        "marked": [
+            0.0013118761, 0.00010727708, -0.0014377378, 0.00013284988,
+            0.0009104186, 0.0003984148, -0.0010149747, -0.00096890976,
+            0.00019009941, 0.0009186058, 0.000814956, 0.00057032605,
+            0.0012030496, 0.0020901812, -0.00033833444, -0.0006746183,
+            -0.0016473511, 0.127101, 0.0012238172, 0.0013791171,
+            -0.00017039948, -0.0014822171, 0.0012044227, -0.0023877653, 0.00044600188,
+            -0.00066592067, -0.00034872844, -0.0001491863, 0.00068371807,
+            -0.0008874119, 0.0005533109, -6.73654e-05, -0.0015673701,
+            -9.236658e-05, -0.00012904243, 0.00079977245, 0.00061924366,
+            0.00031557024, -0.00014565534, -0.0015054274, 0.0010607565,
+            -4.3173797e-05, 0.00056049693, -0.0011423717, -0.0012138172,
+            0.0014816662, 0.00016004396, -0.0026739375, 0.0005757925,
+            8.866932e-06, 0.00059709913, -0.0015424949, -0.00036022483,
+            0.001074894, -0.0016772286, 0.00019456167, -0.00038016733,
+            -0.002354206, 0.00021737511, 0.0009984979, -0.0005499544,
+            0.0010287131, 0.00091437047, -0.0013223005
+        ],
+        "clean": [
+            0.0012869328, 0.00017927462, -0.0014223331, -5.5364144e-05,
+            0.00094385585, 0.00036135787, -0.00089477154, -0.0011828316,
+            0.00010832493, 0.0010758027, 0.0009804232, 0.00048692152,
+            0.00119147, 0.0019207314, -0.0004883442, -0.00049850415,
+            -0.0016766952, 0.0013779975, 0.0010422028, 0.0013461937,
+            -0.00035781867, -0.0015830565, 0.0012072896, -0.0027126172,
+            0.0008471249, -0.00082357024, -0.0004409312, -8.110672e-05,
+            0.0008705253, -0.00072444446, 0.000624379, -0.00013539009,
+            -0.0016803605, -0.00026967403, -4.1021638e-05, 0.0008027514,
+            0.00065093994, 0.00031470877, -1.648547e-05, -0.0013850149,
+            0.0011221475, -6.796074e-05, 0.00033653897, -0.0010558404,
+            -0.0012746988, 0.0013757582, 0.00023738302, -0.002551831,
+            0.000765359, -1.5582955e-05, 0.0008109311, -0.0012626001,
+            -0.00033464594, 0.00094407087, -0.001706533, 0.0003786731,
+            -0.0005445159, -0.0023723491, 0.00024849054, 0.0010810664,
+            -0.00057555886, 0.0013180409, 0.0008585623, -0.0011476484
+        ],
+    },
+    "me:9": {
+        "marked": [
+            0.0011999512, 0.00023995772, -0.0013787708, 3.586472e-05,
+            0.0007746614, 0.00039150062, -0.0009986861, -0.0009517684,
+            0.00017814215, 0.0009036398, 0.000845812, 0.0006043239,
+            0.00096944696, 0.0019732225, -0.0005082573, -0.0008308137,
+            -0.0016798568, 0.1267925, 0.0014780951, 0.001333386, -0.0002322665,
+            -0.0017527321, 0.0011658714, -0.0021970375, 0.00076109904,
+            -0.0008391614, -0.0006324984, -0.0003040298, 0.00066992594,
+            -0.0008629607, 0.0008238604, -9.427592e-05, -0.0016616882,
+            2.531108e-05, -0.00024696073, 0.0007699413, 0.0005711744,
+            3.387279e-05, 7.3814525e-05, -0.0015050627, 0.0011135504,
+            6.6128785e-05, 0.00069843984, -0.0009198811, -0.0010736538,
+            0.0014698812, 0.00026584693, -0.0024882755, 0.00041494746,
+            -0.00018913348, 0.00053900876, -0.0017607061, -0.00048932486,
+            0.0013220938, -0.0014837444, 2.7320617e-05, -0.00043304716,
+            -0.0022392042, 0.00021728812, 0.0011266625, -0.0005038622,
+            0.000985184, 0.0008308417, -0.0012717214
+        ],
+        "clean": [
+            0.0011667473, 0.00032169366, -0.0014031129, -0.00016436579,
+            0.0007899324, 0.00036539437, -0.00082661986, -0.0011756272,
+            9.345835e-05, 0.0010666775, 0.000984863, 0.0005274467,
+            0.00095572695, 0.0018376024, -0.00064946327, -0.00069050747,
+            -0.0016962028, 0.0012903732, 0.0012900587, 0.0013251709,
+            -0.0004175352, -0.0018434355, 0.0011231472, -0.0024958383,
+            0.0011372045, -0.0009900457, -0.0006923131, -0.00019119265,
+            0.0008503522, -0.0007540661, 0.0008717579, -0.00015372454,
+            -0.0017491278, -0.0001279326, -0.00018769538, 0.00076258735,
+            0.0006136241, 4.769083e-05, 0.00024155533, -0.0014061235,
+            0.0011883981, 3.973436e-05, 0.00048292865, -0.0007928224,
+            -0.001146491, 0.0013407385, 0.00034985328, -0.0023365445,
+            0.00060269877, -0.0002153088, 0.00076076377, -0.0015166035,
+            -0.00048420145, 0.0011960096, -0.0014876559, 0.00021996474,
+            -0.00057815085, -0.002231386, 0.00024799575, 0.0012353995,
+            -0.00054459996, 0.0012849686, 0.00080741965, -0.0011193274
+        ],
+    },
 }
 
 
@@ -988,9 +1117,9 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
         finally:
             service.close()
         label = f"P={p} {mask}"
-        gram = "me_gram_wide" if mask == "me" and p > 3 else "me_gram"
+        grams = WIDE_GRAM_KERNELS if mask == "me" and p > 3 else ("me_gram",)
         check(counts[(mask, p)]["detect_many"] > 0
-              and counts[(mask, p)][gram] > 0,
+              and all(counts[(mask, p)][n] > 0 for n in grams),
               f"{label}: a kernel was never launched: {counts[(mask, p)]}")
         check(scores.shape == (2 * BATCH, N_CANDIDATES)
               and bool(np.isfinite(scores).all()),
@@ -1210,6 +1339,15 @@ def main() -> int:
     for p in WIDE_P:
         times.update(phase_wide_timing(frames_d, wm_d, p))
     times.update(phase_identify_timing(frames_d, bank_d))
+    for p in WIDE_P:
+        split = wide_gram_split(frames_d, p)
+        print(f"[4] p={p} wide Gram split (device time a call, "
+              f"torch.profiler): lag kernel {split['wide_lag_strips']:.4f} "
+              f"ms, assembly kernel {split['wide_assemble']:.4f} ms "
+              f"(me_gram_wide_p{p} times both with the wrappers, "
+              f"{times[f'me_gram_wide_p{p}'][0]:.4f} ms; launches on the "
+              f"main path {wide_counts[p]['me']['wide_lag_strips']} + "
+              f"{wide_counts[p]['me']['wide_assemble']})", flush=True)
 
     rows = [kernel_row("me_gram", "me_gram", "me", 3,
                        counts["all"]["me_gram"], errors["me_gram"],
@@ -1225,7 +1363,8 @@ def main() -> int:
     for p in WIDE_P:
         me, nvf = wide_counts[p]["me"], wide_counts[p]["nvf"]
         rows.append(kernel_row(f"me_gram_wide_p{p}", "me_gram_wide", "me", p,
-                               me["me_gram_wide"] + nvf["me_gram_wide"],
+                               sum(run[n] for run in (me, nvf)
+                                   for n in WIDE_GRAM_KERNELS),
                                errors[f"me_gram_wide_p{p}"],
                                times[f"me_gram_wide_p{p}"]))
         for kernel in ("embed_field", "detect_partials"):

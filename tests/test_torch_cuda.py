@@ -6,7 +6,7 @@ runs on a machine without them; there, skip the JAX-based conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: Gram, lag partials and reductions rtol 1e-4 (summation order
+Tolerances: Gram, lag sums and reductions rtol 1e-4 (summation order
 only); u_raw, the prediction error and the NVF mask rtol 1e-5 + atol 1e-3
 (their terms round identically); between the two routes, correlations abs
 2e-4 (3e-4 for NVF, as the JAX suite holds its fused NVF kernels) and
@@ -74,24 +74,44 @@ def test_kernels_match_plain_on_card(device, shape):
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 96), (2, 37, 83), (2, 20, 30),
-                                   (1, 1080, 1920)])
+                                   (1, 1080, 1920), "6h"])
 @pytest.mark.parametrize("p", [5, 7, 9])
 def test_wide_kernels_match_plain_on_card(device, p, shape):
-    """The wide Gram's lane partials and Gram, and the embed field and
-    detect tail at ME and NVF p, against their plain versions. (2, 20, 30)
-    is below the lag geometry at p = 7 and 9, where the Gram takes the
-    direct sums and launches nothing."""
+    """The wide Gram's two kernels, each against its plain version on the
+    same inputs (the lag kernel's strip sums and edge lanes; the assembly
+    kernel's Gram from the plain lag output), the Gram of both against the
+    independent plain form, two calls bit-identical, and the embed field and
+    detect tail at ME and NVF p, against their plain versions. "6h" is
+    (1, 6h, 6h), the least frame of the lag form: one strip shorter than the
+    default. (2, 20, 30) is below the lag geometry at p = 7 and 9, where the
+    Gram takes the direct sums and launches nothing."""
+    if shape == "6h":
+        shape = (1, 6 * (p // 2), 6 * (p // 2))
     frames, wm, _ = make_inputs(shape, device)
     k = p * p - 1
-    torch.testing.assert_close(kernels.wide_gram_partials(frames, p),
-                               kernels.lag_partials_plain(frames, p),
-                               rtol=1e-4, atol=1e-2)
+    lag_form = min(shape[1:]) >= 6 * (p // 2)
+    if lag_form:
+        sums, edges = kernels.wide_lag_strips(frames, p)
+        sums_plain, edges_plain = kernels.lag_strips_plain(frames, p)
+        torch.testing.assert_close(sums, sums_plain, rtol=1e-4, atol=1e-2)
+        torch.testing.assert_close(edges, edges_plain, rtol=1e-4, atol=1e-2)
+        torch.testing.assert_close(
+            kernels.wide_assemble(sums_plain, edges_plain, frames, p),
+            kernels.assemble_strips_plain(sums_plain, edges_plain, frames,
+                                          p), rtol=1e-4, atol=0)
+        again = kernels.wide_lag_strips(frames, p)
+        assert torch.equal(again[0], sums) and torch.equal(again[1], edges)
+        torch.testing.assert_close(kernels.me_gram_wide(frames, p),
+                                   kernels.me_gram_wide_plain(frames, p),
+                                   rtol=1e-4, atol=0)
     before = kernels.launch_counts()
     gram = kernels.me_gram_wide(frames, p)
     plain = kernels.me_gram_wide(frames.cpu(), p).to(device)
     torch.testing.assert_close(gram, plain, rtol=1e-4, atol=0)
-    launched = kernels.launch_counts()["me_gram_wide"] - before["me_gram_wide"]
-    assert launched == (1 if min(shape[1:]) >= 6 * (p // 2) else 0)
+    assert torch.equal(kernels.me_gram_wide(frames, p), gram)
+    after = kernels.launch_counts()
+    for kernel in ("wide_lag_strips", "wide_assemble"):   # each one a Gram
+        assert after[kernel] - before[kernel] == (2 if lag_form else 0)
     coeffs = {"me": _analysis(frames.cpu(), p)[0].to(device),
               "nvf": _analysis(frames.cpu(), 3)[0].to(device)}
     for mask_type in ("me", "nvf"):
@@ -253,6 +273,7 @@ def test_engine_runs_on_card(device, p):
     assert scores.shape == (2, 2) and scores.is_cuda
     torch.testing.assert_close(scores[:, 0], corr, rtol=0, atol=1e-5)
     counts = kernels.launch_counts()
-    assert counts.pop("me_gram_wide") == (3 if p > 3 else 0)
+    assert counts.pop("wide_lag_strips") == counts.pop("wide_assemble") == (
+        3 if p > 3 else 0)
     assert counts.pop("prediction_error") == counts.pop("nvf_mask") == 0
     assert all(n > 0 for n in counts.values())

@@ -102,7 +102,8 @@ def test_cpu_tensors_launch_no_kernel():
                                            mask_type, p=p, impl="cuda")
             kernels.prediction_error(frames, torch.zeros(2, p * p - 1), p)
             kernels.nvf_mask(frames, p)
-    assert kernels.launch_counts() == {"me_gram": 0, "me_gram_wide": 0,
+    assert kernels.launch_counts() == {"me_gram": 0, "wide_lag_strips": 0,
+                                       "wide_assemble": 0,
                                        "embed_field": 0,
                                        "detect_partials": 0,
                                        "detect_many": 0,
@@ -121,7 +122,11 @@ def test_wrappers_raise_on_other_devices():
         kernels.detect_partials(frames, wm, torch.zeros(1, 8,
                                                         device="meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        kernels.wide_gram_partials(torch.zeros(1, 16, 16, device="meta"), 5)
+        kernels.wide_lag_strips(torch.zeros(1, 16, 16, device="meta"), 5)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.wide_assemble(torch.zeros(1, 41, 1, 1, device="meta"),
+                              torch.zeros(1, 41, 1, 8, device="meta"),
+                              torch.zeros(1, 16, 16, device="meta"), 5)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.detect_many_partials(frames, wm[None],
                                      torch.zeros(1, 8, device="meta"))

@@ -6,6 +6,11 @@ JAX package, with the same numpy frames and watermark fed to both.
   shape, and against the Pallas ``me_normal_equations_wide`` (interpret
   mode) at one shape per p — rtol 1e-4, as tests/test_pallas.py holds the
   Pallas kernel to XLA.
+* The plain versions of the port's two wide Gram kernels (the lag sums over
+  row strips, the assembly), chained, against the JAX
+  ``me_normal_equations`` at ragged shapes (rtol 1e-4); the strip sums
+  against the lane partials; the kernels' index tables against
+  ``lag_plan``.
 * The wide solve against the JAX ``solve_coefficients_spd_vec`` and
   ``_blocked`` on the same Gram: atol 1e-4 (the bound the JAX package set
   for its wide solves).
@@ -16,6 +21,8 @@ JAX package, with the same numpy frames and watermark fed to both.
   pixels atol 0.1, strengths rtol 2e-4, correlations atol 2e-4 for ME and
   3e-4 for NVF).
 """
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +41,9 @@ from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import me as tme
 from watermarking_gpu_tpu_torch.ops import pipelines as tp
 from watermarking_gpu_tpu_torch.ops.neighbors import pad_edge
+
+wide_module = importlib.import_module(
+    "watermarking_gpu_tpu_torch.ops.cuda.me_gram_wide")
 
 torch.set_num_threads(1)
 
@@ -73,6 +83,90 @@ def test_wide_gram_plain_matches_jax(p):
     rm_j, rv_j = me_normal_equations_wide(jnp.asarray(img), p)
     np.testing.assert_allclose(rm[0], rm_j, rtol=1e-4)
     np.testing.assert_allclose(rv[0], rv_j, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows", ["6h", 37, 61, "strip+3"])
+@pytest.mark.parametrize("p", WIDE_P)
+def test_wide_kernel_plain_versions_match_jax(p, rows):
+    """The plain versions of the wide Gram's two kernels, chained (the CPU
+    route of ``me_gram_wide``), against the JAX ``me_normal_equations`` at
+    ragged shapes: "strip+3" rows end in a strip of 3 rows at the default
+    strip height (fewer than 2h), 83 and 130 columns in a part-filled lane
+    block. rtol 1e-4."""
+    h, k = p // 2, p * p - 1
+    if rows == "6h":
+        rows = 6 * h
+    elif rows == "strip+3":
+        rows = tme.WIDE_STRIP_ROWS[p] + 3
+        assert rows % tme.wide_lag_layout(rows, 130, p)[0] == 3
+    for cols in (6 * h, 83, 130):
+        img = frames((2, rows, cols), seed=rows * cols + p)
+        image = torch.from_numpy(img)
+        sums, edges = tme.lag_strips_plain(image, p)
+        gram = tme.assemble_strips_plain(sums, edges, image, p)
+        assert torch.equal(kernels.me_gram_wide(image, p), gram)
+        rm, rv = split_gram(gram, k)
+        rm_j, rv_j = jme.me_normal_equations(jnp.asarray(img), p)
+        np.testing.assert_allclose(rm, rm_j, rtol=1e-4)
+        np.testing.assert_allclose(rv, rv_j, rtol=1e-4)
+
+
+@pytest.mark.parametrize("last", [0, 1, "2h-1"])
+@pytest.mark.parametrize("p", WIDE_P)
+def test_lag_strips_add_up_to_the_lane_partials(p, last):
+    """The lag kernel's plain output, summed over strips and lane blocks, is
+    the lane partials' full sum, and its edge lanes summed over strips are
+    the partials' 2h left and 2h right lanes; at the kernel's strip height
+    over two whole strips (``last`` 0) and over a strip and a last one of 1
+    or 2h - 1 rows, 300 columns (300 + 2h lanes: 3 lane blocks)."""
+    h = p // 2
+    strip = tme.WIDE_STRIP_ROWS[p]
+    rows = (2 * strip if last == 0
+            else strip + (1 if last == 1 else 2 * h - 1))
+    image = torch.from_numpy(frames((1, rows, 300), seed=p))
+    partials = tme.lag_partials_plain(image, p)
+    n_lags = partials.shape[1]
+    edge_lanes = torch.cat([partials[..., :2 * h], partials[..., -2 * h:]],
+                           dim=-1)
+    sums, edges = tme.lag_strips_plain(image, p)
+    assert tme.wide_lag_layout(rows, 300, p) == (strip, 2, 3)
+    assert sums.shape == (1, n_lags, 2, 3)
+    assert edges.shape == (1, n_lags, 2, 4 * h)
+    torch.testing.assert_close(sums.sum(dim=(2, 3)), partials.sum(-1),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(edges.sum(dim=2), edge_lanes, rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.parametrize("p", WIDE_P)
+def test_wide_kernel_tables_cover_the_gram(p):
+    """The kernels' tables from ``lag_plan``: the lag kernel's index of each
+    (dc, dr) hits every canonical lag once and nothing else, and the
+    assembly kernel's pairs, grouped by lag, cover each cell of the Gram's
+    upper triangle once."""
+    h, n = p // 2, p * p
+    tables = {name: t.tolist() for name, t in
+              wide_module._tables(p, torch.device("cpu")).items()}
+    lags = tme.lag_plan(p)[0]
+    assert tables["lags"] == [list(lag) for lag in lags]
+    index = tables["lag_index"]
+    for dc in range(-2 * h, 2 * h + 1):
+        for dr in range(2 * h + 1):
+            want = lags.index((dr, dc)) if (dr, dc) in lags else -1
+            assert index[(dc + 2 * h) * (2 * h + 1) + dr] == want
+            assert (want == -1) == (dr == 0 and dc < 0)
+    start, pairs = tables["pair_start"], tables["pairs"]
+    assert start[0] == 0 and start[-1] == len(pairs) == n * (n + 1) // 2
+    _, pair_lag, pair_ar, pair_ai, pair_index = tme.lag_plan(p)
+    cells = set()
+    for lag in range(len(lags)):
+        for row, column, ar, ai in pairs[start[lag]:start[lag + 1]]:
+            pair = pair_index[row][column]
+            assert row <= column
+            assert (pair_lag[pair], pair_ar[pair], pair_ai[pair]) == (lag, ar,
+                                                                      ai)
+            cells.add((row, column))
+    assert len(cells) == len(pairs)
 
 
 @pytest.mark.parametrize("p", WIDE_P)

@@ -44,7 +44,10 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "wm_me_gram_num_blocks": (_INT, _INT),
     "wm_me_gram": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
-    "wm_me_gram_wide": (_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    "wm_wide_lag_strips": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                           _INT, _INT, _INT, _PTR),
+    "wm_wide_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+                         _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
     "wm_embed_field_num_blocks": (_INT, _INT, _INT, _INT),
     "wm_embed_field": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                        _INT, _PTR),

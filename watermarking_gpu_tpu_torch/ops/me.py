@@ -75,12 +75,15 @@ def gram_direct(image: torch.Tensor, p: int = 3) -> torch.Tensor:
 # Oriented canonically (dr > 0, or dr == 0 and dc >= 0) there are
 # ((4h+1)^2 + 1) / 2 lags, h = p // 2: 41, 85 and 145. The per-lag lane
 # partials V_d[v] = sum_{y in [0, H)} P[y, v - h] * P[y + dr, v - h + dc],
-# lanes v in [0, W + 2h) (image columns [-h, W + h)), are the contract of
-# the wide Gram kernel (ops/cuda/me_gram_wide.py); ``assemble_wide`` turns
-# them into the Gram with a few vectorized ops: each pair's column window is
-# the full lane sum less <= 2h edge lanes, and the pairs whose window is
+# lanes v in [0, W + 2h) (image columns [-h, W + h)), are the JAX package's
+# kernel contract (``lag_partials_plain``); ``assemble_wide`` turns them
+# into the Gram with a few vectorized ops: each pair's column window is the
+# full lane sum less <= 2h edge lanes, and the pairs whose window is
 # row-shifted take boundary-row corrections from the low and high row banks
-# of the clamp-extended image. It needs rows, cols >= 6h
+# of the clamp-extended image. The two make ``me_gram_wide_plain``, the
+# torch route and the card's oracle. The port's kernels need only the full
+# lane sums and the edge lanes (``lag_strips_plain`` and
+# ``assemble_strips_plain`` below). All of it needs rows, cols >= 6h
 # (``wide_lag_geometry``).
 
 
@@ -153,9 +156,9 @@ def _indices(p: int, rows: int, cols: int, device: torch.device) -> dict:
 
 
 def lag_partials_plain(image: torch.Tensor, p: int) -> torch.Tensor:
-    """(B, H, W) -> (B, L, W + 2h) per-lag lane partials (the plain version
-    of the wide Gram kernel; the JAX package's ``ops.me.lag_partials`` over
-    a 3h-padded image)."""
+    """(B, H, W) -> (B, L, W + 2h) per-lag lane partials (the JAX package's
+    wide Gram kernel contract, its ``ops.me.lag_partials`` over a 3h-padded
+    image)."""
     h = p // 2
     rows, cols = image.shape[-2:]
     ext = pad_edge(image, 3 * h)   # image row 0 at 3h, column -h at 2h
@@ -166,15 +169,23 @@ def lag_partials_plain(image: torch.Tensor, p: int) -> torch.Tensor:
          for dr, dc in lag_plan(p)[0]], dim=1)
 
 
-def _edge_windows(x: torch.Tensor, h: int) -> torch.Tensor:
-    """All 2h+1 lane windows [ai, ai + W) of (..., W + 2h) partials: the
+def _lane_windows(full: torch.Tensor, edges: torch.Tensor,
+                  h: int) -> torch.Tensor:
+    """All 2h+1 lane windows [ai, ai + W) of lanes [0, W + 2h) from their
+    full sum (...) and their 2h left and 2h right edge lanes (..., 4h): the
     full sum less the ai left and 2h - ai right edge lanes."""
-    full = x.sum(dim=-1)
-    zero = x.new_zeros(x.shape[:-1] + (1,))
-    left = torch.cat([zero, x[..., :2 * h].cumsum(dim=-1)], dim=-1)
-    right = torch.cat([zero, x[..., -2 * h:].flip(-1).cumsum(dim=-1)],
+    zero = full.new_zeros(full.shape + (1,))
+    left = torch.cat([zero, edges[..., :2 * h].cumsum(dim=-1)], dim=-1)
+    right = torch.cat([zero, edges[..., 2 * h:].flip(-1).cumsum(dim=-1)],
                       dim=-1)
     return full[..., None] - left - right.flip(-1)
+
+
+def _edge_windows(x: torch.Tensor, h: int) -> torch.Tensor:
+    """All 2h+1 lane windows of (..., W + 2h) partials."""
+    return _lane_windows(x.sum(dim=-1),
+                         torch.cat([x[..., :2 * h], x[..., -2 * h:]], dim=-1),
+                         h)
 
 
 def assemble_wide(partials: torch.Tensor, image: torch.Tensor,
@@ -182,12 +193,19 @@ def assemble_wide(partials: torch.Tensor, image: torch.Tensor,
     """(B, L, W + 2h) lane partials of the (B, H, W) image
     -> (B, k+1, k+1) Gram (the JAX package's ``_assemble_wide`` with the
     boundary rows taken from the raw image at clamped indices)."""
+    return _assemble(_edge_windows(partials, p // 2), image, p)
+
+
+def _assemble(windows: torch.Tensor, image: torch.Tensor,
+              p: int) -> torch.Tensor:
+    """(B, L, 2h+1) column windows of each lag's sum over rows [0, H)
+    -> (B, k+1, k+1) Gram, with the boundary-row corrections."""
     h = p // 2
     batch, rows, cols = image.shape
     index = _indices(p, rows, cols, image.device)
 
     # base windows: rows [0, H) of each lag, all 2h+1 column windows
-    base = _edge_windows(partials, h).reshape(batch, -1)[:, index["base"]]
+    base = windows.reshape(batch, -1)[:, index["base"]]
 
     def q_windows(bank_rows):
         # Q_d over bank rows [-h, h): row j times row j + dr shifted dc
@@ -215,6 +233,66 @@ def me_gram_wide_plain(image: torch.Tensor, p: int) -> torch.Tensor:
     """(B, H, W) -> (B, k+1, k+1) Gram of the lag form in plain torch
     (rows, cols >= 6h)."""
     return assemble_wide(lag_partials_plain(image, p), image, p)
+
+
+# ---- the wide Gram kernels' own functions ---------------------------------
+#
+# The lag kernel (csrc/me_gram_wide.cu) splits the rows into strips and the
+# lanes into blocks as ``wide_lag_layout`` says (the last strip and block
+# shorter); per (image, lag, strip, lane block) it writes the sum over the
+# block's lanes, and per (image, lag, strip) the 2h left and 2h right edge
+# lanes. The assembly kernel turns that and the image into the Gram. Below
+# are their plain versions; chained, they are the CPU route of
+# ``ops.cuda.me_gram_wide``.
+
+# lanes a block of the lag kernel: its threads a block (the kernel refuses
+# any other value)
+LANE_BLOCK = 128
+# rows a strip of the lag kernel, per p: the fastest of a sweep on an H100
+# (tools/ab_wide_gram.py)
+WIDE_STRIP_ROWS = {5: 120, 7: 180, 9: 270}
+
+
+def wide_lag_layout(rows: int, cols: int, p: int) -> tuple[int, int, int]:
+    """(strip rows, strips, lane blocks) of the lag kernel's output for a
+    (rows, cols) frame at window p."""
+    strip = min(rows, WIDE_STRIP_ROWS[p])
+    return strip, -(-rows // strip), -(-(cols + 2 * (p // 2)) // LANE_BLOCK)
+
+
+def lag_strips_plain(image: torch.Tensor, p: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) -> (sums (B, L, S, NB), edges (B, L, S, 4h)): per strip of
+    rows (``wide_lag_layout``) the lane partials' sum over each block of
+    LANE_BLOCK lanes and their 2h left and 2h right edge lanes, lags in
+    ``lag_plan`` order (the plain version of the lag kernel)."""
+    h = p // 2
+    batch, rows, cols = image.shape
+    strip, n_strips, n_blocks = wide_lag_layout(rows, cols, p)
+    lanes = cols + 2 * h
+    ext = pad_edge(image, 3 * h)   # image row 0 at 3h, column -h at 2h
+    base = ext[:, 3 * h:3 * h + rows, 2 * h:4 * h + cols]
+    sums, edges = [], []
+    for dr, dc in lag_plan(p)[0]:
+        product = base * ext[:, 3 * h + dr:3 * h + dr + rows,
+                             2 * h + dc:4 * h + dc + cols]
+        product = torch.nn.functional.pad(
+            product, (0, n_blocks * LANE_BLOCK - lanes, 0,
+                      n_strips * strip - rows))
+        per_strip = product.reshape(batch, n_strips, strip, -1).sum(dim=2)
+        sums.append(per_strip.reshape(batch, n_strips, n_blocks,
+                                      LANE_BLOCK).sum(dim=-1))
+        edges.append(torch.cat([per_strip[..., :2 * h],
+                                per_strip[..., cols:cols + 2 * h]], dim=-1))
+    return torch.stack(sums, dim=1), torch.stack(edges, dim=1)
+
+
+def assemble_strips_plain(sums: torch.Tensor, edges: torch.Tensor,
+                          image: torch.Tensor, p: int) -> torch.Tensor:
+    """The lag kernel's (sums, edges) of the (B, H, W) image
+    -> (B, k+1, k+1) Gram (the plain version of the assembly kernel)."""
+    return _assemble(_lane_windows(sums.sum(dim=(2, 3)), edges.sum(dim=2),
+                                   p // 2), image, p)
 
 
 
