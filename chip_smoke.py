@@ -28,8 +28,8 @@ prints no result:
    at ME and NVF P = 3, 5, 7, 9: ``IdentifierService`` answers 16
    single-frame requests (8 marked frames, 8 clean) against the
    64-candidate bank. Each is held to numbers the JAX package computed on
-   the CPU from the same frames (identification at ME P = 3, 5, 7, 9 and
-   NVF P=3), and its kernels' launch counters are zeroed just before it and
+   the CPU from the same frames (identification at ME and NVF P = 3, 5,
+   7, 9), and its kernels' launch counters are zeroed just before it and
    read just after.
 4. Timing with CUDA events: the chained 8-frame ME embed+detect step at
    each P through the kernels and through the plain path
@@ -37,8 +37,9 @@ prints no result:
    as its two kernels together; the prediction error also beside one
    ``conv2d``), and the identification of 8 frames against 64 candidates
    (ME) at each P through the kernel, through the plain route and as 64
-   looped detects. Last, after every timing, the wide Gram's split between
-   its two kernels by ``torch.profiler``.
+   looped detects. Last, after every timing, the device time a call of the
+   wide Gram's two kernels and of the detect tail at each mask and P, from
+   one ``torch.profiler`` session.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
@@ -49,7 +50,9 @@ its main output against the plain version at 8 x 1080 x 1920 (the Gram,
 u_raw, the correlation formed from the detect sums, or the standalone op's
 output) and ``max_rel_err`` of
 its reductions (of the output, relative to its largest value, for the
-standalone ops); ``ms`` and ``plain_ms`` per call from phase 4;
+standalone ops); ``ms`` and ``plain_ms`` per call from phase 4 (CUDA
+events around the wrapper); for the detect tail ``device_ms``, its
+kernel's device time a call from the profiler;
 ``bound_ms``, the least time an H100 could take for the same work (the
 larger of the bytes the function must move over 3.35 TB/s and the flops it
 needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
@@ -78,6 +81,7 @@ from watermarking_gpu_tpu_torch.models import (BatchedWatermark, Watermark,
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import strength_factor
 from watermarking_gpu_tpu_torch.ops.cuda import build
+from watermarking_gpu_tpu_torch.ops.cuda.fused import MASK_CODES
 from watermarking_gpu_tpu_torch.ops.me import (gram_direct,
                                                solve_coefficients_spd,
                                                solve_coefficients_spd_wide)
@@ -364,7 +368,7 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                                  rel_err(gram, gram_plain))
         worst_u = worst_sum = worst_corr = worst_detect = 0.0
         for mask in ("me", "nvf"):
-            u_err = sums_err = corr_err = detect_err = 0.0
+            sums_err = 0.0
             got = kernels.embed_field(img, wm, coeffs if mask == "me"
                                       else None, mask)
             want = kernels.embed_field_plain(img, wm, coeffs, mask)
@@ -379,16 +383,11 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                 sums_err = max(sums_err, rel_err(g, w))
             u_err = float((got[0] - want[0]).abs().max())
 
-            got = kernels.detect_partials(img, wm, coeffs, mask)
-            want = kernels.detect_partials_plain(img, wm, coeffs, mask)
-            for g, w in zip(got, want):
-                check(torch.allclose(g, w, rtol=SUM_RTOL, atol=0),
-                      f"detect_partials {mask} {label}: rel err "
-                      f"{rel_err(g, w):.3e}")
-                detect_err = max(detect_err, rel_err(g, w))
-            corr = got[0] / torch.sqrt(got[1] * got[2])
-            corr_plain = want[0] / torch.sqrt(want[1] * want[2])
-            corr_err = float((corr - corr_plain).abs().max())
+            corr_err, detect_err = detect_errors(
+                kernels.detect_partials(img, wm, coeffs, mask),
+                kernels.detect_partials_plain(img, wm, coeffs, mask))
+            check(detect_err <= SUM_RTOL, f"detect_partials {mask} {label}: "
+                  f"rel err {detect_err:.3e}")
             worst_u, worst_sum = max(worst_u, u_err), max(worst_sum, sums_err)
             worst_corr = max(worst_corr, corr_err)
             worst_detect = max(worst_detect, detect_err)
@@ -639,14 +638,11 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                                                              want[1:]))
                 check(sums_err <= SUM_RTOL, f"embed_field {mask} {label}: "
                       f"reduction rel err {sums_err:.3e}")
-                got = kernels.detect_partials(img, wm, c, mask, p)
-                want = kernels.detect_partials_plain(img, wm, c, mask, p)
-                detect_err = max(rel_err(g, w) for g, w in zip(got, want))
+                corr_err, detect_err = detect_errors(
+                    kernels.detect_partials(img, wm, c, mask, p),
+                    kernels.detect_partials_plain(img, wm, c, mask, p))
                 check(detect_err <= SUM_RTOL, f"detect_partials {mask} "
                       f"{label}: rel err {detect_err:.3e}")
-                corr_err = float(
-                    (got[0] / torch.sqrt(got[1] * got[2])
-                     - want[0] / torch.sqrt(want[1] * want[2])).abs().max())
                 worst[mask] = (u_err, sums_err, corr_err, detect_err)
                 if main_shape:
                     errors[f"embed_field_{mask}_p{p}"] = (u_err, sums_err)
@@ -785,44 +781,87 @@ def phase_wide_timing(frames_d: torch.Tensor, wm_d: torch.Tensor,
     return times
 
 
-def wide_gram_split(frames_d: torch.Tensor, p: int, calls: int = 20) -> dict:
-    """Device ms a call of each of the wide Gram's two kernels, from
-    torch.profiler's kernel records over ``calls`` calls of me_gram_wide
-    (CUDA events around a call would count the wrappers' host time when it
-    exceeds a kernel's). Run after every other timing: the profiler's
-    tracing may stay attached and slow later launches."""
-    kernels.me_gram_wide(frames_d, p)
+def device_ms(fns, patterns: dict[str, str], calls: int = 20,
+              tries: int = 3) -> dict[str, float]:
+    """Device ms a call of each kernel whose name holds ``patterns[key]``,
+    keyed as ``patterns``, from torch.profiler's kernel records of one
+    session over ``calls`` calls of each of ``fns`` in turn (CUDA events
+    around a call would count the wrappers' host time when it exceeds a
+    kernel's); each fn launches each of its kernels once a call. The
+    profiler may drop records: a mean is over the records it kept, and a
+    session that kept none of some kernel is run again. Run after every
+    other timing: the profiler's tracing may stay attached and slow later
+    launches."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            kernels.me_gram_wide(frames_d, p)
-        torch.cuda.synchronize()
-    split = dict.fromkeys(WIDE_GRAM_KERNELS, 0.0)
-    for event in prof.events():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for name in split:
-            if name in event.name:
-                split[name] += event.device_time_total / 1e3 / calls
-    check(all(split.values()), f"p={p}: the profiler saw no wide Gram "
-          f"kernel: {split}")
-    return split
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        total = dict.fromkeys(patterns, 0.0)
+        seen = dict.fromkeys(patterns, 0)
+        for event in prof.events():
+            if event.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for key, pattern in patterns.items():
+                if pattern in event.name:
+                    total[key] += event.device_time_total / 1e3
+                    seen[key] += 1
+        if all(seen.values()):
+            return {key: total[key] / seen[key] for key in patterns}
+    check(False, f"the profiler kept no record of "
+          f"{[patterns[key] for key, n in seen.items() if not n]}")
 
 
-def many_errors(got: tuple, want: tuple) -> tuple[float, float]:
-    """(max abs err of the correlations, max rel err of the sums) of the
-    multi-candidate kernel's (dot, norm_u, norm_z) against the plain
-    version's. A dot's error is taken relative to sqrt(norm_u * norm_z),
-    the most |dot| can be: a candidate that the frame does not carry has a
-    dot near 0, where an error relative to the dot itself means nothing."""
+def detect_errors(got: tuple, want: tuple) -> tuple[float, float]:
+    """(max abs err of the correlations, max rel err of the sums) of a
+    detect kernel's (dot, norm_u, norm_z) against the plain version's: the
+    detect tail's, (B,) each, or the multi-candidate kernel's, (B, N) and
+    norm_z (B,). A dot's error is taken relative to sqrt(norm_u * norm_z),
+    the most |dot| can be: a watermark that the frame does not carry has a
+    dot near 0, where an error relative to the dot itself means nothing
+    (fused multiply-adds in e_u move it by more than 1e-4 of itself)."""
     dot, norm_u, norm_z = got
     dot_w, norm_u_w, norm_z_w = want
-    scale = torch.sqrt(norm_u_w * norm_z_w[:, None])
+    spread = (1,) * (dot.ndim - 1)   # norm_z against each candidate
+    scale = torch.sqrt(norm_u_w * norm_z_w.reshape(-1, *spread))
     sums = max(float(((dot - dot_w).abs() / scale).max()),
                rel_err(norm_u, norm_u_w), rel_err(norm_z, norm_z_w))
-    corr = dot / torch.sqrt(norm_u * norm_z[:, None])
+    corr = dot / torch.sqrt(norm_u * norm_z.reshape(-1, *spread))
     return float((corr - dot_w / scale).abs().max()), sums
+
+
+def tail_row(mask: str, p: int) -> str:
+    """The kernels line's row name of the detect tail at mask and p."""
+    if p == 3:
+        return "detect_partials" + ("" if mask == "me" else "_nvf_p3")
+    return f"detect_partials_{mask}_p{p}"
+
+
+def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
+    """Device ms a call of the wide Gram's two kernels at p = 5, 7, 9
+    (keyed "wide_lag_strips_p5", ...) and of the detect tail at ME and NVF
+    p = 3, 5, 7, 9 (keyed by kernel row name), from one ``device_ms``
+    session; each kernel is told apart by its template arguments."""
+    coeffs = predictor_coefficients(frames_d)
+    fns, patterns = [], {}
+    for p in WIDE_P:
+        fns.append(lambda p=p: kernels.me_gram_wide(frames_d, p))
+        for kernel in WIDE_GRAM_KERNELS:
+            patterns[f"{kernel}_p{p}"] = f"{kernel}_kernel<{p // 2}>"
+    for p in ALL_P:
+        for mask in ("me", "nvf"):
+            fns.append(lambda c=coeffs[p if mask == "me" else 3], m=mask,
+                       p=p: kernels.detect_partials(frames_d, wm_d, c, m, p))
+            half = (p // 2, 0) if mask == "me" else (1, p // 2)
+            patterns[tail_row(mask, p)] = (
+                f"detect_tail_kernel<{MASK_CODES[mask]}, {half[0]}, "
+                f"{half[1]}>")
+    return device_ms(fns, patterns)
 
 
 def phase_identify_kernels(frames_d: torch.Tensor,
@@ -849,7 +888,7 @@ def phase_identify_kernels(frames_d: torch.Tensor,
             for mask in ("me", "nvf"):
                 c = coeffs[p if mask == "me" else 3]
                 name = f"detect_many_{mask}_p{p}"
-                worst[name] = many_errors(
+                worst[name] = detect_errors(
                     kernels.detect_many_partials(img, bank, c, mask, p),
                     kernels.detect_many_partials_plain(img, bank, c, mask,
                                                        p))
@@ -890,6 +929,9 @@ def phase_identify_kernels(frames_d: torch.Tensor,
 # and, for ME P = 7 and 9,
 #   JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py \
 #       --identify me:7 me:9
+# and, for NVF P = 5, 7 and 9,
+#   JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py \
+#       --identify nvf:5 nvf:7 nvf:9
 # embed_pipeline(frame, frame, W, strength_factor(40), mask, p), then
 # detect_many_pipeline of the marked frame ("marked") and of the clean one
 # ("clean") against the 64 candidates.
@@ -1082,6 +1124,120 @@ JAX_IDENTIFY_REFERENCE = {
             -0.00048420145, 0.0011960096, -0.0014876559, 0.00021996474,
             -0.00057815085, -0.002231386, 0.00024799575, 0.0012353995,
             -0.00054459996, 0.0012849686, 0.00080741965, -0.0011193274
+        ],
+    },
+    "nvf:5": {
+        "marked": [
+            0.0010890065, -0.00015925169, -0.0017056885, -0.00023585395,
+            0.00085627538, 0.00017460555, -0.00066249759, -0.00069257902,
+            -0.00047987685, 0.00035954578, 0.00056908652, 0.00067807629,
+            0.00054950669, 0.0011868491, 0.00013136301, -4.6908004e-05,
+            -0.0013988727, 0.064616695, 0.00073539099, 0.00047823347,
+            -0.00029165196, -0.00046540771, 0.00064911565, -0.001958668,
+            0.00047368574, -0.00035307123, 0.00024323213, -0.00031675314,
+            0.00072603481, -4.4575652e-05, 0.00022774919, -0.00059318595,
+            -0.00070322619, -0.00019758835, -0.00018173776, 0.00023108498,
+            0.00096148311, -0.00023516658, 0.00046483058, -0.00040433925,
+            0.00054459466, -0.00076811883, 1.5660355e-05, -0.0011166554,
+            -0.0016559486, 0.0007526991, 0.0016842132, -0.0019021517,
+            0.00014834382, 0.00087417907, 0.00067501195, -0.0011034728,
+            -0.0001916226, 0.0002955641, -0.00075966242, 0.0011801367,
+            -0.0003936385, -0.0016698381, 0.000268056, 0.00064440229,
+            1.7699571e-05, -0.00017243343, 0.00051018927, -0.00077295728
+        ],
+        "clean": [
+            0.0010626417, -0.00022910569, -0.0016081805, -0.00022947096,
+            0.00083879731, 0.00015640908, -0.00064217288, -0.00066364842,
+            -0.00044005091, 0.00046328353, 0.0005984715, 0.00058728002,
+            0.00055031164, 0.0011803568, 9.9302284e-05, -5.6806792e-05,
+            -0.0014358255, 0.0010025421, 0.000645008, 0.00054033968,
+            -0.00027579244, -0.00049775204, 0.0005986687, -0.002009637,
+            0.00049776532, -0.00033376136, 0.00023820433, -0.00025513017,
+            0.000766229, -7.3043411e-06, 0.00024961759, -0.00054448709,
+            -0.00068707392, -0.00021366835, -0.0001480131, 0.0002407724,
+            0.00098699634, -0.00027272274, 0.00041584653, -0.00027633214,
+            0.00044914175, -0.000800838, -1.273559e-05, -0.0010945201,
+            -0.0016093355, 0.00068743527, 0.0015869839, -0.0018312914,
+            0.00023750663, 0.00084736367, 0.0006410302, -0.00098980032,
+            -0.00011950694, 0.00034967175, -0.0008057396, 0.0012513638,
+            -0.00041196143, -0.0016968825, 0.00033870593, 0.00064368558,
+            1.7461431e-05, -0.00023139901, 0.00054547901, -0.00078400021
+        ],
+    },
+    "nvf:7": {
+        "marked": [
+            0.0010889918, -0.00015927399, -0.0017054983, -0.00023580239,
+            0.00085624878, 0.00017454677, -0.00066259335, -0.00069257221,
+            -0.00047975665, 0.00035962241, 0.00056906132, 0.00067812222,
+            0.00054935674, 0.0011869525, 0.00013120615, -4.6873607e-05,
+            -0.0013986964, 0.064614825, 0.00073539023, 0.00047830454,
+            -0.00029159154, -0.00046545299, 0.00064919866, -0.0019586298,
+            0.00047374444, -0.00035318467, 0.00024323507, -0.00031685323,
+            0.00072588946, -4.4778029e-05, 0.0002277334, -0.00059312634,
+            -0.00070311315, -0.00019749075, -0.00018160252, 0.00023119051,
+            0.00096120022, -0.00023509841, 0.00046479807, -0.00040441184,
+            0.00054460316, -0.00076807447, 1.5620606e-05, -0.0011165846,
+            -0.0016559669, 0.00075274991, 0.0016842912, -0.0019021123,
+            0.00014844806, 0.00087430299, 0.00067508407, -0.0011033923,
+            -0.00019171913, 0.00029571768, -0.00075955171, 0.0011799913,
+            -0.00039352328, -0.0016697021, 0.00026794747, 0.00064427039,
+            1.7646254e-05, -0.00017247652, 0.00051011646, -0.00077296252
+        ],
+        "clean": [
+            0.0010626338, -0.00022913933, -0.0016080122, -0.00022941241,
+            0.00083876459, 0.00015635788, -0.00064227288, -0.00066364033,
+            -0.00043992224, 0.00046338642, 0.00059845007, 0.00058732741,
+            0.00055016577, 0.0011804462, 9.914644e-05, -5.6785437e-05,
+            -0.0014356184, 0.0010026225, 0.00064500183, 0.00054039073,
+            -0.00027571255, -0.00049780327, 0.00059875328, -0.0020095375,
+            0.00049778441, -0.00033390214, 0.00023822422, -0.00025525648,
+            0.00076606497, -7.4926888e-06, 0.00024959451, -0.00054439163,
+            -0.00068696006, -0.00021356012, -0.00014790303, 0.00024085642,
+            0.0009867003, -0.00027263339, 0.00041582188, -0.00027640394,
+            0.00044915121, -0.00080077985, -1.2781119e-05, -0.0010944498,
+            -0.0016093472, 0.00068748865, 0.0015870398, -0.0018312376,
+            0.00023762311, 0.00084750727, 0.00064108416, -0.00098974456,
+            -0.00011962762, 0.0003498453, -0.00080564484, 0.0012512242,
+            -0.00041184822, -0.0016967435, 0.00033861864, 0.00064357737,
+            1.7428576e-05, -0.00023142394, 0.00054538564, -0.00078400661
+        ],
+    },
+    "nvf:9": {
+        "marked": [
+            0.0010890235, -0.00015919199, -0.0017054698, -0.00023582592,
+            0.00085629942, 0.00017440029, -0.0006626033, -0.00069251255,
+            -0.00047963753, 0.00035958664, 0.00056909578, 0.0006779937,
+            0.00054930989, 0.0011869345, 0.00013114631, -4.6726462e-05,
+            -0.0013987211, 0.064614251, 0.00073552557, 0.0004782936,
+            -0.00029157021, -0.00046541376, 0.00064918201, -0.0019586473,
+            0.00047385736, -0.00035331908, 0.000243285, -0.00031681123,
+            0.00072601269, -4.4799603e-05, 0.00022777302, -0.00059316045,
+            -0.00070305838, -0.00019752697, -0.00018157286, 0.00023114224,
+            0.00096116628, -0.00023506132, 0.00046492985, -0.00040436912,
+            0.00054464169, -0.00076816272, 1.5631555e-05, -0.001116577,
+            -0.0016559967, 0.00075278094, 0.0016842965, -0.0019021066,
+            0.00014832665, 0.00087442662, 0.00067507249, -0.0011034959,
+            -0.00019172032, 0.00029565539, -0.00075953751, 0.001179994,
+            -0.00039356833, -0.0016695926, 0.00026790562, 0.0006443059,
+            1.7761606e-05, -0.00017256547, 0.00051013957, -0.0007729365
+        ],
+        "clean": [
+            0.0010626604, -0.0002290433, -0.0016079881, -0.00022940904,
+            0.0008388093, 0.0001562003, -0.00064229761, -0.00066358777,
+            -0.00043980815, 0.00046335702, 0.00059848209, 0.00058719923,
+            0.00055009947, 0.0011804296, 9.908036e-05, -5.6626905e-05,
+            -0.0014356551, 0.0010027749, 0.00064513995, 0.0005403969,
+            -0.00027570815, -0.00049775938, 0.00059873064, -0.0020095713,
+            0.0004978964, -0.00033404125, 0.00023828585, -0.00025519886,
+            0.00076617603, -7.5259122e-06, 0.00024962847, -0.00054441707,
+            -0.00068691466, -0.00021357941, -0.00014788739, 0.00024081818,
+            0.0009866578, -0.00027260234, 0.00041595593, -0.00027635676,
+            0.00044918433, -0.00080085191, -1.2751072e-05, -0.0010944251,
+            -0.0016093795, 0.00068751996, 0.0015870561, -0.0018312407,
+            0.00023750926, 0.00084763771, 0.00064107921, -0.00098987448,
+            -0.00011964113, 0.00034980581, -0.00080564065, 0.0012512207,
+            -0.00041189254, -0.0016966346, 0.00033857048, 0.00064361817,
+            1.7542352e-05, -0.00023151303, 0.00054539862, -0.00078396802
         ],
     },
 }
@@ -1302,17 +1458,22 @@ def kernel_bound(kernel: str, mask: str, p: int) -> tuple[float, str]:
 
 
 def kernel_row(name: str, kernel: str, mask: str, p: int, launches: int,
-               errors: tuple, times: tuple) -> dict:
+               errors: tuple, times: tuple,
+               device: dict | None = None) -> dict:
     """One row of the kernels line; ``times`` is (ms, plain ms) or (ms,
-    plain ms, library ms)."""
+    plain ms, library ms); ``device`` maps row names to the kernel's
+    device ms (``device_ms``, the detect tail's rows)."""
     source, replaces = KERNEL_SOURCES[kernel]
     bound_ms, bound_by = kernel_bound(kernel, mask, p)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": errors[0], "max_rel_err": errors[1],
-            "ms": times[0], "plain_ms": times[1], "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": times[2] if len(times) > 2 else None}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": errors[0], "max_rel_err": errors[1],
+           "ms": times[0], "plain_ms": times[1], "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "library_ms": times[2] if len(times) > 2 else None}
+    if device is not None and name in device:
+        row["device_ms"] = device[name]
+    return row
 
 
 def main() -> int:
@@ -1339,15 +1500,23 @@ def main() -> int:
     for p in WIDE_P:
         times.update(phase_wide_timing(frames_d, wm_d, p))
     times.update(phase_identify_timing(frames_d, bank_d))
+    split = device_split(frames_d, wm_d)
     for p in WIDE_P:
-        split = wide_gram_split(frames_d, p)
         print(f"[4] p={p} wide Gram split (device time a call, "
-              f"torch.profiler): lag kernel {split['wide_lag_strips']:.4f} "
-              f"ms, assembly kernel {split['wide_assemble']:.4f} ms "
+              f"torch.profiler): lag kernel "
+              f"{split[f'wide_lag_strips_p{p}']:.4f} ms, assembly kernel "
+              f"{split[f'wide_assemble_p{p}']:.4f} ms "
               f"(me_gram_wide_p{p} times both with the wrappers, "
               f"{times[f'me_gram_wide_p{p}'][0]:.4f} ms; launches on the "
               f"main path {wide_counts[p]['me']['wide_lag_strips']} + "
               f"{wide_counts[p]['me']['wide_assemble']})", flush=True)
+    for p in ALL_P:
+        print(f"[4] p={p} detect tail (device time a call, torch.profiler): "
+              + "; ".join(f"{mask.upper()} kernel "
+                          f"{split[tail_row(mask, p)]:.4f} ms (CUDA events "
+                          f"with the wrapper "
+                          f"{times[tail_row(mask, p)][0]:.4f} ms)"
+                          for mask in ("me", "nvf")), flush=True)
 
     rows = [kernel_row("me_gram", "me_gram", "me", 3,
                        counts["all"]["me_gram"], errors["me_gram"],
@@ -1356,10 +1525,10 @@ def main() -> int:
         nvf_launches = counts["nvf"][kernel]
         rows.append(kernel_row(kernel, kernel, "me", 3,
                                counts["all"][kernel] - nvf_launches,
-                               errors[kernel], times[kernel]))
+                               errors[kernel], times[kernel], split))
         name = f"{kernel}_nvf_p3"
         rows.append(kernel_row(name, kernel, "nvf", 3, nvf_launches,
-                               errors[name], times[name]))
+                               errors[name], times[name], split))
     for p in WIDE_P:
         me, nvf = wide_counts[p]["me"], wide_counts[p]["nvf"]
         rows.append(kernel_row(f"me_gram_wide_p{p}", "me_gram_wide", "me", p,
@@ -1372,7 +1541,7 @@ def main() -> int:
                 name = f"{kernel}_{mask}_p{p}"
                 rows.append(kernel_row(name, kernel, mask, p,
                                        launched[kernel], errors[name],
-                                       times[name]))
+                                       times[name], split))
     for p in ALL_P:
         for mask in ("me", "nvf"):
             name = f"detect_many_{mask}_p{p}"

@@ -7,10 +7,11 @@ runs on a machine without them; there, skip the JAX-based conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: Gram, lag sums and reductions rtol 1e-4 (summation order
-only); u_raw, the prediction error and the NVF mask rtol 1e-5 + atol 1e-3
-(their terms round identically); between the two routes, correlations abs
-2e-4 (3e-4 for NVF, as the JAX suite holds its fused NVF kernels) and
-strengths rel 2e-4.
+only; a detect kernel's dot relative to sqrt(||e_u||^2 ||e_z||^2), see
+``check_detect_tail``); u_raw, the prediction error and the NVF mask rtol
+1e-5 + atol 1e-3 (their terms round identically); between the two routes,
+correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds its fused NVF
+kernels) and strengths rel 2e-4.
 """
 
 import numpy as np
@@ -48,7 +49,32 @@ def make_inputs(shape, device, seed=40961):
     return frames.to(device), wm.to(device), coeffs.to(device)
 
 
+def check_detect_tail(frames, wm, coeffs, mask_type, p):
+    """The detect tail against its plain version, two calls bit-identical,
+    and its sum e_z^2 against the multi-candidate kernel's (the same e_z
+    arithmetic, summed in another order).
+
+    A dot is held as the correlation it becomes, dot / sqrt(||e_u||^2
+    ||e_z||^2): for a watermark the frame does not carry it is a sum of
+    terms that cancel to near 0, where the kernel's fused multiply-adds in
+    e_u and its summation order move it by more than 1e-4 of itself, a
+    change the correlation does not see. The norms are held as they are."""
+    got = kernels.detect_partials(frames, wm, coeffs, mask_type, p)
+    want = kernels.detect_partials_plain(frames, wm, coeffs, mask_type, p)
+    scale = torch.sqrt(want[1] * want[2])
+    torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=1e-4,
+                               atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    again = kernels.detect_partials(frames, wm, coeffs, mask_type, p)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    many = kernels.detect_many_partials(frames, wm[None], coeffs, mask_type,
+                                        p)
+    torch.testing.assert_close(got[2], many[2], rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("shape", [(3, 40, 96), (2, 37, 83), (2, 1, 5),
+                                   (1, 45, 4), (1, 200, 300),
                                    (2, 1080, 1920)])
 def test_kernels_match_plain_on_card(device, shape):
     frames, wm, coeffs = make_inputs(shape, device)
@@ -60,20 +86,19 @@ def test_kernels_match_plain_on_card(device, shape):
         got = kernels.embed_field(frames, wm, coeffs, mask_type)
         want = kernels.embed_field_plain(frames, wm, coeffs, mask_type)
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
-        got = got[1:] + kernels.detect_partials(frames, wm, coeffs,
-                                                mask_type)
-        want = want[1:] + kernels.detect_partials_plain(frames, wm, coeffs,
-                                                        mask_type)
-        for g, w in zip(got, want):
+        for g, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        check_detect_tail(frames, wm, coeffs, mask_type, 3)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after == {**before, "me_gram": before["me_gram"] + 1,
                      "embed_field": before["embed_field"] + 2,
-                     "detect_partials": before["detect_partials"] + 2}
+                     "detect_partials": before["detect_partials"] + 4,
+                     "detect_many": before["detect_many"] + 2}
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 96), (2, 37, 83), (2, 20, 30),
+                                   (1, 45, 4), (1, 200, 300),
                                    (1, 1080, 1920), "6h"])
 @pytest.mark.parametrize("p", [5, 7, 9])
 def test_wide_kernels_match_plain_on_card(device, p, shape):
@@ -81,10 +106,14 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
     same inputs (the lag kernel's strip sums and edge lanes; the assembly
     kernel's Gram from the plain lag output), the Gram of both against the
     independent plain form, two calls bit-identical, and the embed field and
-    detect tail at ME and NVF p, against their plain versions. "6h" is
-    (1, 6h, 6h), the least frame of the lag form: one strip shorter than the
-    default. (2, 20, 30) is below the lag geometry at p = 7 and 9, where the
-    Gram takes the direct sums and launches nothing."""
+    detect tail at ME and NVF p, against their plain versions
+    (``check_detect_tail``). "6h" is (1, 6h, 6h), the least frame of the lag
+    form: one strip shorter than the default. (2, 20, 30) and (1, 45, 4)
+    are below the lag geometry at p = 7 and 9, where the Gram takes the
+    direct sums and launches nothing; a frame too small to solve at p gets
+    coefficients of its own. (1, 45, 4) is narrower than a thread's 8
+    outputs, and (1, 200, 300) has rows and columns that are no multiple of
+    the detect tail's tile."""
     if shape == "6h":
         shape = (1, 6 * (p // 2), 6 * (p // 2))
     frames, wm, _ = make_inputs(shape, device)
@@ -114,17 +143,19 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
         assert after[kernel] - before[kernel] == (2 if lag_form else 0)
     coeffs = {"me": _analysis(frames.cpu(), p)[0].to(device),
               "nvf": _analysis(frames.cpu(), 3)[0].to(device)}
+    rng = np.random.default_rng(p)
     for mask_type in ("me", "nvf"):
         c = coeffs[mask_type]
+        if not c.any():   # a frame too small to solve
+            c = torch.from_numpy(rng.normal(0, 0.05, tuple(c.shape)).astype(
+                np.float32)).to(device)
         got = kernels.embed_field(frames, wm, c if mask_type == "me" else None,
                                   mask_type, p)
         want = kernels.embed_field_plain(frames, wm, c, mask_type, p)
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
-        got = got[1:] + kernels.detect_partials(frames, wm, c, mask_type, p)
-        want = want[1:] + kernels.detect_partials_plain(frames, wm, c,
-                                                        mask_type, p)
-        for g, w in zip(got, want):
+        for g, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        check_detect_tail(frames, wm, c, mask_type, p)
     torch.cuda.synchronize()
 
 

@@ -145,13 +145,46 @@ __device__ __forceinline__ float prediction_error_at(const float* centre,
   return e;
 }
 
+// Load a window row of kWin floats whose element 0 sits kOff floats past a
+// 16-byte boundary of shared memory into w, with the widest aligned loads
+// (4, 2 or 1 floats) from element V on.
+template <int kOff, int kWin, int V = 0>
+__device__ __forceinline__ void load_window(const float* row,
+                                            float (&w)[kWin]) {
+  if constexpr (V < kWin) {
+    constexpr int align = (kOff + V) % 4;
+    constexpr int width = align == 0 && V + 4 <= kWin       ? 4
+                          : align % 2 == 0 && V + 2 <= kWin ? 2
+                                                            : 1;
+    if constexpr (width == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(row + V);
+      w[V] = f.x; w[V + 1] = f.y; w[V + 2] = f.z; w[V + 3] = f.w;
+    } else if constexpr (width == 2) {
+      const float2 f = *reinterpret_cast<const float2*>(row + V);
+      w[V] = f.x; w[V + 1] = f.y;
+    } else {
+      w[V] = row[V];
+    }
+    load_window<kOff, kWin, V + width>(row, w);
+  }
+}
+
+// The NVF mask var / (1 + var) of a p x p window from its sums of x and x^2;
+// 1/p^2 rounded from double to float, as torch rounds the Python scalar.
+template <int P>
+__device__ __forceinline__ float nvf_from_sums(float total, float total_sq) {
+  const float inv_p2 = static_cast<float>(1.0 / (P * P));
+  const float mean = __fmul_rn(total, inv_p2);
+  const float var = __fsub_rn(__fmul_rn(total_sq, inv_p2),
+                              __fmul_rn(mean, mean));
+  return __fdiv_rn(var, __fadd_rn(1.0f, var));
+}
+
 // The NVF mask over the (2H+1)^2 window centred on centre[0], summed as
-// ops/nvf.py sums: per row across the columns, then across the rows; 1/p^2
-// rounded from double to float, as torch rounds the Python scalar.
+// ops/nvf.py sums: per row across the columns, then across the rows.
 template <int H>
 __device__ __forceinline__ float nvf_at(const float* centre, int stride) {
   constexpr int kP = 2 * H + 1;
-  const float inv_p2 = static_cast<float>(1.0 / (kP * kP));
   float total = 0.0f, total_sq = 0.0f;
 #pragma unroll
   for (int dr = -H; dr <= H; ++dr) {
@@ -166,10 +199,7 @@ __device__ __forceinline__ float nvf_at(const float* centre, int stride) {
     total = dr == -H ? sum : __fadd_rn(total, sum);
     total_sq = dr == -H ? sq : __fadd_rn(total_sq, sq);
   }
-  const float mean = __fmul_rn(total, inv_p2);
-  const float var = __fsub_rn(__fmul_rn(total_sq, inv_p2),
-                              __fmul_rn(mean, mean));
-  return __fdiv_rn(var, __fadd_rn(1.0f, var));
+  return nvf_from_sums<kP>(total, total_sq);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -80,30 +80,6 @@ __host__ __device__ constexpr int many_scratch(int mask, int ph, int nh) {
   return prolog > buffers ? prolog : buffers;
 }
 
-// Load a window row of kWin floats whose element 0 sits kOff floats past a
-// 16-byte boundary into w, with the widest aligned shared loads (4, 2 or 1
-// floats) from element V on.
-template <int kOff, int kWin, int V = 0>
-__device__ __forceinline__ void load_window(const float* row,
-                                            float (&w)[kWin]) {
-  if constexpr (V < kWin) {
-    constexpr int align = (kOff + V) % 4;
-    constexpr int width = align == 0 && V + 4 <= kWin       ? 4
-                          : align % 2 == 0 && V + 2 <= kWin ? 2
-                                                            : 1;
-    if constexpr (width == 4) {
-      const float4 f = *reinterpret_cast<const float4*>(row + V);
-      w[V] = f.x; w[V + 1] = f.y; w[V + 2] = f.z; w[V + 3] = f.w;
-    } else if constexpr (width == 2) {
-      const float2 f = *reinterpret_cast<const float2*>(row + V);
-      w[V] = f.x; w[V + 1] = f.y;
-    } else {
-      w[V] = row[V];
-    }
-    load_window<kOff, kWin, V + width>(row, w);
-  }
-}
-
 // Sum each of v[0..V) over the warp, V a power of two up to 32, in V - 1 +
 // 5 - log2(V) shuffles: while a lane holds several values, half the lanes
 // keep the upper half of theirs and half the lower, and each adds its
@@ -353,7 +329,7 @@ __global__ void __launch_bounds__(kTileThreads, 2)
             const int dr = t == 0 ? kPH : (t <= kPH ? t - 1 : t);
             const float* row = buf + (r + dr) * kUS + q0 + kOff;
             float w[kWin];
-            load_window<kOff, kWin>(row, w);
+            wm::load_window<kOff, kWin>(row, w);
             if constexpr (kMaskAtRead) {
 #pragma unroll
               for (int v = 0; v < kWin; ++v)
@@ -430,9 +406,14 @@ int launch_detect_many(const float* img, const float* bank,
 // Candidates a block of wm_detect_many scores: its partials' chunk size.
 extern "C" int wm_detect_many_chunk() { return kManyNC; }
 
+// Tiles of a frame that wm_detect_many scores: its partials' dim 2.
+extern "C" int wm_detect_many_num_blocks(int rows, int cols) {
+  return wm::ceil_div(cols, kTileW) * wm::ceil_div(rows, kTileH);
+}
+
 // img (batch, rows, cols), bank (n, rows, cols) f32; coeffs (batch, k) f32
 // with k = p*p-1 for ME and 8 for NVF -> partials (batch, ceil(n / chunk),
-// wm_detect_partials_num_blocks(rows, cols), 2 * chunk + 1) f32 with chunk =
+// wm_detect_many_num_blocks(rows, cols), 2 * chunk + 1) f32 with chunk =
 // wm_detect_many_chunk(): per candidate sum e_u*e_z and sum e_u^2, then
 // sum e_z^2.
 extern "C" int wm_detect_many(const float* img, const float* bank,

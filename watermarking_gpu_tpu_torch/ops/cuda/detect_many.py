@@ -74,7 +74,7 @@ def detect_many_partials(image: torch.Tensor, bank: torch.Tensor,
                       image.device)
     chunk = build.library().wm_detect_many_chunk()
     n_chunks = -(-n // chunk)
-    blocks = build.num_blocks("wm_detect_partials", rows, cols)  # one grid
+    blocks = build.num_blocks("wm_detect_many", rows, cols)
     partials = torch.empty((batch, n_chunks, blocks, 2 * chunk + 1),
                            dtype=torch.float32, device=image.device)
     build.launch("wm_detect_many", image.device, image.data_ptr(),
