@@ -16,7 +16,8 @@ prints no result:
    over row strips, and the assembly from the plain lag sums), the Gram of
    both against the plain lag form ``me_gram_wide_plain`` (and, at the small
    shape, the direct per-pair sums ``gram_direct(p)``), bit-identical over
-   two calls, and the embed field and detect tail at ME and NVF p; then at
+   two calls, and the embed field (u_raw bit-identical to the plain
+   version's, as are two calls) and detect tail at ME and NVF p; then at
    p = 3, 5, 7, 9
    the multi-candidate detect at ME and NVF against the 64-candidate bank
    (70 at the small shape: a full chunk of 64 and a partial one) and the
@@ -38,8 +39,8 @@ prints no result:
    ``conv2d``), and the identification of 8 frames against 64 candidates
    (ME) at each P through the kernel, through the plain route and as 64
    looped detects. Last, after every timing, the device time a call of the
-   wide Gram's two kernels and of the detect tail at each mask and P, from
-   one ``torch.profiler`` session.
+   wide Gram's two kernels, and of the embed field and the detect tail at
+   each mask and P, from one ``torch.profiler`` session.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
@@ -51,8 +52,8 @@ u_raw, the correlation formed from the detect sums, or the standalone op's
 output) and ``max_rel_err`` of
 its reductions (of the output, relative to its largest value, for the
 standalone ops); ``ms`` and ``plain_ms`` per call from phase 4 (CUDA
-events around the wrapper); for the detect tail ``device_ms``, its
-kernel's device time a call from the profiler;
+events around the wrapper); for the embed field and the detect tail
+``device_ms``, its kernel's device time a call from the profiler;
 ``bound_ms``, the least time an H100 could take for the same work (the
 larger of the bytes the function must move over 3.35 TB/s and the flops it
 needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
@@ -343,6 +344,32 @@ def phase_card_and_build() -> str:
     return kind
 
 
+def check_embed_field(img: torch.Tensor, wm: torch.Tensor,
+                      coeffs: torch.Tensor, mask: str, p: int,
+                      label: str) -> tuple[float, float]:
+    """The embed field against its plain version: u_raw and max mask
+    bit-identical (the same rounded operations), sum u_raw^2 within
+    SUM_RTOL (another summation order), and two calls bit-identical.
+    Returns (u_raw max abs err, sums max rel err)."""
+    got = kernels.embed_field(img, wm, coeffs if mask == "me" else None,
+                              mask, p)
+    want = kernels.embed_field_plain(img, wm, coeffs, mask, p)
+    u_err = float((got[0] - want[0]).abs().max())
+    check(torch.equal(got[0], want[0]), f"embed_field {mask} {label}: "
+          f"u_raw not bit-identical to the plain version, max abs err "
+          f"{u_err:.3e}")
+    check(torch.equal(got[2], want[2]), f"embed_field {mask} {label}: max "
+          f"mask {got[2].tolist()} against {want[2].tolist()}")
+    sums_err = rel_err(got[1], want[1])
+    check(sums_err <= SUM_RTOL, f"embed_field {mask} {label}: sum u_raw^2 "
+          f"rel err {sums_err:.3e}")
+    again = kernels.embed_field(img, wm, coeffs if mask == "me" else None,
+                                mask, p)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"embed_field {mask} {label}: two calls differ")
+    return u_err, sums_err
+
+
 def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     """Each kernel against its plain version; returns per-kernel errors at
     the main path's shape."""
@@ -368,20 +395,8 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                                  rel_err(gram, gram_plain))
         worst_u = worst_sum = worst_corr = worst_detect = 0.0
         for mask in ("me", "nvf"):
-            sums_err = 0.0
-            got = kernels.embed_field(img, wm, coeffs if mask == "me"
-                                      else None, mask)
-            want = kernels.embed_field_plain(img, wm, coeffs, mask)
-            check(torch.allclose(got[0], want[0], rtol=U_RAW_RTOL,
-                                 atol=U_RAW_ATOL),
-                  f"embed_field {mask} {label}: u_raw max abs err "
-                  f"{float((got[0] - want[0]).abs().max()):.3e}")
-            for g, w in zip(got[1:], want[1:]):
-                check(torch.allclose(g, w, rtol=SUM_RTOL, atol=0),
-                      f"embed_field {mask} {label}: reduction rel err "
-                      f"{rel_err(g, w):.3e}")
-                sums_err = max(sums_err, rel_err(g, w))
-            u_err = float((got[0] - want[0]).abs().max())
+            u_err, sums_err = check_embed_field(img, wm, coeffs, mask, 3,
+                                                label)
 
             corr_err, detect_err = detect_errors(
                 kernels.detect_partials(img, wm, coeffs, mask),
@@ -400,7 +415,8 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
               f"{label}: a launch counter did not rise: {before} -> {after}")
         torch.cuda.synchronize()
         print(f"[2] {label}: me_gram rel {rel_err(gram, gram_plain):.2e}; "
-              f"embed_field u_raw abs {worst_u:.2e}, sums rel "
+              f"embed_field u_raw abs {worst_u:.2e} (bit-identical, as are "
+              f"two calls), sums rel "
               f"{worst_sum:.2e}; detect_partials sums rel "
               f"{worst_detect:.2e}, corr abs {worst_corr:.2e}: ok",
               flush=True)
@@ -626,18 +642,8 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             coeffs = predictor_coefficients(img)
             for mask in ("me", "nvf"):
                 c = coeffs[p if mask == "me" else 3]
-                got = kernels.embed_field(img, wm, c if mask == "me" else None,
-                                          mask, p)
-                want = kernels.embed_field_plain(img, wm, c, mask, p)
-                u_err = float((got[0] - want[0]).abs().max())
-                check(torch.allclose(got[0], want[0], rtol=U_RAW_RTOL,
-                                     atol=U_RAW_ATOL),
-                      f"embed_field {mask} {label}: u_raw max abs err "
-                      f"{u_err:.3e}")
-                sums_err = max(rel_err(g, w) for g, w in zip(got[1:],
-                                                             want[1:]))
-                check(sums_err <= SUM_RTOL, f"embed_field {mask} {label}: "
-                      f"reduction rel err {sums_err:.3e}")
+                u_err, sums_err = check_embed_field(img, wm, c, mask, p,
+                                                    label)
                 corr_err, detect_err = detect_errors(
                     kernels.detect_partials(img, wm, c, mask, p),
                     kernels.detect_partials_plain(img, wm, c, mask, p))
@@ -656,7 +662,7 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                   f"{after}")
             torch.cuda.synchronize()
             masks = "; ".join(
-                f"{m}: u_raw abs {worst[m][0]:.2e}, sums rel "
+                f"{m}: u_raw abs {worst[m][0]:.2e} (bit-identical), sums rel "
                 f"{worst[m][1]:.2e}, detect sums rel {worst[m][3]:.2e}, corr "
                 f"abs {worst[m][2]:.2e}" for m in ("me", "nvf"))
             direct_note = (f", against the direct sums "
@@ -835,18 +841,20 @@ def detect_errors(got: tuple, want: tuple) -> tuple[float, float]:
     return float((corr - dot_w / scale).abs().max()), sums
 
 
-def tail_row(mask: str, p: int) -> str:
-    """The kernels line's row name of the detect tail at mask and p."""
+def row_name(kernel: str, mask: str, p: int) -> str:
+    """The kernels line's row name of the embed field or the detect tail
+    ("embed_field", "detect_partials") at mask and p."""
     if p == 3:
-        return "detect_partials" + ("" if mask == "me" else "_nvf_p3")
-    return f"detect_partials_{mask}_p{p}"
+        return kernel + ("" if mask == "me" else "_nvf_p3")
+    return f"{kernel}_{mask}_p{p}"
 
 
 def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     """Device ms a call of the wide Gram's two kernels at p = 5, 7, 9
-    (keyed "wide_lag_strips_p5", ...) and of the detect tail at ME and NVF
-    p = 3, 5, 7, 9 (keyed by kernel row name), from one ``device_ms``
-    session; each kernel is told apart by its template arguments."""
+    (keyed "wide_lag_strips_p5", ...) and of the embed field and the detect
+    tail at ME and NVF p = 3, 5, 7, 9 (keyed by kernel row name), from one
+    ``device_ms`` session; each kernel is told apart by its template
+    arguments."""
     coeffs = predictor_coefficients(frames_d)
     fns, patterns = [], {}
     for p in WIDE_P:
@@ -855,10 +863,15 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             patterns[f"{kernel}_p{p}"] = f"{kernel}_kernel<{p // 2}>"
     for p in ALL_P:
         for mask in ("me", "nvf"):
-            fns.append(lambda c=coeffs[p if mask == "me" else 3], m=mask,
+            c = coeffs[p if mask == "me" else 3]
+            fns.append(lambda c=c, m=mask, p=p: kernels.embed_field(
+                frames_d, wm_d, c if m == "me" else None, m, p))
+            patterns[row_name("embed_field", mask, p)] = (
+                f"embed_field_kernel<{MASK_CODES[mask]}, {p // 2}>")
+            fns.append(lambda c=c, m=mask,
                        p=p: kernels.detect_partials(frames_d, wm_d, c, m, p))
             half = (p // 2, 0) if mask == "me" else (1, p // 2)
-            patterns[tail_row(mask, p)] = (
+            patterns[row_name("detect_partials", mask, p)] = (
                 f"detect_tail_kernel<{MASK_CODES[mask]}, {half[0]}, "
                 f"{half[1]}>")
     return device_ms(fns, patterns)
@@ -1462,7 +1475,7 @@ def kernel_row(name: str, kernel: str, mask: str, p: int, launches: int,
                device: dict | None = None) -> dict:
     """One row of the kernels line; ``times`` is (ms, plain ms) or (ms,
     plain ms, library ms); ``device`` maps row names to the kernel's
-    device ms (``device_ms``, the detect tail's rows)."""
+    device ms (``device_ms``, the embed field's and detect tail's rows)."""
     source, replaces = KERNEL_SOURCES[kernel]
     bound_ms, bound_by = kernel_bound(kernel, mask, p)
     row = {"name": name, "route": "cuda", "source": source,
@@ -1511,12 +1524,15 @@ def main() -> int:
               f"main path {wide_counts[p]['me']['wide_lag_strips']} + "
               f"{wide_counts[p]['me']['wide_assemble']})", flush=True)
     for p in ALL_P:
-        print(f"[4] p={p} detect tail (device time a call, torch.profiler): "
-              + "; ".join(f"{mask.upper()} kernel "
-                          f"{split[tail_row(mask, p)]:.4f} ms (CUDA events "
-                          f"with the wrapper "
-                          f"{times[tail_row(mask, p)][0]:.4f} ms)"
-                          for mask in ("me", "nvf")), flush=True)
+        for kernel, label in (("embed_field", "embed field"),
+                              ("detect_partials", "detect tail")):
+            print(f"[4] p={p} {label} (device time a call, torch.profiler): "
+                  + "; ".join(
+                      f"{mask.upper()} kernel "
+                      f"{split[row_name(kernel, mask, p)]:.4f} ms (CUDA "
+                      f"events with the wrapper "
+                      f"{times[row_name(kernel, mask, p)][0]:.4f} ms)"
+                      for mask in ("me", "nvf")), flush=True)
 
     rows = [kernel_row("me_gram", "me_gram", "me", 3,
                        counts["all"]["me_gram"], errors["me_gram"],

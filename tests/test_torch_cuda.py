@@ -8,10 +8,11 @@ runs on a machine without them; there, skip the JAX-based conftest:
 
 Tolerances: Gram, lag sums and reductions rtol 1e-4 (summation order
 only; a detect kernel's dot relative to sqrt(||e_u||^2 ||e_z||^2), see
-``check_detect_tail``); u_raw, the prediction error and the NVF mask rtol
-1e-5 + atol 1e-3 (their terms round identically); between the two routes,
-correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds its fused NVF
-kernels) and strengths rel 2e-4.
+``check_detect_tail``); the embed field's u_raw and max mask bit-identical
+(the same rounded operations in the same order); the prediction error and
+the NVF mask rtol 1e-5 + atol 1e-3 (their terms round identically); between
+the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
+its fused NVF kernels) and strengths rel 2e-4.
 """
 
 import numpy as np
@@ -49,6 +50,23 @@ def make_inputs(shape, device, seed=40961):
     return frames.to(device), wm.to(device), coeffs.to(device)
 
 
+def check_embed_field(frames, wm, coeffs, mask_type, p):
+    """The embed field against its plain version: u_raw and the max mask
+    bit-identical, the sum of u_raw^2 within rtol 1e-4 (another summation
+    order), and two calls bit-identical."""
+    got = kernels.embed_field(frames, wm,
+                              coeffs if mask_type == "me" else None,
+                              mask_type, p)
+    want = kernels.embed_field_plain(frames, wm, coeffs, mask_type, p)
+    assert torch.equal(got[0], want[0]), float((got[0] - want[0]).abs().max())
+    assert torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+    again = kernels.embed_field(frames, wm,
+                                coeffs if mask_type == "me" else None,
+                                mask_type, p)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
 def check_detect_tail(frames, wm, coeffs, mask_type, p):
     """The detect tail against its plain version, two calls bit-identical,
     and its sum e_z^2 against the multi-candidate kernel's (the same e_z
@@ -73,9 +91,14 @@ def check_detect_tail(frames, wm, coeffs, mask_type, p):
     torch.testing.assert_close(got[2], many[2], rtol=1e-5, atol=1e-6)
 
 
+# (1, 64, 64) is one tile of the embed field and the detect tail; (1, 65,
+# 129) cuts a row and a column past it; (1, 150, 90) is taller than two
+# tiles with rows no multiple of 4 floats, so its loads and stores of W and
+# u_raw take the scalar path, as at (2, 37, 83) and (1, 45, 4)
 @pytest.mark.parametrize("shape", [(3, 40, 96), (2, 37, 83), (2, 1, 5),
                                    (1, 45, 4), (1, 200, 300),
-                                   (2, 1080, 1920)])
+                                   (2, 1080, 1920), (1, 64, 64),
+                                   (1, 65, 129), (1, 150, 90)])
 def test_kernels_match_plain_on_card(device, shape):
     frames, wm, coeffs = make_inputs(shape, device)
     before = kernels.launch_counts()
@@ -83,23 +106,20 @@ def test_kernels_match_plain_on_card(device, shape):
                                kernels.me_gram_plain(frames),
                                rtol=1e-4, atol=0)
     for mask_type in ("me", "nvf"):
-        got = kernels.embed_field(frames, wm, coeffs, mask_type)
-        want = kernels.embed_field_plain(frames, wm, coeffs, mask_type)
-        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
-        for g, w in zip(got[1:], want[1:]):
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        check_embed_field(frames, wm, coeffs, mask_type, 3)
         check_detect_tail(frames, wm, coeffs, mask_type, 3)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after == {**before, "me_gram": before["me_gram"] + 1,
-                     "embed_field": before["embed_field"] + 2,
+                     "embed_field": before["embed_field"] + 4,
                      "detect_partials": before["detect_partials"] + 4,
                      "detect_many": before["detect_many"] + 2}
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 96), (2, 37, 83), (2, 20, 30),
                                    (1, 45, 4), (1, 200, 300),
-                                   (1, 1080, 1920), "6h"])
+                                   (1, 1080, 1920), "6h", (1, 64, 64),
+                                   (1, 65, 129), (1, 150, 90)])
 @pytest.mark.parametrize("p", [5, 7, 9])
 def test_wide_kernels_match_plain_on_card(device, p, shape):
     """The wide Gram's two kernels, each against its plain version on the
@@ -113,7 +133,8 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
     direct sums and launches nothing; a frame too small to solve at p gets
     coefficients of its own. (1, 45, 4) is narrower than a thread's 8
     outputs, and (1, 200, 300) has rows and columns that are no multiple of
-    the detect tail's tile."""
+    the detect tail's tile; (1, 64, 64), (1, 65, 129) and (1, 150, 90) as
+    in ``test_kernels_match_plain_on_card``."""
     if shape == "6h":
         shape = (1, 6 * (p // 2), 6 * (p // 2))
     frames, wm, _ = make_inputs(shape, device)
@@ -149,12 +170,7 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
         if not c.any():   # a frame too small to solve
             c = torch.from_numpy(rng.normal(0, 0.05, tuple(c.shape)).astype(
                 np.float32)).to(device)
-        got = kernels.embed_field(frames, wm, c if mask_type == "me" else None,
-                                  mask_type, p)
-        want = kernels.embed_field_plain(frames, wm, c, mask_type, p)
-        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
-        for g, w in zip(got[1:], want[1:]):
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        check_embed_field(frames, wm, c, mask_type, p)
         check_detect_tail(frames, wm, c, mask_type, p)
     torch.cuda.synchronize()
 

@@ -84,23 +84,6 @@ struct Window {
   float t0, t1, t2, m0, m1, m2, b0, b1, b2;
 };
 
-// e = centre - sum_k c_k * neighbour_k, neighbours in row-major order with
-// the centre left out (ops/neighbors.py), one rounding per product and per
-// subtraction, as ops/me.py::prediction_error does it.
-__device__ __forceinline__ float prediction_error(const Window& w,
-                                                  const float (&c)[8]) {
-  float e = w.m1;
-  e = __fsub_rn(e, __fmul_rn(c[0], w.t0));
-  e = __fsub_rn(e, __fmul_rn(c[1], w.t1));
-  e = __fsub_rn(e, __fmul_rn(c[2], w.t2));
-  e = __fsub_rn(e, __fmul_rn(c[3], w.m0));
-  e = __fsub_rn(e, __fmul_rn(c[4], w.m2));
-  e = __fsub_rn(e, __fmul_rn(c[5], w.b0));
-  e = __fsub_rn(e, __fmul_rn(c[6], w.b1));
-  e = __fsub_rn(e, __fmul_rn(c[7], w.b2));
-  return e;
-}
-
 // Predictor coefficients of one image, read as c[k]. Up to 8 (the 3x3
 // window) live in registers; the 24/48/80 of the wide windows stay in the
 // shared-memory array they were staged in, since 80 floats a thread in
