@@ -12,16 +12,17 @@ prints no result:
    (seconds and ptxas' register report).
 2. Each kernel against its plain PyTorch version on the card, with the same
    inputs and coefficients, at 8 x 1080 x 1920 and at 3 x 37 x 83: the p=3
-   kernels, then for p = 5, 7, 9 the wide Gram's two kernels (the lag sums
-   over row strips, and the assembly from the plain lag sums), the Gram of
-   both against the plain lag form ``me_gram_wide_plain`` (and, at the small
-   shape, the direct per-pair sums ``gram_direct(p)``), bit-identical over
-   two calls, and the embed field (u_raw bit-identical to the plain
-   version's, as are two calls) and detect tail at ME and NVF p; then at
-   p = 3, 5, 7, 9
-   the multi-candidate detect at ME and NVF against the 64-candidate bank
-   (70 at the small shape: a full chunk of 64 and a partial one) and the
-   standalone prediction error and NVF mask.
+   kernels (the 3x3 Gram's two kernels, the lag sums over row strips and
+   the assembly from the plain lag sums, and the Gram of both against the
+   direct per-pair sums, bit-identical over two calls), then for p = 5,
+   7, 9 the wide Gram's two kernels (the same checks, the Gram against the
+   plain lag form ``me_gram_wide_plain`` and, at the small shape, the
+   direct per-pair sums ``gram_direct(p)``), and the embed field (u_raw
+   bit-identical to the plain version's, as are two calls) and detect tail
+   at ME and NVF p; then at p = 3, 5, 7, 9 the multi-candidate detect at
+   ME and NVF against the 64-candidate bank (70 at the small shape: a full
+   chunk of 64 and a partial one) and the standalone prediction error and
+   NVF mask.
 3. The main paths, through ``BatchedWatermark(1080, 1920, 28390211, p=P,
    psnr=40, device="cuda")``. P=3: ME and NVF embed then detect of 8
    frames, ``embed_luma_u8`` and one single-frame ``Watermark`` round trip.
@@ -39,21 +40,23 @@ prints no result:
    ``conv2d``), and the identification of 8 frames against 64 candidates
    (ME) at each P through the kernel, through the plain route and as 64
    looped detects. Last, after every timing, the device time a call of the
-   wide Gram's two kernels, and of the embed field and the detect tail at
-   each mask and P, from one ``torch.profiler`` session.
+   3x3 and the wide Gram's two kernels, and of the embed field and the
+   detect tail at each mask and P, from one ``torch.profiler`` session.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
-path runs; for the wide Gram both kernels' launches, one each a Gram);
+path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
+Gram);
 ``max_abs_err`` of
 its main output against the plain version at 8 x 1080 x 1920 (the Gram,
 u_raw, the correlation formed from the detect sums, or the standalone op's
 output) and ``max_rel_err`` of
 its reductions (of the output, relative to its largest value, for the
 standalone ops); ``ms`` and ``plain_ms`` per call from phase 4 (CUDA
-events around the wrapper); for the embed field and the detect tail
-``device_ms``, its kernel's device time a call from the profiler;
+events around the wrapper); for the 3x3 Gram, the embed field and the
+detect tail ``device_ms``, its kernels' device time a call from the
+profiler;
 ``bound_ms``, the least time an H100 could take for the same work (the
 larger of the bytes the function must move over 3.35 TB/s and the flops it
 needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
@@ -282,7 +285,9 @@ KERNEL_SOURCES = {
                  "watermarking_gpu_tpu/ops/pallas/nvf_kernel.py:24"),
 }
 STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
-P3_KERNELS = ("me_gram", "embed_field", "detect_partials")
+# the 3x3 Gram's two kernels (the me_gram row), each with its count
+GRAM_KERNELS = ("me_gram_lags", "me_gram_assemble")
+P3_KERNELS = (*GRAM_KERNELS, "embed_field", "detect_partials")
 # the wide Gram's two kernels (the me_gram_wide rows), each with its count
 WIDE_GRAM_KERNELS = ("wide_lag_strips", "wide_assemble")
 
@@ -370,6 +375,34 @@ def check_embed_field(img: torch.Tensor, wm: torch.Tensor,
     return u_err, sums_err
 
 
+def check_gram(img: torch.Tensor, label: str) -> tuple[float, ...]:
+    """The 3x3 Gram's two kernels, each against its plain version on the
+    same inputs (the lag kernel's strip sums; the assembly kernel's Gram
+    from the plain sums), the Gram of both against the direct per-pair sums
+    ``me_gram_plain`` within SUM_RTOL, and two calls bit-identical.
+    Returns the Gram's (max abs err, max rel err), then the lag and the
+    assembly kernel's max rel err."""
+    sums = kernels.me_gram_lags(img)
+    sums_plain = kernels.gram_lags_plain(img)
+    lag_err = rel_err(sums, sums_plain)
+    check(lag_err <= SUM_RTOL, f"me_gram {label}: lag kernel rel err "
+          f"{lag_err:.3e}")
+    assemble_err = rel_err(kernels.me_gram_assemble(sums_plain, img),
+                           kernels.assemble_lags_plain(sums_plain, img))
+    check(assemble_err <= SUM_RTOL, f"me_gram {label}: assembly kernel rel "
+          f"err {assemble_err:.3e}")
+    del sums, sums_plain
+    gram = kernels.me_gram(img)
+    plain = kernels.me_gram_plain(img)
+    gram_err = rel_err(gram, plain)
+    check(torch.allclose(gram, plain, rtol=SUM_RTOL, atol=0),
+          f"me_gram {label}: rel err {gram_err:.3e}")
+    check(torch.equal(kernels.me_gram(img), gram),
+          f"me_gram {label}: two calls differ")
+    return (float((gram - plain).abs().max()), gram_err, lag_err,
+            assemble_err)
+
+
 def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     """Each kernel against its plain version; returns per-kernel errors at
     the main path's shape."""
@@ -383,16 +416,13 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         label = "x".join(str(n) for n in img.shape)
         main_shape = img is frames_d
         before = kernels.launch_counts()
-        gram = kernels.me_gram(img)
+        gram_errors = check_gram(img, label)
         gram_plain = kernels.me_gram_plain(img)
-        check(torch.allclose(gram, gram_plain, rtol=SUM_RTOL, atol=0),
-              f"me_gram {label}: rel err {rel_err(gram, gram_plain):.3e}")
         coeffs, valid = solve_coefficients_spd(gram_plain[:, :8, :8],
                                                gram_plain[:, :8, 8])
         check(bool(valid.all()), f"{label}: solve flagged a frame singular")
         if main_shape:
-            errors["me_gram"] = (float((gram - gram_plain).abs().max()),
-                                 rel_err(gram, gram_plain))
+            errors["me_gram"] = gram_errors[:2]
         worst_u = worst_sum = worst_corr = worst_detect = 0.0
         for mask in ("me", "nvf"):
             u_err, sums_err = check_embed_field(img, wm, coeffs, mask, 3,
@@ -414,7 +444,9 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         check(all(after[k] > before[k] for k in P3_KERNELS),
               f"{label}: a launch counter did not rise: {before} -> {after}")
         torch.cuda.synchronize()
-        print(f"[2] {label}: me_gram rel {rel_err(gram, gram_plain):.2e}; "
+        print(f"[2] {label}: me_gram lag kernel rel {gram_errors[2]:.2e}, "
+              f"assembly kernel rel {gram_errors[3]:.2e}, Gram rel "
+              f"{gram_errors[1]:.2e} (two calls bit-identical); "
               f"embed_field u_raw abs {worst_u:.2e} (bit-identical, as are "
               f"two calls), sums rel "
               f"{worst_sum:.2e}; detect_partials sums rel "
@@ -696,7 +728,7 @@ def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
     total = kernels.launch_counts()
 
     check(all(counts["me"][n] > 0 for n in WIDE_GRAM_KERNELS)
-          and counts["nvf"]["me_gram"] > 0
+          and all(counts["nvf"][n] > 0 for n in GRAM_KERNELS)
           and total["embed_field"] > 0 and total["detect_partials"] > 0,
           f"p={p}: a kernel was never launched on the main path: {counts}")
     for mask, (marked, strength, corr, clean) in results.items():
@@ -850,13 +882,19 @@ def row_name(kernel: str, mask: str, p: int) -> str:
 
 
 def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
-    """Device ms a call of the wide Gram's two kernels at p = 5, 7, 9
-    (keyed "wide_lag_strips_p5", ...) and of the embed field and the detect
-    tail at ME and NVF p = 3, 5, 7, 9 (keyed by kernel row name), from one
-    ``device_ms`` session; each kernel is told apart by its template
-    arguments."""
+    """Device ms a call of the 3x3 Gram's two kernels (keyed
+    "me_gram_lags", "me_gram_assemble", and their sum "me_gram"), of the
+    wide Gram's two kernels at p = 5, 7, 9 (keyed "wide_lag_strips_p5",
+    ...) and of the embed field and the detect tail at ME and NVF p = 3, 5,
+    7, 9 (keyed by kernel row name), from one ``device_ms`` session; each
+    kernel is told apart by its name and template arguments. The 3x3
+    assembly kernel is a programmatic dependent launch: it may start
+    beside the lag kernel's last wave and wait there, so its device time
+    holds that wait and the sum counts the overlap twice; CUDA events
+    around ``me_gram`` (phase 4) time the pair as it runs."""
     coeffs = predictor_coefficients(frames_d)
-    fns, patterns = [], {}
+    fns = [lambda: kernels.me_gram(frames_d)]
+    patterns = {name: f"{name}_kernel" for name in GRAM_KERNELS}
     for p in WIDE_P:
         fns.append(lambda p=p: kernels.me_gram_wide(frames_d, p))
         for kernel in WIDE_GRAM_KERNELS:
@@ -874,7 +912,9 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             patterns[row_name("detect_partials", mask, p)] = (
                 f"detect_tail_kernel<{MASK_CODES[mask]}, {half[0]}, "
                 f"{half[1]}>")
-    return device_ms(fns, patterns)
+    split = device_ms(fns, patterns)
+    split["me_gram"] = sum(split[name] for name in GRAM_KERNELS)
+    return split
 
 
 def phase_identify_kernels(frames_d: torch.Tensor,
@@ -1286,7 +1326,8 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
         finally:
             service.close()
         label = f"P={p} {mask}"
-        grams = WIDE_GRAM_KERNELS if mask == "me" and p > 3 else ("me_gram",)
+        grams = (WIDE_GRAM_KERNELS if mask == "me" and p > 3
+                 else GRAM_KERNELS)
         check(counts[(mask, p)]["detect_many"] > 0
               and all(counts[(mask, p)][n] > 0 for n in grams),
               f"{label}: a kernel was never launched: {counts[(mask, p)]}")
@@ -1514,6 +1555,13 @@ def main() -> int:
         times.update(phase_wide_timing(frames_d, wm_d, p))
     times.update(phase_identify_timing(frames_d, bank_d))
     split = device_split(frames_d, wm_d)
+    print(f"[4] 3x3 Gram split (device time a call, torch.profiler): lag "
+          f"kernel {split['me_gram_lags']:.4f} ms, assembly kernel "
+          f"{split['me_gram_assemble']:.4f} ms, together "
+          f"{split['me_gram']:.4f} ms (CUDA events with the wrapper "
+          f"{times['me_gram'][0]:.4f} ms; launches on the p=3 main path "
+          f"{counts['all']['me_gram_lags']} + "
+          f"{counts['all']['me_gram_assemble']})", flush=True)
     for p in WIDE_P:
         print(f"[4] p={p} wide Gram split (device time a call, "
               f"torch.profiler): lag kernel "
@@ -1535,8 +1583,8 @@ def main() -> int:
                       for mask in ("me", "nvf")), flush=True)
 
     rows = [kernel_row("me_gram", "me_gram", "me", 3,
-                       counts["all"]["me_gram"], errors["me_gram"],
-                       times["me_gram"])]
+                       sum(counts["all"][n] for n in GRAM_KERNELS),
+                       errors["me_gram"], times["me_gram"], split)]
     for kernel in ("embed_field", "detect_partials"):
         nvf_launches = counts["nvf"][kernel]
         rows.append(kernel_row(kernel, kernel, "me", 3,

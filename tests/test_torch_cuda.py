@@ -22,7 +22,8 @@ import torch
 from watermarking_gpu_tpu_torch.models import BatchedWatermark
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import pipelines
-from watermarking_gpu_tpu_torch.ops.me import solve_coefficients
+from watermarking_gpu_tpu_torch.ops.me import (GRAM_STRIP_ROWS,
+                                               solve_coefficients)
 from watermarking_gpu_tpu_torch.ops.pipelines import _analysis
 
 torch.set_num_threads(1)
@@ -91,29 +92,85 @@ def check_detect_tail(frames, wm, coeffs, mask_type, p):
     torch.testing.assert_close(got[2], many[2], rtol=1e-5, atol=1e-6)
 
 
+def check_gram(frames):
+    """The 3x3 Gram against the direct per-pair sums (rtol 1e-4), one launch
+    of each of its two kernels a Gram, two calls bit-identical, and each
+    kernel against its plain version on the same inputs: the lag kernel's
+    strip sums, and the assembly kernel's Gram from the plain sums."""
+    before = kernels.launch_counts()
+    gram = kernels.me_gram(frames)
+    torch.testing.assert_close(gram, kernels.me_gram_plain(frames),
+                               rtol=1e-4, atol=0)
+    after = kernels.launch_counts()
+    assert after == {**before,
+                     "me_gram_lags": before["me_gram_lags"] + 1,
+                     "me_gram_assemble": before["me_gram_assemble"] + 1}
+    assert torch.equal(kernels.me_gram(frames), gram)
+    sums_plain = kernels.gram_lags_plain(frames)
+    torch.testing.assert_close(kernels.me_gram_lags(frames), sums_plain,
+                               rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(
+        kernels.me_gram_assemble(sums_plain, frames),
+        kernels.assemble_lags_plain(sums_plain, frames), rtol=1e-4, atol=0)
+
+
 # (1, 64, 64) is one tile of the embed field and the detect tail; (1, 65,
 # 129) cuts a row and a column past it; (1, 150, 90) is taller than two
 # tiles with rows no multiple of 4 floats, so its loads and stores of W and
-# u_raw take the scalar path, as at (2, 37, 83) and (1, 45, 4)
+# u_raw take the scalar path, as at (2, 37, 83) and (1, 45, 4). The 3x3
+# Gram's lag kernel takes strips of GRAM_STRIP_ROWS rows and blocks of 512
+# columns: "strip" is one strip, "strip-1" and "strip+1" a row less or a
+# second strip of one row, each at 520 columns (a second column block of 8
+# columns); (1, 5, 5) and (1, 6, 6) are smaller than the wide Gram's least
+# lag-form frame.
 @pytest.mark.parametrize("shape", [(3, 40, 96), (2, 37, 83), (2, 1, 5),
                                    (1, 45, 4), (1, 200, 300),
                                    (2, 1080, 1920), (1, 64, 64),
-                                   (1, 65, 129), (1, 150, 90)])
+                                   (1, 65, 129), (1, 150, 90), "strip",
+                                   "strip-1", "strip+1", (1, 5, 5),
+                                   (1, 6, 6)])
 def test_kernels_match_plain_on_card(device, shape):
+    if isinstance(shape, str):
+        shape = (2, GRAM_STRIP_ROWS + {"strip": 0, "strip-1": -1,
+                                       "strip+1": 1}[shape], 520)
     frames, wm, coeffs = make_inputs(shape, device)
     before = kernels.launch_counts()
-    torch.testing.assert_close(kernels.me_gram(frames),
-                               kernels.me_gram_plain(frames),
-                               rtol=1e-4, atol=0)
+    check_gram(frames)
     for mask_type in ("me", "nvf"):
         check_embed_field(frames, wm, coeffs, mask_type, 3)
         check_detect_tail(frames, wm, coeffs, mask_type, 3)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert after == {**before, "me_gram": before["me_gram"] + 1,
+    assert after == {**before,
+                     "me_gram_lags": before["me_gram_lags"] + 3,
+                     "me_gram_assemble": before["me_gram_assemble"] + 3,
                      "embed_field": before["embed_field"] + 4,
                      "detect_partials": before["detect_partials"] + 4,
                      "detect_many": before["detect_many"] + 2}
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 96), (3, 1080, 1920)])
+def test_singular_frame_soft_fails_on_card(device, shape):
+    """A constant frame in a batch of three on the kernel route at ME p=3:
+    its Gram's 81 entries are the same bits (exactly singular), and only
+    that frame soft-fails (strength 0, pixels passed through, correlation
+    0), as tests/test_torch_pipeline.py::test_singular_frame_soft_fails
+    holds on the CPU route."""
+    frames, wm, _ = make_inputs((1, *shape[1:]), device)
+    good = frames[0]
+    flat = torch.full_like(good, 77.0)
+    frames = torch.stack([good, flat, (good + 1.0).clamp(0, 255)])
+    gram = kernels.me_gram(frames)
+    assert gram[1].unique().numel() == 1
+    assert gram[0].unique().numel() > 1
+    marked, strength = pipelines.embed_pipeline(frames, frames, wm, 2.55,
+                                                "me", impl="cuda")
+    corr = pipelines.detect_pipeline(frames, wm, "me", impl="cuda")
+    marked_corr = pipelines.detect_pipeline(marked, wm, "me", impl="cuda")
+    assert strength[1] == 0.0 and (strength[[0, 2]] > 0).all()
+    assert torch.equal(marked[1], flat)
+    assert corr[1] == 0.0 and marked_corr[1] == 0.0
+    assert (marked_corr[[0, 2]] > 0.02).all()
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 96), (2, 37, 83), (2, 20, 30),

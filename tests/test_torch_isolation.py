@@ -102,7 +102,9 @@ def test_cpu_tensors_launch_no_kernel():
                                            mask_type, p=p, impl="cuda")
             kernels.prediction_error(frames, torch.zeros(2, p * p - 1), p)
             kernels.nvf_mask(frames, p)
-    assert kernels.launch_counts() == {"me_gram": 0, "wide_lag_strips": 0,
+    assert kernels.launch_counts() == {"me_gram_lags": 0,
+                                       "me_gram_assemble": 0,
+                                       "wide_lag_strips": 0,
                                        "wide_assemble": 0,
                                        "embed_field": 0,
                                        "detect_partials": 0,
@@ -116,6 +118,11 @@ def test_wrappers_raise_on_other_devices():
     wm = torch.zeros(8, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.me_gram(frames)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.me_gram_lags(frames)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.me_gram_assemble(torch.zeros(1, 13, 1, 1, device="meta"),
+                                 frames)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.embed_field(frames, wm, None, "nvf")
     with pytest.raises(ValueError, match="CUDA or CPU"):

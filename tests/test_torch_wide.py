@@ -9,8 +9,8 @@ JAX package, with the same numpy frames and watermark fed to both.
 * The plain versions of the port's two wide Gram kernels (the lag sums over
   row strips, the assembly), chained, against the JAX
   ``me_normal_equations`` at ragged shapes (rtol 1e-4); the strip sums
-  against the lane partials; the kernels' index tables against
-  ``lag_plan``.
+  against the lane partials; the kernels' index tables (and the 3x3
+  Gram's, at p=3) against ``lag_plan``.
 * The wide solve against the JAX ``solve_coefficients_spd_vec`` and
   ``_blocked`` on the same Gram: atol 1e-4 (the bound the JAX package set
   for its wide solves).
@@ -138,12 +138,12 @@ def test_lag_strips_add_up_to_the_lane_partials(p, last):
                                atol=0)
 
 
-@pytest.mark.parametrize("p", WIDE_P)
+@pytest.mark.parametrize("p", [3, *WIDE_P])
 def test_wide_kernel_tables_cover_the_gram(p):
-    """The kernels' tables from ``lag_plan``: the lag kernel's index of each
-    (dc, dr) hits every canonical lag once and nothing else, and the
-    assembly kernel's pairs, grouped by lag, cover each cell of the Gram's
-    upper triangle once."""
+    """The kernels' tables from ``lag_plan`` (at p=3 the 3x3 Gram's): the
+    lag kernel's index of each (dc, dr) hits every canonical lag once and
+    nothing else, and the assembly kernel's pairs, grouped by lag, cover
+    each cell of the Gram's upper triangle once."""
     h, n = p // 2, p * p
     tables = {name: t.tolist() for name, t in
               wide_module._tables(p, torch.device("cpu")).items()}

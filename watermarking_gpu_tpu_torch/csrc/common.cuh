@@ -5,8 +5,8 @@
 // indices (the reference's CLK_ADDRESS_CLAMP_TO_EDGE sampler), so one
 // kernel covers what the JAX package needed a padded and a raw twin for.
 // Per-block sums and maxes go to a (batch, n_blocks, slots) buffer that the
-// Python wrapper finishes with torch.sum / torch.amax: deterministic, no
-// float atomics.
+// Python wrapper finishes with torch.sum / torch.amax, or that an assembly
+// kernel finishes (the Grams): deterministic, no float atomics.
 //
 // The arithmetic that has a plain PyTorch twin (prediction errors, the NVF
 // variance, u = mask * W) uses the __f*_rn intrinsics, which nvcc never

@@ -3,25 +3,30 @@
 Importing this package builds nothing: the kernels are compiled by
 ``build.library()`` at their first launch on a CUDA tensor. Each wrapper
 counts its launches in a plain integer attribute, ``wrapper.launches``, where
-it launches its kernel; ``me_gram_wide`` launches the wide Gram's two
-kernels through their wrappers, ``wide_lag_strips`` and ``wide_assemble``,
-so each of those counts one a Gram.
+it launches its kernel; ``me_gram`` launches the 3x3 Gram's two kernels
+through their wrappers, ``me_gram_lags`` and ``me_gram_assemble``, and
+``me_gram_wide`` the wide Gram's, ``wide_lag_strips`` and
+``wide_assemble``, so each of those counts one a Gram.
 ``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
 calls (their modules say why); the rest carry the embed, detect and
 identification paths.
 """
 
-from ..me import (assemble_strips_plain, lag_partials_plain,
-                  lag_strips_plain, me_gram_wide_plain)
+from ..me import (assemble_lags_plain, assemble_strips_plain,
+                  gram_lags_plain, lag_partials_plain, lag_strips_plain,
+                  me_gram_wide_plain)
 from .detect_many import detect_many_partials, detect_many_partials_plain
 from .fused import (detect_partials, detect_partials_plain, embed_field,
                     embed_field_plain)
 from .me_gram_wide import me_gram_wide, wide_assemble, wide_lag_strips
-from .me_kernel import me_gram, me_gram_plain
+from .me_kernel import (me_gram, me_gram_assemble, me_gram_lags,
+                        me_gram_plain)
 from .nvf import nvf_mask, nvf_mask_plain
 from .predict import prediction_error, prediction_error_plain
 
-KERNELS = {"me_gram": me_gram, "wide_lag_strips": wide_lag_strips,
+KERNELS = {"me_gram_lags": me_gram_lags,
+           "me_gram_assemble": me_gram_assemble,
+           "wide_lag_strips": wide_lag_strips,
            "wide_assemble": wide_assemble,
            "embed_field": embed_field, "detect_partials": detect_partials,
            "detect_many": detect_many_partials,
@@ -37,11 +42,12 @@ def launch_counts() -> dict[str, int]:
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "assemble_strips_plain", "detect_many_partials",
-           "detect_many_partials_plain", "detect_partials",
-           "detect_partials_plain", "embed_field", "embed_field_plain",
-           "lag_partials_plain", "lag_strips_plain", "launch_counts",
-           "me_gram", "me_gram_plain", "me_gram_wide", "me_gram_wide_plain",
-           "nvf_mask", "nvf_mask_plain", "prediction_error",
-           "prediction_error_plain", "reset_launch_counts", "wide_assemble",
-           "wide_lag_strips"]
+__all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
+           "detect_many_partials", "detect_many_partials_plain",
+           "detect_partials", "detect_partials_plain", "embed_field",
+           "embed_field_plain", "gram_lags_plain", "lag_partials_plain",
+           "lag_strips_plain", "launch_counts", "me_gram", "me_gram_assemble",
+           "me_gram_lags", "me_gram_plain", "me_gram_wide",
+           "me_gram_wide_plain", "nvf_mask", "nvf_mask_plain",
+           "prediction_error", "prediction_error_plain",
+           "reset_launch_counts", "wide_assemble", "wide_lag_strips"]

@@ -42,8 +42,10 @@ _INT = ctypes.c_int
 # C entry point -> argument types (pointers and the stream as c_void_p, so
 # ctypes does not cut 64-bit addresses to int)
 SIGNATURES = {
-    "wm_me_gram_num_blocks": (_INT, _INT),
-    "wm_me_gram": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "wm_me_gram_lags": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                        _PTR),
+    "wm_me_gram_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                            _INT, _INT, _PTR),
     "wm_wide_lag_strips": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                            _INT, _INT, _INT, _PTR),
     "wm_wide_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,

@@ -52,7 +52,8 @@ def _check_image(image: torch.Tensor, p: int) -> None:
 
 @functools.lru_cache(maxsize=8)
 def _tables(p: int, device: torch.device) -> dict[str, torch.Tensor]:
-    """The kernels' int32 tables from ``lag_plan(p)``, on ``device``:
+    """The lag and assembly kernels' int32 tables from ``lag_plan(p)``, on
+    ``device`` (the wide Gram's at p > 3, the 3x3 Gram's at p = 3):
     lag_index -- per (dc + 2h) * (2h + 1) + dr, the lag's index (-1 where
                  the lag is not canonical);
     lags       -- (dr, dc) per lag;

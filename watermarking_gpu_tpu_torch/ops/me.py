@@ -295,6 +295,82 @@ def assemble_strips_plain(sums: torch.Tensor, edges: torch.Tensor,
                                    p // 2), image, p)
 
 
+# ---- the 3x3 Gram kernels' own functions ----------------------------------
+#
+# The lag kernel of the 3x3 Gram (csrc/me_gram.cu) sums each of the 13 lag
+# products Q_d over the frame's own columns [0, W) only, per strip of rows
+# and block of columns (``gram_lag_layout``); the assembly kernel takes the
+# column windows [-1, W - 1) and [1, W + 1) as that interior plus the
+# difference of two columns of Q_d, then the boundary-row corrections. No
+# geometry rule: every frame of at least one pixel takes this form.
+
+# columns a block of the 3x3 lag kernel: its 128 threads, 4 columns each
+# (the kernel refuses any other value)
+GRAM_BLOCK_COLS = 512
+# rows a strip of the 3x3 lag kernel: the fastest of a sweep on an H100
+# (tools/ab_me_gram.py)
+GRAM_STRIP_ROWS = 24
+
+
+def gram_lag_layout(rows: int, cols: int) -> tuple[int, int, int]:
+    """(strip rows, strips, column blocks) of the 3x3 lag kernel's output
+    for a (rows, cols) frame."""
+    strip = min(rows, GRAM_STRIP_ROWS)
+    return strip, -(-rows // strip), -(-cols // GRAM_BLOCK_COLS)
+
+
+def _lag_products(ext: torch.Tensor, rows: slice, cols: slice,
+                  dr: int, dc: int) -> torch.Tensor:
+    """Q_d = P[y, x] * P[y + dr, x + dc] over rows ``rows`` and columns
+    ``cols`` of ``ext``, the frames edge-padded by 3 (image row 0 at 3)."""
+    shift = ext[:, rows.start + dr:rows.stop + dr, cols.start + dc:
+                cols.stop + dc]
+    return ext[:, rows, cols] * shift
+
+
+def gram_lags_plain(image: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) -> (B, 13, S, NB): per strip of rows and block of columns
+    (``gram_lag_layout``) the sum of each lag product Q_d over the frame's
+    own columns, lags in ``lag_plan(3)`` order (the plain version of the
+    3x3 lag kernel)."""
+    batch, rows, cols = image.shape
+    strip, n_strips, n_blocks = gram_lag_layout(rows, cols)
+    ext = pad_edge(image, 3)
+    sums = []
+    for dr, dc in lag_plan(3)[0]:
+        product = _lag_products(ext, slice(3, 3 + rows),
+                                slice(3, 3 + cols), dr, dc)
+        product = torch.nn.functional.pad(
+            product, (0, n_blocks * GRAM_BLOCK_COLS - cols, 0,
+                      n_strips * strip - rows))
+        sums.append(product.reshape(batch, n_strips, strip, n_blocks,
+                                    GRAM_BLOCK_COLS).sum(dim=(2, 4)))
+    return torch.stack(sums, dim=1)
+
+
+def assemble_lags_plain(sums: torch.Tensor,
+                        image: torch.Tensor) -> torch.Tensor:
+    """The 3x3 lag kernel's (B, 13, S, NB) sums of the (B, H, W) image
+    -> (B, 9, 9) Gram (the plain version of the 3x3 assembly kernel): the
+    column windows [ac, W + ac) of each lag's sum over rows [0, H) are the
+    interior plus C(-1) - C(W - 1) (ac = -1) or C(W) - C(0) (ac = 1), C(x)
+    column x of Q_d over rows [0, H); ``_assemble`` adds the boundary-row
+    corrections."""
+    rows, cols = image.shape[-2:]
+    interior = sums.sum(dim=(2, 3))
+    ext = pad_edge(image, 3)
+    column = {}
+    for x in (-1, 0, cols - 1, cols):
+        column[x] = torch.stack(
+            [_lag_products(ext, slice(3, 3 + rows), slice(3 + x, 4 + x),
+                           dr, dc).sum(dim=(1, 2))
+             for dr, dc in lag_plan(3)[0]], dim=1)
+    windows = torch.stack([interior + (column[-1] - column[cols - 1]),
+                           interior,
+                           interior + (column[cols] - column[0])], dim=-1)
+    return _assemble(windows, image, 3)
+
+
 
 def me_normal_equations(image: torch.Tensor, p: int = 3
                         ) -> tuple[torch.Tensor, torch.Tensor]:
