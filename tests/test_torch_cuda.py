@@ -12,19 +12,27 @@ only; a detect kernel's dot relative to sqrt(||e_u||^2 ||e_z||^2), see
 (the same rounded operations in the same order); the prediction error and
 the NVF mask rtol 1e-5 + atol 1e-3 (their terms round identically); between
 the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
-its fused NVF kernels) and strengths rel 2e-4.
+its fused NVF kernels) and strengths rel 2e-4. The video pipeline's
+pinned-buffer staging: its marked lumas equal a synchronous embed of the
+same frames byte for byte.
 """
+
+import io
 
 import numpy as np
 import pytest
 import torch
 
-from watermarking_gpu_tpu_torch.models import BatchedWatermark
+from watermarking_gpu_tpu_torch.io.config import Settings
+from watermarking_gpu_tpu_torch.io.matfile import save_watermark
+from watermarking_gpu_tpu_torch.models import BatchedWatermark, pad_to_batch
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import pipelines
 from watermarking_gpu_tpu_torch.ops.me import (GRAM_STRIP_ROWS,
                                                solve_coefficients)
 from watermarking_gpu_tpu_torch.ops.pipelines import _analysis
+from watermarking_gpu_tpu_torch.video import (embed_video, frame_bytes,
+                                              synthesize)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -381,3 +389,43 @@ def test_engine_runs_on_card(device, p):
         3 if p > 3 else 0)
     assert counts.pop("prediction_error") == counts.pop("nvf_mask") == 0
     assert all(n > 0 for n in counts.values())
+
+
+@pytest.mark.parametrize("interval", [1, 5])
+def test_embed_video_on_card_matches_synchronous_embed(device, tmp_path,
+                                                      interval):
+    """On the card the pipeline stages lumas in pinned buffers and copies
+    results back on a side stream: its marked lumas must equal one
+    synchronous ``embed_luma_u8`` of the same frames, byte for byte (a
+    pinned buffer reused while a copy still reads it would differ)."""
+    rows, cols, count = 240, 320, 24
+    clip_path = tmp_path / "clip.yuv"
+    clip_path.write_bytes(synthesize(cols, rows, count, seed=4))
+    wm_path = tmp_path / "w.dat"
+    save_watermark(wm_path, np.random.default_rng(2).normal(
+        size=(rows, cols)).astype(np.float32))
+    out_path = tmp_path / "marked.yuv"
+    settings = Settings(video=str(clip_path), watermark=str(wm_path), p=3,
+                        psnr=40.0, watermark_interval=interval,
+                        embed_batch=4, raw_video_size=f"{cols}x{rows}",
+                        encode_watermark_file_path=str(out_path))
+    engine = BatchedWatermark(rows, cols, str(wm_path), p=3, psnr=40.0,
+                              device=device)
+    assert embed_video(settings, engine=engine, out=io.StringIO()) == count
+    fb = frame_bytes(cols, rows)
+    original = np.frombuffer(clip_path.read_bytes(), np.uint8).reshape(-1,
+                                                                      fb)
+    marked = np.frombuffer(out_path.read_bytes(), np.uint8).reshape(-1, fb)
+    np.testing.assert_array_equal(marked[:, rows * cols:],
+                                  original[:, rows * cols:])
+    sampled = original[::interval, :rows * cols].reshape(-1, rows, cols)
+    for start in range(0, len(sampled), 4):
+        want, _ = engine.embed_luma_u8(pad_to_batch(sampled[start:start + 4],
+                                                    4))
+        got = marked[::interval][start:start + 4, :rows * cols]
+        np.testing.assert_array_equal(
+            got.reshape(-1, rows, cols),
+            want[:len(got)].cpu().numpy())
+    np.testing.assert_array_equal(
+        np.delete(marked, np.s_[::interval], axis=0),
+        np.delete(original, np.s_[::interval], axis=0))

@@ -26,12 +26,18 @@ PACKAGE = REPO / "watermarking_gpu_tpu_torch"
 
 
 def test_import_loads_no_jax():
+    """Nor Pillow, which the card's machine does not have."""
     code = ("import sys; import watermarking_gpu_tpu_torch as p; "
             "import watermarking_gpu_tpu_torch.ops.cuda, "
             "watermarking_gpu_tpu_torch.utils, "
-            "watermarking_gpu_tpu_torch.serving; "
+            "watermarking_gpu_tpu_torch.serving, "
+            "watermarking_gpu_tpu_torch.cli.main, "
+            "watermarking_gpu_tpu_torch.io, "
+            "watermarking_gpu_tpu_torch.video, "
+            "watermarking_gpu_tpu_torch.utils.profiling, "
+            "watermarking_gpu_tpu_torch.__main__; "
             "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
-            "m.split('.')[0] == 'watermarking_gpu_tpu'); "
+            "m.split('.')[0] in ('watermarking_gpu_tpu', 'PIL')); "
             "print(bad); sys.exit(1 if bad else 0)")
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)
@@ -39,7 +45,9 @@ def test_import_loads_no_jax():
 
 
 def test_sources_name_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+jax|watermarking_gpu_tpu\b")
+    """Nor import Pillow; chip_smoke.py imports none of the three."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|PIL)\b"
+                         r"|watermarking_gpu_tpu\b")
     sources = [path for suffix in ("*.py", "*.cu", "*.cuh")
                for path in PACKAGE.rglob(suffix)]
     offenders = [f"{path}:{n}" for path in sources
@@ -47,6 +55,10 @@ def test_sources_name_no_jax():
                  if pattern.search(line)]
     assert len(sources) > 10
     assert offenders == []
+    imports = re.compile(r"^\s*(import|from)\s+(jax|PIL|watermarking_gpu_tpu)"
+                         r"\b")
+    smoke = (REPO / "chip_smoke.py").read_text().splitlines()
+    assert [line for line in smoke if imports.search(line)] == []
 
 
 def fake_nvcc(tmp_path: Path, body: str) -> Path:
