@@ -59,12 +59,35 @@ prints no result:
    zeroed just before it and read just after, and must show the 3x3
    Gram's kernels and the embed field or the detect tail (the CLI both,
    and at p=5 the wide Gram's kernels too).
+6. The sharded routes of ``parallel/`` (run before phase 4's profiler
+   timings, at 8 x 1080 x 1920, the watermark of phase 3 and
+   ``make_bank()``); on one card every mesh names cuda:0 for each shard,
+   so no transfer between devices is measured. First the halo forms of the
+   3x3 Gram's two kernels, the embed field and the detect tail against
+   their plain halo forms on the same extended shards, at 270- and 540-row
+   shards (space 4 and 2), every shard position, at ME p=3 and NVF p=3
+   and 5, with the shards' Grams summed against the unsharded kernel Gram,
+   then each one's ms on an interior shard (and, after phase 4's profiler
+   timings, its device ms). Then, each run's launch counters zeroed just
+   before it and read just after, with its ms from CUDA events: hybrid
+   embed then detect on data=2 x space=2 (ME p=3, NVF p=3 and 5,
+   ``impl="cuda"``) held to the single-device kernel route (correlations
+   1e-4, strengths 1e-4 relative, pixels 1e-2) and to the JAX numbers;
+   spatial detect on data=1 x space=4 (ME p=3 on ``impl="cuda"``, ME p=9
+   on ``impl="torch"``); DP embed and detect on data=4 at ME p=5 (the wide
+   Gram per shard); ``make_dp_detect_many`` at ME p=5 (16 candidates a
+   shard) and ``make_mesh_detect_many`` on data=2 x space=2 (``impl=
+   "torch"``, ME p=3), where the embedded candidate must win, within 1e-4
+   of single-device identification and 3e-4 of the JAX numbers; and the
+   three services with ``mesh=`` (the detector and embedder on data=2 x
+   space=2, the identifier on data=2), their answers equal to the mesh
+   functions'.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
 path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
-Gram);
+Gram), plus the launches of phase 6's runs at that kernel, mask and p;
 ``max_abs_err`` of
 its main output against the plain version at 8 x 1080 x 1920 (the Gram,
 u_raw, the correlation formed from the detect sums, or the standalone op's
@@ -80,7 +103,10 @@ needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
 700 W; see ``kernel_bound``), and ``bound_by``; ``library_ms``: for the
 prediction error one grouped ``conv2d`` over the edge-padded frames (the
 pad included, cuDNN's TF32 off), null for the rest, which no single
-PyTorch call computes. The last line is
+PyTorch call computes. The p=3 rows of the 3x3 Gram, the embed field and
+the detect tail also carry ``halo_form``: per shard height (270, 540) the
+halo form's ms, plain ms, bound, and device ms on an interior shard.
+The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -100,7 +126,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from watermarking_gpu_tpu_torch import IdentifierService
+from watermarking_gpu_tpu_torch import (DetectorService, EmbedderService,
+                                        IdentifierService)
 from watermarking_gpu_tpu_torch.cli import main as cli
 from watermarking_gpu_tpu_torch.io.config import Settings
 from watermarking_gpu_tpu_torch.io.images import (add_suffix_before_extension,
@@ -113,11 +140,20 @@ from watermarking_gpu_tpu_torch.models import (BatchedWatermark, Watermark,
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import rgb_to_gray, strength_factor
 from watermarking_gpu_tpu_torch.ops.cuda import build
-from watermarking_gpu_tpu_torch.ops.cuda.fused import MASK_CODES
+from watermarking_gpu_tpu_torch.ops.cuda.fused import (MASK_CODES,
+                                                      stencil_reach)
 from watermarking_gpu_tpu_torch.ops.me import (gram_direct,
                                                solve_coefficients_spd,
                                                solve_coefficients_spd_wide)
 from watermarking_gpu_tpu_torch.ops.neighbors import neighbor_offsets
+from watermarking_gpu_tpu_torch.ops.pipelines import detect_many_pipeline
+from watermarking_gpu_tpu_torch.parallel import (make_dp_detect,
+                                                 make_dp_detect_many,
+                                                 make_dp_embed,
+                                                 make_hybrid_detect,
+                                                 make_hybrid_embed, make_mesh,
+                                                 make_mesh_detect_many,
+                                                 make_spatial_detect)
 from watermarking_gpu_tpu_torch.video import (detect_video, embed_video,
                                               frame_bytes, synthesize)
 
@@ -363,7 +399,8 @@ def phase_card_and_build() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    power = smi.stdout.strip().splitlines()[0]
+    print(power, flush=True)
     # the port uses no matmul or convolution; the one convolution timed as
     # a yardstick (conv_prediction_error) must run in full f32 too
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -376,7 +413,7 @@ def phase_card_and_build() -> str:
     for line in log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"[1]   ptxas: {line.strip()}", flush=True)
-    return kind
+    return kind, power
 
 
 def check_embed_field(img: torch.Tensor, wm: torch.Tensor,
@@ -944,6 +981,26 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                 f"{half[1]}>")
     split = device_ms(fns, patterns)
     split["me_gram"] = sum(split[name] for name in GRAM_KERNELS)
+    return split
+
+
+def halo_device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
+    """Device ms a call of the halo forms on an interior shard of 270 and
+    of 540 rows (phase 6's shards), ME and NVF at p=3, one ``device_ms``
+    session a shard height: {(row name, shard rows): ms}, the 3x3 Gram as
+    its two kernels' sum (counting the assembly's wait, as
+    ``device_split``)."""
+    coeffs = predictor_coefficients(frames_d)[3]
+    split = {}
+    for space in HALO_SPACES:
+        rows = ROWS // space
+        pairs = halo_timing_pairs(frames_d, wm_d, coeffs, rows)
+        patterns = {}
+        for pair in pairs.values():
+            patterns.update(pair[-1])
+        times = device_ms([pair[2] for pair in pairs.values()], patterns)
+        times["me_gram"] = sum(times.pop(name) for name in GRAM_KERNELS)
+        split.update({(name, rows): ms for name, ms in times.items()})
     return split
 
 
@@ -1806,6 +1863,425 @@ def phase_video() -> None:
               flush=True)
 
 
+# Phase 6: the sharded routes of parallel/ on the card, at 8 x 1080 x 1920.
+# On one card every mesh names cuda:0 for each of its shards, so the
+# collectives' copies are no copies: the phase measures the routes and
+# their kernels, not a transfer between devices.
+MESH_CASES = (("me", 3), ("nvf", 3), ("nvf", 5))   # the halo-form kernels
+HALO_SPACES = (4, 2)                               # 270- and 540-row shards
+# the sharded routes against the single-device kernel route on the same
+# card: the same kernels' sums over other row splits and in another order
+# (__graft_entry__.py:78-80)
+MESH_CORR_ATOL, MESH_STRENGTH_RTOL, MESH_PIXEL_ATOL = 1e-4, 1e-4, 1e-2
+# identification over the mesh against JAX_IDENTIFY_REFERENCE
+MESH_IDENTIFY_ATOL = 3e-4
+
+
+def one_card_mesh(data: int, space: int = 1):
+    """A data x space mesh that names cuda:0 for every shard."""
+    return make_mesh(data, space,
+                     devices=[torch.device("cuda", 0)] * (data * space))
+
+
+def halo_extended(frames: torch.Tensor, start: int, stop: int,
+                  halo: int) -> torch.Tensor:
+    """Rows [start - halo, stop + halo) of the edge-replicated frames: a
+    row shard as exchange_row_halo extends it."""
+    lead, (rows, cols) = frames.shape[:-2], frames.shape[-2:]
+    padded = F.pad(frames.reshape(-1, 1, rows, cols), (0, 0, halo, halo),
+                   mode="replicate").reshape(*lead, rows + 2 * halo, cols)
+    return padded[..., start:stop + 2 * halo, :].contiguous()
+
+
+def check_halo_shard(frames_d, wm_d, coeffs, mask: str, p: int, start: int,
+                     stop: int, label: str) -> tuple[dict, float]:
+    """The halo forms of the 3x3 Gram's two kernels, the embed field and
+    the detect tail on rows [start, stop) of the frames against their plain
+    halo forms (the tolerances of phase 2; u_raw bit-identical), the Gram at
+    each halo the routes give it: the detect tail's ``stencil_reach`` and
+    the embed field's max(1, p // 2). Returns the shard's kernel Grams
+    {halo: Gram} and the worst error."""
+    reach = stencil_reach(mask, p)
+    half = max(1, p // 2)
+    ext = halo_extended(frames_d, start, stop, reach)
+    w_ext = halo_extended(wm_d, start, stop, reach)
+    worst = 0.0
+    errs, grams = {}, {}
+    for halo in sorted({half, reach}):
+        g_ext = halo_extended(frames_d, start, stop, halo)
+        where = (g_ext, halo, halo, start, ROWS)
+        plain_sums = kernels.gram_lags_plain(g_ext, halo, halo)
+        errs[f"lag kernel (halo {halo})"] = rel_err(
+            kernels.me_gram_lags(*where), plain_sums)
+        errs[f"assembly kernel (halo {halo})"] = rel_err(
+            kernels.me_gram_assemble(plain_sums, *where),
+            kernels.assemble_lags_plain(plain_sums, g_ext, halo, halo))
+        grams[halo] = kernels.me_gram(*where)
+        errs[f"Gram (halo {halo})"] = rel_err(
+            grams[halo], kernels.me_gram_plain(g_ext, halo, halo))
+    e_ext = halo_extended(frames_d, start, stop, half)
+    got = kernels.embed_field(e_ext, wm_d[start:stop],
+                              coeffs if mask == "me" else None, mask, p,
+                              half, half)
+    want = kernels.embed_field_plain(e_ext, wm_d[start:stop], coeffs, mask,
+                                     p, half, half)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+          f"{label}: embed field halo form: u_raw or max mask not "
+          f"bit-identical to the plain halo form (max abs err "
+          f"{float((got[0] - want[0]).abs().max()):.3e})")
+    errs["embed field sums"] = rel_err(got[1], want[1])
+    _, errs["detect tail sums"] = detect_errors(
+        kernels.detect_partials(ext, w_ext, coeffs, mask, p, reach, reach,
+                                start, ROWS),
+        kernels.detect_partials_plain(ext, w_ext, coeffs, mask, p, reach,
+                                      reach, start, ROWS))
+    for what, err in errs.items():
+        check(err <= SUM_RTOL, f"{label}: {what} (halo form) rel err "
+              f"{err:.3e}")
+        worst = max(worst, err)
+    return grams, worst
+
+
+def halo_timing_pairs(frames_d: torch.Tensor, wm_d: torch.Tensor,
+                      coeffs: torch.Tensor, rows: int) -> dict:
+    """The halo forms on the first interior shard of ``rows`` rows, ME and
+    NVF at p=3, each beside its plain halo form: {row name: (kernel, mask,
+    kernel fn, plain fn, halo, {kernel name: its profiler pattern})}."""
+    start, stop = rows, 2 * rows
+    pairs = {}
+    for mask in ("me", "nvf"):
+        reach = stencil_reach(mask, 3)
+        ext = halo_extended(frames_d, start, stop, reach)
+        w_ext = halo_extended(wm_d, start, stop, reach)
+        e_ext = halo_extended(frames_d, start, stop, 1)
+        w_own = wm_d[start:stop]
+        c = coeffs if mask == "me" else None
+        code = MASK_CODES[mask]
+        name = row_name("embed_field", mask, 3)
+        pairs[name] = (
+            "embed_field", mask,
+            lambda c=c, m=mask, e=e_ext: kernels.embed_field(
+                e, w_own, c, m, 3, 1, 1),
+            lambda m=mask, e=e_ext: kernels.embed_field_plain(
+                e, w_own, coeffs, m, 3, 1, 1),
+            1, {name: f"embed_field_kernel<{code}, 1>"})
+        name = row_name("detect_partials", mask, 3)
+        where = (mask, 3, reach, reach, start, ROWS)
+        pairs[name] = (
+            "detect_partials", mask,
+            lambda x=ext, w=w_ext, a=where: kernels.detect_partials(
+                x, w, coeffs, *a),
+            lambda x=ext, w=w_ext, a=where: kernels.detect_partials_plain(
+                x, w, coeffs, *a),
+            reach, {name: f"detect_tail_kernel<{code}, 1, {code}>"})
+        if mask == "me":
+            pairs["me_gram"] = (
+                "me_gram", mask,
+                lambda x=ext, r=reach: kernels.me_gram(x, r, r, start, ROWS),
+                lambda x=ext, r=reach: kernels.me_gram_plain(x, r, r),
+                reach, {gram: f"{gram}_kernel" for gram in GRAM_KERNELS})
+    return pairs
+
+
+def phase_halo_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
+    """[6] The halo-form kernels against their plain halo forms at 270- and
+    540-row shards (space 4 and 2) at every shard position, the shards'
+    Grams at each halo summed against the unsharded kernel Gram; then each
+    kernel's ms in its halo form on an interior shard. Returns {(row name,
+    shard rows): (ms, plain ms, bound ms, bound by)}."""
+    coeffs = predictor_coefficients(frames_d)[3]
+    frame_gram = kernels.me_gram(frames_d)
+    times = {}
+    for space in HALO_SPACES:
+        rows = ROWS // space
+        for mask, p in MESH_CASES:
+            grams, worst = {}, 0.0
+            for index in range(space):
+                where = ("top" if index == 0 else "bottom"
+                         if index == space - 1 else "interior")
+                shard_grams, err = check_halo_shard(
+                    frames_d, wm_d, coeffs, mask, p, index * rows,
+                    (index + 1) * rows,
+                    f"{mask} p={p} {rows}-row shard {index} ({where})")
+                for halo, gram in shard_grams.items():
+                    grams.setdefault(halo, []).append(gram)
+                worst = max(worst, err)
+            sum_errs = {halo: rel_err(sum(parts), frame_gram)
+                        for halo, parts in grams.items()}
+            for halo, err in sum_errs.items():
+                check(err <= SUM_RTOL, f"{mask} p={p} {rows}-row shards: "
+                      f"the shards' Grams at halo {halo} sum to the frame's "
+                      f"within {err:.3e}")
+            print(f"[6] halo forms, {mask} p={p}, {space} shards of {rows} "
+                  f"rows (top, interior, bottom): worst rel err {worst:.2e} "
+                  f"against the plain halo forms, u_raw bit-identical; "
+                  f"shards' Grams summed vs the frame's kernel Gram rel "
+                  + ", ".join(f"{err:.2e} (halo {halo})"
+                              for halo, err in sorted(sum_errs.items()))
+                  + ": ok", flush=True)
+        # times on the first interior shard, ME and NVF at p=3
+        for name, (kernel, mask, kernel_fn, plain_fn, halo,
+                   _) in halo_timing_pairs(frames_d, wm_d, coeffs,
+                                           rows).items():
+            bound_ms, bound_by = kernel_bound(kernel, mask, 3, rows=rows,
+                                              halo=halo)
+            times[(name, rows)] = (cuda_ms(kernel_fn), cuda_ms(plain_fn),
+                                   bound_ms, bound_by)
+            ms, plain_ms = times[(name, rows)][:2]
+            print(f"[6] {name} halo form, {rows}-row interior shard of "
+                  f"8x{COLS} (halo {halo}): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {bound_ms / ms:.0%} of it", flush=True)
+    return times
+
+
+def run_counted(fn):
+    """(fn's result, the kernels' launches in it, its ms by CUDA events):
+    the counters zeroed just before, read just after."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    torch.cuda.synchronize()
+    return result, kernels.launch_counts(), start.elapsed_time(end)
+
+
+def add_counts(total: dict, counts: dict, mask: str, p: int) -> None:
+    """Add a run's launches to the kernels line's rows (row name ->
+    launches), a run at one mask and p."""
+    for kernel, n in counts.items():
+        if not n:
+            continue
+        if kernel in GRAM_KERNELS:
+            name = "me_gram"
+        elif kernel in WIDE_GRAM_KERNELS:
+            name = f"me_gram_wide_p{p}"
+        elif kernel == "detect_many":
+            name = f"detect_many_{mask}_p{p}"
+        else:
+            name = row_name(kernel, mask, p)
+        total[name] = total.get(name, 0) + n
+
+
+def jax_numbers(mask: str, p: int) -> dict:
+    return JAX_REFERENCE[mask] if p == 3 else JAX_WIDE_REFERENCE[p][mask]
+
+
+def check_route(label: str, corr, strength, marked, ref) -> str:
+    """Hold a sharded route's (corr (B,), strength (B,), marked) to the
+    single-device kernel route's ``ref`` (MESH_* tolerances); returns the
+    worst differences as text."""
+    ref_corr, ref_strength, ref_marked = ref
+    corr_err = float((corr - ref_corr).abs().max())
+    s_err = rel_err(strength, ref_strength)
+    check(corr_err <= MESH_CORR_ATOL, f"{label}: corr differs from the "
+          f"single-device route by {corr_err:.3e}")
+    check(s_err <= MESH_STRENGTH_RTOL, f"{label}: strength rel err "
+          f"{s_err:.3e} against the single-device route")
+    text = f"corr {corr_err:.1e}, strength rel {s_err:.1e}"
+    if marked is not None:
+        px_err = float((marked - ref_marked).abs().max())
+        check(px_err <= MESH_PIXEL_ATOL, f"{label}: pixels differ from the "
+              f"single-device route by {px_err:.3e}")
+        text += f", pixels {px_err:.1e}"
+    return text
+
+
+def check_jax(label: str, corr: np.ndarray, strength, ref: dict) -> str:
+    """Hold correlations (and strengths) of frames 0.. to the JAX CPU
+    numbers (CORR_ATOL, STRENGTH_RTOL)."""
+    n = len(corr)
+    corr_err = float(np.abs(corr - np.asarray(ref["corr"][:n])).max())
+    check(corr_err <= CORR_ATOL, f"{label}: corr {corr} vs JAX "
+          f"{ref['corr'][:n]}")
+    text = f"JAX corr {corr_err:.1e}"
+    if strength is not None:
+        s_err = float(np.abs(strength / np.asarray(ref["strength"][:n])
+                             - 1).max())
+        check(s_err <= STRENGTH_RTOL, f"{label}: strength {strength} vs JAX "
+              f"{ref['strength'][:n]}")
+        text += f", strength rel {s_err:.1e}"
+    return text
+
+
+def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
+    """[6] The sharded routes through their entry points on one card;
+    returns the launches of every run by kernels-line row."""
+    frames_d = torch.from_numpy(frames).cuda()
+    wm_d = torch.from_numpy(
+        generate_watermark(ROWS, COLS, SEED).astype(np.float32)).cuda()
+    bank_d = torch.from_numpy(bank).cuda()
+    sf = strength_factor(PSNR)
+    launches: dict[str, int] = {}
+    hybrid = one_card_mesh(2, 2)
+    print(f"[6] one card: every mesh names cuda:0 for each shard, e.g. "
+          f"{hybrid}; no transfer between devices is measured", flush=True)
+
+    # hybrid embed then detect, data=2 x space=2 (540-row shards)
+    for mask, p in MESH_CASES:
+        label = f"hybrid 2x2 {mask} p={p}"
+
+        def step():
+            marked, strength = make_hybrid_embed(hybrid, mask, sf, p=p)(
+                frames_d, frames_d, wm_d)
+            return marked, strength, make_hybrid_detect(hybrid, mask, p=p)(
+                marked, wm_d)
+        (marked, strength, corr), counts, ms = run_counted(step)
+        check(all(counts[k] > 0 for k in P3_KERNELS),
+              f"{label}: a kernel was never launched: {counts}")
+        add_counts(launches, counts, mask, p)
+        marked, strength, corr = (t.gather() for t in (marked, strength,
+                                                       corr))
+        ref_marked, ref_strength = batch_embed(frames_d, frames_d, wm_d, sf,
+                                               mask, p=p)
+        ref_corr = batch_detect(ref_marked, wm_d, mask, p=p)
+        text = check_route(label, corr, strength, marked,
+                           (ref_corr, ref_strength, ref_marked))
+        text += ", " + check_jax(label, corr.cpu().numpy(),
+                                 strength.cpu().numpy(), jax_numbers(mask, p))
+        print(f"[6] {label}: corr {float(corr.mean()):.6f}, strength "
+              f"{float(strength.mean()):.5f}; vs single device {text}; "
+              f"embed+detect {ms:.2f} ms ({power}); launches "
+              f"{launched(counts)}: ok", flush=True)
+    del marked, ref_marked
+
+    # spatial detect, data=1 x space=4 (270-row shards)
+    spatial = one_card_mesh(1, 4)
+    for p, impl in ((3, "cuda"), (9, "torch")):
+        label = f"spatial 1x4 me p={p} impl={impl}"
+        marked0, _ = batch_embed(frames_d[:1], frames_d[:1], wm_d, sf, "me",
+                                 p=p)
+        ref = batch_detect(marked0, wm_d, "me", p=p)
+        detect = make_spatial_detect(spatial, "me", p=p, impl=impl)
+        corr, counts, ms = run_counted(lambda: detect(marked0[0], wm_d))
+        if impl == "cuda":
+            check(counts["detect_partials"] == 4
+                  and counts["me_gram_lags"] == 4,
+                  f"{label}: launches {counts}")
+        else:
+            check(not any(counts.values()), f"{label}: the plain route "
+                  f"launched kernels: {counts}")
+        add_counts(launches, counts, "me", p)
+        corr = float(corr)
+        err = abs(corr - float(ref[0]))
+        check(err <= MESH_CORR_ATOL, f"{label}: corr {corr} vs single "
+              f"device {float(ref[0])}")
+        text = check_jax(label, np.array([corr]), None, jax_numbers("me", p))
+        print(f"[6] {label}: corr {corr:.6f}, vs single device {err:.1e}, "
+              f"{text}; detect {ms:.2f} ms ({power}); launches "
+              f"{launched(counts)}: ok", flush=True)
+
+    # frame-parallel, data=4, ME p=5: the wide Gram per shard
+    dp = one_card_mesh(4)
+    label = "DP 4 me p=5"
+
+    def dp_step():
+        marked, strength = make_dp_embed(dp, "me", sf, p=5)(
+            frames_d, frames_d, wm_d)
+        return marked, strength, make_dp_detect(dp, "me", p=5)(marked, wm_d)
+    (marked, strength, corr), counts, ms = run_counted(dp_step)
+    check(all(counts[k] > 0 for k in (*WIDE_GRAM_KERNELS, "embed_field",
+                                      "detect_partials")),
+          f"{label}: a kernel was never launched: {counts}")
+    add_counts(launches, counts, "me", 5)
+    marked, strength, corr = (t.gather() for t in (marked, strength, corr))
+    ref_marked, ref_strength = batch_embed(frames_d, frames_d, wm_d, sf,
+                                           "me", p=5)
+    ref_corr = batch_detect(ref_marked, wm_d, "me", p=5)
+    text = check_route(label, corr, strength, marked,
+                       (ref_corr, ref_strength, ref_marked))
+    text += ", " + check_jax(label, corr.cpu().numpy(),
+                             strength.cpu().numpy(), jax_numbers("me", 5))
+    print(f"[6] {label}: corr {float(corr.mean()):.6f}; vs single device "
+          f"{text}; embed+detect {ms:.2f} ms ({power}); launches "
+          f"{launched(counts)}: ok", flush=True)
+    del marked, ref_marked
+
+    # identification: the bank split 16 a shard over data=4 (ME p=5), and
+    # over data=2 x space=2 on the plain route (ME p=3)
+    for mesh, p, impl, make in ((dp, 5, "cuda", make_dp_detect_many),
+                                (hybrid, 3, "torch", make_mesh_detect_many)):
+        label = (f"{make.__name__} {mesh.shape['data']}x"
+                 f"{mesh.shape['space']} me p={p} impl={impl}")
+        marked0, _ = batch_embed(frames_d[:1], frames_d[:1], wm_d, sf, "me",
+                                 p=p)
+        ref = detect_many_pipeline(marked0[0], bank_d, "me", p=p)
+        fn = make(mesh, "me", p=p, impl=impl)
+        scores, counts, ms = run_counted(lambda: fn(marked0[0], bank_d))
+        check(impl == "torch" and not any(counts.values())
+              or counts["detect_many"] == 4,
+              f"{label}: launches {counts}")
+        add_counts(launches, counts, "me", p)
+        scores = scores.gather()
+        check(int(scores.argmax()) == ENGINE_CANDIDATE,
+              f"{label}: argmax {int(scores.argmax())}, not "
+              f"{ENGINE_CANDIDATE}")
+        err = float((scores - ref).abs().max())
+        check(err <= MESH_CORR_ATOL, f"{label}: differs from single-device "
+              f"identification by {err:.3e}")
+        jax_err = float(np.abs(scores.cpu().numpy() - np.asarray(
+            JAX_IDENTIFY_REFERENCE[f"me:{p}"]["marked"])).max())
+        check(jax_err <= MESH_IDENTIFY_ATOL, f"{label}: differs from JAX by "
+              f"{jax_err:.3e}")
+        print(f"[6] {label}: argmax {ENGINE_CANDIDATE} (corr "
+              f"{float(scores[ENGINE_CANDIDATE]):.6f}), vs single device "
+              f"{err:.1e}, JAX {jax_err:.1e}; {ms:.2f} ms ({power}); "
+              f"launches {launched(counts)}: ok", flush=True)
+
+    # the three services over a mesh of data=2 (the detector and embedder
+    # with space=2 as well): answers equal to the mesh functions'
+    engine = BatchedWatermark(ROWS, COLS, SEED, p=3, psnr=PSNR,
+                              device="cuda")
+    requests = frames[:4]
+    services = (
+        ("DetectorService", DetectorService(engine, "me", batch_size=4,
+                                            mesh=hybrid),
+         lambda: make_hybrid_detect(hybrid, "me")(requests, wm_d)),
+        ("EmbedderService", EmbedderService(engine, "me", batch_size=4,
+                                            mesh=hybrid),
+         lambda: make_hybrid_embed(hybrid, "me", sf)(
+             requests, requests, wm_d)),
+        ("IdentifierService", IdentifierService(
+            engine, bank_d, "me", batch_size=4, mesh=one_card_mesh(2)),
+         lambda: make_dp_detect_many(one_card_mesh(2), "me",
+                                     batched=True)(requests, bank_d)))
+    for name, service, direct in services:
+        try:
+            service.warmup(dtypes=(np.float32,))
+
+            def serve():
+                return [f.result(timeout=600)
+                        for f in [service.submit(x) for x in requests]]
+            answers, counts, ms = run_counted(serve)
+        finally:
+            service.close()
+        check(counts["me_gram_lags"] > 0, f"{name}: launches {counts}")
+        add_counts(launches, counts, "me", 3)
+        want = direct()
+        if name == "EmbedderService":
+            got_px = np.stack([a[0] for a in answers])
+            got_s = np.array([a[1] for a in answers], np.float32)
+            same = (np.array_equal(got_px, np.asarray(want[0]))
+                    and np.array_equal(got_s, np.asarray(want[1])))
+        else:
+            same = np.array_equal(np.asarray(answers, np.float32),
+                                  np.asarray(want))
+        check(same, f"{name} over {service.mesh or 'a data=2 mesh'}: "
+              f"answers differ from the mesh function's")
+        print(f"[6] {name} (mesh data=2"
+              f"{', space=2' if name != 'IdentifierService' else ''}): "
+              f"{len(requests)} requests in {ms:.1f} ms ({power}), answers "
+              f"equal to the mesh function's; launches {launched(counts)}: "
+              f"ok", flush=True)
+    print(f"[6] launches of the sharded routes by kernels-line row: "
+          f"{launches}", flush=True)
+    return launches
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what binds it) for moving ``nbytes`` and doing ``flops``
     on an H100 SXM at its data-sheet peaks."""
@@ -1815,10 +2291,15 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
                                                            "operations")
 
 
-def kernel_bound(kernel: str, mask: str, p: int) -> tuple[float, str]:
-    """The bound of one kernel call at 8 x 1080 x 1920: each input read
-    once, each output written once, and the flops the function needs, per
-    pixel (a multiply-add counts 2; the detect tail's ring is not counted):
+def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
+                 halo: int = 0) -> tuple[float, str]:
+    """The bound of one kernel call at 8 x 1080 x 1920 (or, in its halo
+    form, on a shard of 8 x ``rows`` x 1920 extended by ``halo`` rows each
+    side: the extended frames, and the detect tail's extended watermark,
+    read once, the outputs over the owned rows): each input read once,
+    each output written once, and the flops the function needs, per owned
+    pixel (a multiply-add counts 2; the detect tail's ring is not
+    counted):
 
     * the 3x3 Gram: 13 lag products (the TPU kernel's lag form);
     * the wide Gram: one product per canonical lag and lane of each row;
@@ -1832,9 +2313,10 @@ def kernel_bound(kernel: str, mask: str, p: int) -> tuple[float, str]:
       (2k + 5 flops, k taps), and per frame and pixel e_z, the mask and
       e_z^2.
     """
-    pixels = BATCH * ROWS * COLS
-    frame_bytes = 4 * pixels
-    wm_bytes = 4 * ROWS * COLS
+    pixels = BATCH * rows * COLS
+    frame_bytes = 4 * BATCH * (rows + 2 * halo) * COLS   # read
+    out_bytes = 4 * pixels                               # written
+    wm_bytes = 4 * rows * COLS
     k = p * p - 1
     nvf_flops = 4 * (p - 1) + 1 + 6
     if kernel == "me_gram":
@@ -1846,12 +2328,13 @@ def kernel_bound(kernel: str, mask: str, p: int) -> tuple[float, str]:
         return bound(frame_bytes + 4 * lanes, 2 * lanes * ROWS)
     if kernel == "embed_field":
         mask_flops = 2 * k + 1 if mask == "me" else nvf_flops
-        return bound(2 * frame_bytes + wm_bytes + 8 * BATCH,
+        return bound(frame_bytes + out_bytes + wm_bytes + 8 * BATCH,
                      (mask_flops + 4) * pixels)    # u, u^2, max
     if kernel == "prediction_error":
-        return bound(2 * frame_bytes + 4 * BATCH * k, 2 * k * pixels)
+        return bound(frame_bytes + out_bytes + 4 * BATCH * k,
+                     2 * k * pixels)
     if kernel == "nvf_mask":
-        return bound(2 * frame_bytes, nvf_flops * pixels)
+        return bound(frame_bytes + out_bytes, nvf_flops * pixels)
     taps = k if mask == "me" else 8
     mask_flops = 1 if mask == "me" else nvf_flops
     if kernel == "detect_many":
@@ -1860,6 +2343,7 @@ def kernel_bound(kernel: str, mask: str, p: int) -> tuple[float, str]:
                                                                + 1),
                      ((2 * taps + 5) * n + 2 * taps + mask_flops + 2)
                      * pixels)
+    wm_bytes = 4 * (rows + 2 * halo) * COLS
     return bound(frame_bytes + wm_bytes + 12 * BATCH,       # detect tail
                  (4 * taps + mask_flops + 7) * pixels)      # u, three sums
 
@@ -1884,7 +2368,7 @@ def kernel_row(name: str, kernel: str, mask: str, p: int, launches: int,
 
 
 def main() -> int:
-    kind = phase_card_and_build()
+    kind, power = phase_card_and_build()
     frames = make_frames()
     check(abs(float(frames.astype(np.float64).sum())
               - JAX_REFERENCE["frames_sum"]) < 1e-3,
@@ -1907,10 +2391,20 @@ def main() -> int:
     for p in WIDE_P:
         times.update(phase_wide_timing(frames_d, wm_d, p))
     times.update(phase_identify_timing(frames_d, bank_d))
-    # phase 5 times its runs too, so it runs before the profiler's timings
+    # phases 5 and 6 time their runs too, so they run before the
+    # profiler's timings
     phase_cli()
     phase_video()
+    halo_times = phase_halo_kernels(frames_d, wm_d)
+    mesh_launches = phase_mesh(frames, bank, power)
     split = device_split(frames_d, wm_d)
+    halo_split = halo_device_split(frames_d, wm_d)
+    for (name, shard_rows), ms in sorted(halo_split.items()):
+        print(f"[6] {name} halo form, {shard_rows}-row interior shard of "
+              f"8x{COLS} (device time a call, torch.profiler): {ms:.4f} ms "
+              f"(CUDA events with the wrapper "
+              f"{halo_times[(name, shard_rows)][0]:.4f} ms; {power})",
+              flush=True)
     print(f"[4] 3x3 Gram split (device time a call, torch.profiler): lag "
           f"kernel {split['me_gram_lags']:.4f} ms, assembly kernel "
           f"{split['me_gram_assemble']:.4f} ms, together "
@@ -1980,6 +2474,18 @@ def main() -> int:
             name = f"{kernel}_p{p}"
             rows.append(kernel_row(name, kernel, "me", p, launched,
                                    errors[name], times[name]))
+    # the sharded routes' launches (phase 6) and the halo forms' times
+    for row in rows:
+        row["launches"] += mesh_launches.pop(row["name"], 0)
+        halo = {str(shard_rows): dict(
+            zip(("ms", "plain_ms", "bound_ms", "bound_by"), timing),
+            device_ms=halo_split[(name, shard_rows)])
+            for (name, shard_rows), timing in halo_times.items()
+            if name == row["name"]}
+        if halo:
+            row["halo_form"] = halo
+    check(not mesh_launches, f"phase 6 launches without a row: "
+          f"{mesh_launches}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -429,3 +429,150 @@ def test_embed_video_on_card_matches_synchronous_embed(device, tmp_path,
     np.testing.assert_array_equal(
         np.delete(marked, np.s_[::interval], axis=0),
         np.delete(original, np.s_[::interval], axis=0))
+
+
+def extended(frames: torch.Tensor, start: int, stop: int, halo: int):
+    """Rows [start - halo, stop + halo) of the edge-replicated frames: a
+    shard as ``parallel.exchange_row_halo`` extends it."""
+    rows = torch.nn.functional.pad(
+        frames.reshape(-1, 1, *frames.shape[-2:]), (0, 0, halo, halo),
+        mode="replicate").reshape(*frames.shape[:-2], -1, frames.shape[-1])
+    return rows[..., start:stop + 2 * halo, :].contiguous()
+
+
+# A frame cut into shards of `rows` rows: the top shard, one in the
+# interior and the bottom one; (3, 40, 96) in 4 of 10 rows (a shard shorter
+# than a tile and than a Gram strip), (2, 150, 90) in 2 of 75 rows (two
+# tiles, rows no multiple of 4 floats), (1, 270 * 3, 520) in 3 of 270 (the
+# main path's shard height, a second column block of the Gram)
+HALO_SHAPES = {(3, 40, 96): 10, (2, 150, 90): 75, (1, 810, 520): 270}
+
+
+@pytest.mark.parametrize("shape", list(HALO_SHAPES))
+@pytest.mark.parametrize("mask_type,p", [("me", 3), ("me", 5), ("me", 9),
+                                         ("nvf", 3), ("nvf", 5), ("nvf", 9)])
+def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
+    """The halo forms of the 3x3 Gram's two kernels, the embed field and
+    the detect tail against their plain halo forms on the same extended
+    shards, at each shard position (the frame's top, the interior and its
+    bottom, with the halo each kernel reads; the Gram at the detect tail's
+    halo and at the embed field's, as the routes give it); the shards'
+    Grams summed against the frame's at each halo; the embed field's u_raw
+    bit-identical."""
+    frames, wm, coeffs = make_inputs(shape, device)
+    if mask_type == "me" and p != 3:
+        coeffs = torch.zeros(shape[0], p * p - 1, device=device)
+        coeffs[:, (p * p - 1) // 2] = 0.5
+    rows = HALO_SHAPES[shape]
+    total = shape[1]
+    reach = kernels.stencil_reach(mask_type, p)
+    half = max(1, p // 2)
+    grams = {halo: [] for halo in {half, reach}}
+    for start in range(0, total, rows):
+        stop = start + rows
+        ext = extended(frames, start, stop, reach)
+        w_ext = extended(wm, start, stop, reach)
+        for halo, parts in grams.items():
+            g_ext = extended(frames, start, stop, halo)
+            where = (g_ext, halo, halo, start, total)
+            plain_sums = kernels.gram_lags_plain(g_ext, halo, halo)
+            torch.testing.assert_close(kernels.me_gram_lags(*where),
+                                       plain_sums, rtol=1e-4, atol=1e-2)
+            torch.testing.assert_close(
+                kernels.me_gram_assemble(plain_sums, *where),
+                kernels.assemble_lags_plain(plain_sums, g_ext, halo, halo),
+                rtol=1e-4, atol=0)
+            gram = kernels.me_gram(*where)
+            torch.testing.assert_close(
+                gram, kernels.me_gram_plain(g_ext, halo, halo), rtol=1e-4,
+                atol=0)
+            parts.append(gram)
+        e_ext = extended(frames, start, stop, half)
+        got = kernels.embed_field(e_ext, wm[start:stop],
+                                  coeffs if mask_type == "me" else None,
+                                  mask_type, p, half, half)
+        want = kernels.embed_field_plain(e_ext, wm[start:stop], coeffs,
+                                         mask_type, p, half, half)
+        assert torch.equal(got[0], want[0]), float(
+            (got[0] - want[0]).abs().max())
+        assert torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+        got = kernels.detect_partials(ext, w_ext, coeffs if mask_type == "me"
+                                      else coeffs[:, :8], mask_type, p,
+                                      reach, reach, start, total)
+        want = kernels.detect_partials_plain(
+            ext, w_ext, coeffs if mask_type == "me" else coeffs[:, :8],
+            mask_type, p, reach, reach, start, total)
+        scale = torch.sqrt(want[1] * want[2])
+        torch.testing.assert_close(got[0] / scale, want[0] / scale,
+                                   rtol=1e-4, atol=1e-6)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    frame_gram = kernels.me_gram(frames)
+    for parts in grams.values():
+        torch.testing.assert_close(sum(parts), frame_gram, rtol=1e-4, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mask_type,p", [("me", 3), ("nvf", 3), ("nvf", 5)])
+def test_hybrid_matches_single_device_on_card(device, mask_type, p):
+    """Hybrid embed then detect on a data=2 x space=2 mesh of one card,
+    through the halo-form kernels, against the single-device kernel route:
+    correlations within 1e-4, strengths 1e-4 relative, pixels 1e-2."""
+    from watermarking_gpu_tpu_torch.parallel import (make_hybrid_detect,
+                                                     make_hybrid_embed,
+                                                     make_mesh)
+    frames, wm, _ = make_inputs((4, 120, 200), device)
+    mesh = make_mesh(2, 2, devices=[device] * 4)
+    before = kernels.launch_counts()
+    marked, strength = make_hybrid_embed(mesh, mask_type, 2.55, p=p)(
+        frames, frames, wm)
+    corr = make_hybrid_detect(mesh, mask_type, p=p)(marked.gather(), wm)
+    after = kernels.launch_counts()
+    want_marked, want_s = pipelines.embed_pipeline(frames, frames, wm, 2.55,
+                                                   mask_type, p=p)
+    want_corr = pipelines.detect_pipeline(want_marked, wm, mask_type, p=p)
+    torch.testing.assert_close(marked.gather(), want_marked, atol=1e-2,
+                               rtol=0)
+    torch.testing.assert_close(strength.gather(), want_s, rtol=1e-4, atol=0)
+    torch.testing.assert_close(corr.gather(), want_corr, atol=1e-4, rtol=0)
+    # per data row, one launch a space shard: the embed field and the
+    # detect tail, and the 3x3 Gram's two kernels (twice for ME)
+    assert after["embed_field"] - before["embed_field"] == 4
+    assert after["detect_partials"] - before["detect_partials"] == 4
+    grams = 8 if mask_type == "me" else 4
+    assert after["me_gram_lags"] - before["me_gram_lags"] == grams
+    assert after["me_gram_assemble"] - before["me_gram_assemble"] == grams
+
+
+def test_mesh_across_cards_matches_one_card(device):
+    """Where the machine has four cards: the hybrid (2 x 2), spatial (1 x
+    4) and DP (4) routes over four distinct cards, whose halo rows and
+    reductions are copies between devices, give the bits of the same mesh
+    on one card. Skips on fewer cards."""
+    from watermarking_gpu_tpu_torch.parallel import (make_dp_detect,
+                                                     make_hybrid_detect,
+                                                     make_hybrid_embed,
+                                                     make_mesh,
+                                                     make_spatial_detect)
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    frames, wm, _ = make_inputs((4, 240, 320), device)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    one = [device] * 4
+    results = []
+    for devices in (cards, one):
+        hybrid = make_mesh(2, 2, devices=devices)
+        marked, strength = make_hybrid_embed(hybrid, "me", 2.55)(
+            frames, frames, wm)
+        corr = make_hybrid_detect(hybrid, "nvf", p=5)(marked, wm)
+        spatial = make_spatial_detect(make_mesh(1, 4, devices=devices),
+                                      "me")(marked.gather()[0], wm)
+        dp = make_dp_detect(make_mesh(4, devices=devices), "me", p=5)(
+            marked.gather(), wm)
+        assert {str(d) for row in hybrid.devices for d in row} == \
+            {str(d) for d in devices}
+        results.append([t.gather("cpu") for t in (marked, strength, corr,
+                                                   spatial, dp)])
+    for got, want in zip(*results):
+        assert torch.equal(got, want)

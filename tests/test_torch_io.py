@@ -144,15 +144,19 @@ def test_png_write(tmp_path, channels):
 
 
 def test_unsupported_png_raises(tmp_path):
-    """16-bit, palette and interlaced PNGs, a bad CRC and a file that is
-    not a PNG raise ValueError naming what they are."""
+    """16-bit and sub-byte gray PNGs, a palette PNG without its PLTE, an
+    unknown interlace method, a bad CRC and a file that is not a PNG raise
+    ValueError naming what they are."""
     gray = make_image(1, shape=(4, 6))
     cases = {
         "16-bit": build_png(6, 4, 0, filter_rows(
             np.repeat(gray, 2, axis=1), [0] * 4), depth=16),
-        "palette": build_png(6, 4, 3, filter_rows(gray, [0] * 4)),
-        "interlaced": build_png(6, 4, 0, filter_rows(gray, [0] * 4),
-                                interlace=1),
+        "2-bit gray": build_png(6, 4, 0, filter_rows(gray[:, :2], [0] * 4),
+                                depth=2),
+        "without a valid PLTE": build_png(6, 4, 3,
+                                          filter_rows(gray, [0] * 4)),
+        "interlace method 2": build_png(6, 4, 0, filter_rows(gray, [0] * 4),
+                                        interlace=2),
         "CRC mismatch": build_png(6, 4, 0, filter_rows(gray, [0] * 4))
         .replace(b"IEND\xaeB`\x82", b"IEND\xaeB`\x83"),
         "not a PNG": b"GIF89a" + bytes(40),
@@ -162,6 +166,106 @@ def test_unsupported_png_raises(tmp_path):
         path.write_bytes(data)
         with pytest.raises(ValueError, match=what):
             read_png(path)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def pack_rows(indices: np.ndarray, depth: int) -> np.ndarray:
+    """(H, W) samples of ``depth`` bits -> (H, stride) packed bytes, most
+    significant bits first (the PNG layout below 8 bits)."""
+    if depth == 8:
+        return indices
+    shifts = np.arange(depth - 1, -1, -1)
+    bits = (indices[..., None] >> shifts) & 1
+    return np.packbits(bits.reshape(indices.shape[0], -1).astype(np.uint8),
+                       axis=1)
+
+
+def adam7_idat(image: np.ndarray, depth: int = 8) -> bytes:
+    """The seven Adam7 passes of ``image``, each filtered on its own with
+    the five filters in turn (empty passes hold no bytes)."""
+    out = b""
+    for i, (x0, y0, dx, dy) in enumerate(ADAM7):
+        sub = image[y0::dy, x0::dx]
+        if sub.shape[0] == 0 or sub.shape[1] == 0:
+            continue
+        out += filter_rows(pack_rows(sub, depth),
+                           [(y + i) % 5 for y in range(sub.shape[0])])
+    return out
+
+
+def palette_png(tmp_path, depth: int, interlace: bool, shape=(23, 37),
+                seed=31):
+    """A palette PNG of ``depth`` bits that Pillow writes (Adam7: built
+    here, since Pillow writes no interlaced PNGs) with a 200-entry palette,
+    so 8-bit indices past it occur, and a tRNS chunk, which the readers
+    ignore. Returns (path, the RGB image it holds)."""
+    Image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(seed)
+    indices = rng.integers(0, 1 << depth, shape).astype(np.uint8)
+    palette = rng.integers(0, 256, 3 * 200).astype(np.uint8)
+    path = tmp_path / f"p{depth}{'i' if interlace else ''}.png"
+    if interlace:
+        data = build_png(shape[1], shape[0], 3, adam7_idat(indices, depth),
+                         depth=depth, interlace=1)
+        iend = data.index(b"IEND") - 4
+        path.write_bytes(data[:33] + chunk(b"PLTE", palette.tobytes())
+                         + chunk(b"tRNS", bytes([0, 128])) + data[33:iend]
+                         + data[iend:])
+    else:
+        image = Image.fromarray(indices, "P")
+        image.putpalette(palette.tolist())
+        image.save(path, bits=depth, transparency=1)
+    full = np.zeros((256, 3), np.uint8)
+    full[:200] = palette.reshape(-1, 3)
+    return path, full[indices]
+
+
+def assert_reads_as_jax(path, want: np.ndarray) -> None:
+    """The port's read of ``path`` byte-equal to ``want`` and to Pillow's
+    decode (palette PNGs: Pillow's RGB conversion), and its loaders equal
+    to the JAX package's (f32)."""
+    Image = pytest.importorskip("PIL.Image")
+    with Image.open(path) as image:
+        pillow = np.asarray(image.convert("RGB") if image.mode == "P"
+                            else image)
+    got = read_png(path)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pillow)
+    np.testing.assert_array_equal(port_io.load_image_rgb(path),
+                                  jax_io.load_image_rgb(path))
+    np.testing.assert_array_equal(port_io.load_image_gray(path),
+                                  jax_io.load_image_gray(path))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_palette_png_matches_jax(tmp_path, depth):
+    """Palette PNGs (mode P) at 8 bits and below decode through PLTE as
+    the JAX loader (Pillow's convert("RGB")) decodes them, tRNS ignored."""
+    path, want = palette_png(tmp_path, depth, interlace=False)
+    assert want.shape == (23, 37, 3)
+    assert_reads_as_jax(path, want)
+
+
+@pytest.mark.parametrize("case", ["rgb", "gray", "rgba", "palette4",
+                                  "rgb_tiny"])
+def test_interlaced_png_matches_jax(tmp_path, case):
+    """Adam7 PNGs decode pass by pass to the source array, as the JAX
+    loader decodes them; the 3 x 2 image has empty passes."""
+    if case == "palette4":
+        assert_reads_as_jax(*palette_png(tmp_path, 4, interlace=True))
+        return
+    channels = {"rgb": 3, "gray": 1, "rgba": 4, "rgb_tiny": 3}[case]
+    shape = (3, 2) if case == "rgb_tiny" else (23, 37)
+    image = make_image(channels, shape=shape, seed=40 + channels)
+    color = {1: 0, 3: 2, 4: 6}[channels]
+    path = tmp_path / "adam7.png"
+    path.write_bytes(build_png(shape[1], shape[0], color, adam7_idat(image),
+                               interlace=1, pieces=2))
+    assert_reads_as_jax(path, image)
 
 
 @pytest.mark.parametrize("channels", [1, 2, 3, 4])

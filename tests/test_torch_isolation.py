@@ -31,6 +31,7 @@ def test_import_loads_no_jax():
             "import watermarking_gpu_tpu_torch.ops.cuda, "
             "watermarking_gpu_tpu_torch.utils, "
             "watermarking_gpu_tpu_torch.serving, "
+            "watermarking_gpu_tpu_torch.parallel, "
             "watermarking_gpu_tpu_torch.cli.main, "
             "watermarking_gpu_tpu_torch.io, "
             "watermarking_gpu_tpu_torch.video, "

@@ -18,14 +18,18 @@ in reverse), so that builds compare within one call on one card: CUDA
 events around 20 calls after 3, and the kernel's device time a call from
 a ``torch.profiler`` session over 20 calls, in the same turns, with the
 launch's registers, shared memory and blocks per SM from its trace. Prints
-ptxas' registers, shared memory and spills per instantiation. Needs a GPU
-and nvcc; imports nothing of JAX.
+ptxas' registers, shared memory and spills per instantiation. A source
+whose ``wm_detect_partials`` predates the halo form (no ``top``,
+``bottom``, ``row_start`` and ``total_rows`` arguments) is called without
+them; the others with no halo, the whole frame. Needs a GPU and nvcc;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -48,13 +52,14 @@ KERNEL = "detect_tail_kernel"
 
 def build_variants(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
     nvcc = build.find_nvcc()
-    processes = {}
+    processes, texts = {}, {}
     for name, spec in specs.items():
         source = str(build.CSRC_DIR / "fused.cu")
         if "@" in spec:
             source, spec = spec.split("@", 1)
         command = [nvcc, *build.NVCC_FLAGS, "-shared", *spec.split(), "-o",
                    str(out / f"{name}.so"), source]
+        texts[name] = Path(source).read_text()
         processes[name] = subprocess.Popen(command, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True)
@@ -71,9 +76,12 @@ def build_variants(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
                 template = line.split(KERNEL)[1][:16]
                 print(f"{name} {template}: {' / '.join(report)}", flush=True)
         library = ctypes.CDLL(str(out / f"{name}.so"))
-        library.wm_detect_partials.argtypes = (*[ctypes.c_void_p] * 4,
-                                               *[ctypes.c_int] * 5,
-                                               ctypes.c_void_p)
+        library.halo_form = bool(re.search(
+            r"int wm_detect_partials\([^)]*\btotal_rows\b", texts[name]))
+        library.wm_detect_partials.argtypes = (
+            *[ctypes.c_void_p] * 4,
+            *[ctypes.c_int] * (9 if library.halo_form else 5),
+            ctypes.c_void_p)
         library.wm_detect_partials_num_blocks.argtypes = (ctypes.c_int,
                                                           ctypes.c_int)
         libraries[name] = library
@@ -134,6 +142,7 @@ def main() -> int:
                 frames.data_ptr(), wm.data_ptr(), c.data_ptr(),
                 out.data_ptr(), batch, rows, cols,
                 MASK_CODES[mask], p,
+                *((0, 0, 0, rows) if library.halo_form else ()),
                 torch.cuda.current_stream().cuda_stream)
             if code:
                 raise RuntimeError(f"wm_detect_partials: CUDA error {code}")

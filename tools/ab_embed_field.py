@@ -19,7 +19,10 @@ within one call on one card: CUDA events around 20 calls after 3, and the
 kernel's device time a call from a ``torch.profiler`` session over 20
 calls, in the same turns, with the launch's registers, shared memory and
 blocks per SM from its trace. Prints ptxas' registers, shared memory and
-spills per instantiation. Needs a GPU and nvcc; imports nothing of JAX.
+spills per instantiation. A source whose ``wm_embed_field`` predates the
+halo form (no ``top`` and ``bottom`` arguments) is called without them;
+the others with no halo, the whole frame. Needs a GPU and nvcc; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -71,13 +74,14 @@ def build_variants(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
     ``nvcc`` processes started together, and print ptxas' registers, shared
     memory and spills of each embed field instantiation."""
     nvcc = build.find_nvcc()
-    processes = {}
+    processes, texts = {}, {}
     for name, spec in specs.items():
         source = str(build.CSRC_DIR / "fused.cu")
         if "@" in spec:
             source, spec = spec.split("@", 1)
         command = [nvcc, *build.NVCC_FLAGS, "-shared", *spec.split(), "-o",
                    str(out / f"{name}.so"), source]
+        texts[name] = Path(source).read_text()
         processes[name] = subprocess.Popen(command, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True)
@@ -96,6 +100,12 @@ def build_variants(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
         library = ctypes.CDLL(str(out / f"{name}.so"))
         for entry in ENTRIES:
             getattr(library, entry).argtypes = build.SIGNATURES[entry]
+        library.halo_form = bool(re.search(
+            r"int wm_embed_field\([^)]*\bbottom\b", texts[name]))
+        if not library.halo_form:   # (..., mask_type, p, stream)
+            signature = build.SIGNATURES["wm_embed_field"]
+            library.wm_embed_field.argtypes = (*signature[:-3],
+                                               signature[-1])
         libraries[name] = library
     return libraries
 
@@ -155,6 +165,7 @@ def main() -> int:
                 frames.data_ptr(), wm.data_ptr(),
                 None if c is None else c.data_ptr(), u.data_ptr(),
                 out.data_ptr(), batch, rows, cols, MASK_CODES[mask], p,
+                *((0, 0) if library.halo_form else ()),
                 torch.cuda.current_stream().cuda_stream)
             if code:
                 raise RuntimeError(f"wm_embed_field: CUDA error {code}")

@@ -71,6 +71,21 @@
 // so u_raw, e_z and the mask are bit-identical to the plain version's and
 // to detect_many.cu's. e_u and the sums use fused multiply-adds, in
 // detect_many.cu's order.
+//
+// Halo form (a row shard of a frame; the JAX package's *_padded kernels
+// with the exchanged rows spliced into their padding, and the detect
+// tail's row_start / total_rows): the frame (and the detect tail's W) holds
+// top rows above the rows owned and bottom rows below them, true neighbour
+// rows at a seam and replicated edge rows at the frame's border. The
+// kernels take its rows, img_rows = top + rows + bottom, count the owned
+// rows from its row top, clamp row indices to [0, img_rows - 1] of it,
+// and write the owned rows only. The detect tail sets the ring rows
+// outside the shard to u's edge rows only where the shard's edge is the
+// frame's (row_start == 0 at the top, row_start + rows == total_rows at
+// the bottom); at a seam they keep u of the true rows, which takes
+// detect_halo rows of halo there.
+// Columns clamp as before. top = bottom = row_start = 0 and total_rows =
+// rows is the frame itself.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -391,14 +406,17 @@ __device__ __forceinline__ void store_u(const float (&mask)[kR],
   }
 }
 
-// Partials (batch, tiles, kEmbedSlots).
+// Partials (batch, tiles, kEmbedSlots). A frame of img holds img_rows rows,
+// its owned rows from row top (the halo form); wmark and u_raw hold the
+// owned rows.
 template <int kMask, int kHalf>
 __global__ void __launch_bounds__(kThreads, Embed<kMask, kHalf>::kMinBlocks)
     embed_field_kernel(const float* __restrict__ img,
                        const float* __restrict__ wmark,
                        const float* __restrict__ coeffs,
                        float* __restrict__ u_raw,
-                       float* __restrict__ partials, int rows, int cols) {
+                       float* __restrict__ partials, int rows, int cols,
+                       int top, int img_rows) {
   using G = Embed<kMask, kHalf>;
   constexpr int kIS = G::kIS;
   constexpr int kItems = kTileH * kTG / kThreads;  // rows of kR a thread
@@ -414,8 +432,8 @@ __global__ void __launch_bounds__(kThreads, Embed<kMask, kHalf>::kMinBlocks)
   if constexpr (!G::kNVF)
     stage_coeff_rows<kHalf, G::kCW>(s_cg, coeffs, b, tid);
   stage_async<G::kIH, (G::kIW + 3) / 4, kIS>(
-      s_embed, img + b * plane, y0 - kHalf, x0 - kHalf - G::kOff, rows, cols,
-      tid);
+      s_embed, img + static_cast<size_t>(b) * img_rows * cols,
+      y0 + top - kHalf, x0 - kHalf - G::kOff, img_rows, cols, tid);
   __pipeline_commit();
   // W of the thread's outputs, loaded while the frame is copied (at each
   // output instead, the loads waited in turn: 15% slower at ME p=3)
@@ -514,7 +532,9 @@ struct Tail {
 };
 
 // kPH: the predictor's half-width; kNH: the NVF window's (NVF only).
-// Partials (batch, tiles, kDetectSlots).
+// Partials (batch, tiles, kDetectSlots). A frame of img and wmark hold
+// img_rows rows, the owned ones from row halo_top (the halo form);
+// clamp_top / clamp_bottom: the shard's top / bottom edge is the frame's.
 // Blocks an SM: three at PH = 2, whose registers then fit 72 without a
 // spill (11% faster at ME p=5); at PH >= 3 they would spill, and at PH = 1
 // the kernel takes at most 64 registers, which lets four blocks in anyway.
@@ -523,7 +543,9 @@ __global__ void __launch_bounds__(kThreads, kPH == 2 ? 3 : 2)
     detect_tail_kernel(const float* __restrict__ img,
                        const float* __restrict__ wmark,
                        const float* __restrict__ coeffs,
-                       float* __restrict__ partials, int rows, int cols) {
+                       float* __restrict__ partials, int rows, int cols,
+                       int halo_top, int img_rows, bool clamp_top,
+                       bool clamp_bottom) {
   using G = Tail<kMask, kPH, kNH>;
   constexpr int kP = G::kP;
   constexpr int kWin = kR + 2 * kPH;  // a window row: kR outputs and ring
@@ -546,12 +568,12 @@ __global__ void __launch_bounds__(kThreads, kPH == 2 ? 3 : 2)
   const int tid = threadIdx.x;
   stage_coeff_rows<kPH, G::kCW>(s_cg, coeffs, b, tid);
   stage_async<G::kIH, (G::kIW + 3) / 4, kIS>(
-      s_img, img + static_cast<size_t>(b) * rows * cols, y0 - G::kS,
-      x0 - G::kS - G::kOff, rows, cols, tid);
+      s_img, img + static_cast<size_t>(b) * img_rows * cols,
+      y0 + halo_top - G::kS, x0 - G::kS - G::kOff, img_rows, cols, tid);
   if constexpr (G::kWAsync)
     stage_async<kRH, (G::kUOff + kRW + 3) / 4, kUS>(
-        s_tail + G::kUAt, wmark, y0 - kPH, x0 - kPH - G::kUOff, rows, cols,
-        tid);
+        s_tail + G::kUAt, wmark, y0 + halo_top - kPH, x0 - kPH - G::kUOff,
+        img_rows, cols, tid);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -561,7 +583,8 @@ __global__ void __launch_bounds__(kThreads, kPH == 2 ? 3 : 2)
   const auto w_at = [&](int r, int q) {
     if constexpr (G::kWAsync) return s_u[r * kUS + q];
     return __ldg(wmark +
-                 static_cast<size_t>(wm::clampi(y0 - kPH + r, 0, rows - 1)) *
+                 static_cast<size_t>(
+                     wm::clampi(y0 + halo_top - kPH + r, 0, img_rows - 1)) *
                      cols +
                  wm::clampi(x0 - kPH + q, 0, cols - 1));
   };
@@ -617,9 +640,11 @@ __global__ void __launch_bounds__(kThreads, kPH == 2 ? 3 : 2)
 
   // ---- the ring outside the frame: u at the clamped coordinates, rows
   // first (whole region rows), then columns (every row); the sources lie
-  // inside the frame and are never written here
-  const int top = max(0, kPH - y0);                 // region rows [0, top)
-  const int bottom = min(kRH, rows - y0 + kPH);     // and [bottom, kRH)
+  // inside the frame and are never written here. Rows only at the frame's
+  // own edges: past a seam the ring is u of the true rows, computed above
+  const int top = clamp_top ? max(0, kPH - y0) : 0;   // region rows [0, top)
+  const int bottom =                                  // and [bottom, kRH)
+      clamp_bottom ? min(kRH, rows - y0 + kPH) : kRH;
   const int left = max(0, kPH - x0);                // columns [0, left)
   const int right = min(kRW, cols - x0 + kPH);      // and [right, kRW)
   if (top > 0 || bottom < kRH) {  // the same in every thread of the block
@@ -698,20 +723,21 @@ __global__ void __launch_bounds__(kThreads, kPH == 2 ? 3 : 2)
 template <int kMask, int kHalf>
 int launch_embed(const float* img, const float* wmark, const float* coeffs,
                  float* u_raw, float* partials, int batch, int rows, int cols,
-                 cudaStream_t s) {
+                 int top, int img_rows, cudaStream_t s) {
   constexpr int bytes = Embed<kMask, kHalf>::kFloats * sizeof(float);
   cudaFuncSetAttribute(embed_field_kernel<kMask, kHalf>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   const dim3 grid(wm::ceil_div(cols, kTileW), wm::ceil_div(rows, kTileH),
                   batch);
   embed_field_kernel<kMask, kHalf><<<grid, kThreads, bytes, s>>>(
-      img, wmark, coeffs, u_raw, partials, rows, cols);
+      img, wmark, coeffs, u_raw, partials, rows, cols, top, img_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kMask, int kPH, int kNH>
 int launch_detect(const float* img, const float* wmark, const float* coeffs,
-                  float* partials, int batch, int rows, int cols,
+                  float* partials, int batch, int rows, int cols, int top,
+                  int img_rows, bool clamp_top, bool clamp_bottom,
                   cudaStream_t s) {
   constexpr int bytes = Tail<kMask, kPH, kNH>::kFloats * sizeof(float);
   cudaFuncSetAttribute(detect_tail_kernel<kMask, kPH, kNH>,
@@ -719,7 +745,8 @@ int launch_detect(const float* img, const float* wmark, const float* coeffs,
   const dim3 grid(wm::ceil_div(cols, kTileW), wm::ceil_div(rows, kTileH),
                   batch);
   detect_tail_kernel<kMask, kPH, kNH><<<grid, kThreads, bytes, s>>>(
-      img, wmark, coeffs, partials, rows, cols);
+      img, wmark, coeffs, partials, rows, cols, top, img_rows, clamp_top,
+      clamp_bottom);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -730,21 +757,25 @@ extern "C" int wm_embed_field_num_blocks(int rows, int cols, int mask_type,
   return wm::ceil_div(cols, kTileW) * wm::ceil_div(rows, kTileH);
 }
 
-// img, wmark (batch, rows, cols) / (rows, cols) f32; coeffs (batch, p*p-1)
-// f32 (ME only, may be null for NVF) -> u_raw (batch, rows, cols) and
-// partials (batch, wm_embed_field_num_blocks(rows, cols, mask_type, p), 2)
-// f32.
+// img, wmark (batch, top + rows + bottom, cols) / (rows, cols) f32; coeffs
+// (batch, p*p-1) f32 (ME only, may be null for NVF) -> u_raw (batch, rows,
+// cols) and partials (batch, wm_embed_field_num_blocks(rows, cols,
+// mask_type, p), 2) f32.
 extern "C" int wm_embed_field(const float* img, const float* wmark,
                               const float* coeffs, float* u_raw,
                               float* partials, int batch, int rows, int cols,
-                              int mask_type, int p, void* stream) {
-  if (batch < 1 || rows < 1 || cols < 1) return cudaErrorInvalidValue;
+                              int mask_type, int p, int top, int bottom,
+                              void* stream) {
+  if (batch < 1 || rows < 1 || cols < 1 || top < 0 || bottom < 0)
+    return cudaErrorInvalidValue;
+  if (batch > 65535 || wm::ceil_div(rows, kTileH) > 65535)
+    return cudaErrorInvalidValue;  // gridDim.z, gridDim.y
   if (mask_type == wm::kMaskME && coeffs == nullptr)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define WM_EMBED(mask, half)                                                 \
   launch_embed<mask, half>(img, wmark, coeffs, u_raw, partials, batch, rows, \
-                           cols, s)
+                           cols, top, top + rows + bottom, s)
   if (mask_type == wm::kMaskME) {
     switch (p) {
       case 3: return WM_EMBED(wm::kMaskME, 1);
@@ -768,21 +799,29 @@ extern "C" int wm_detect_partials_num_blocks(int rows, int cols) {
   return wm::ceil_div(cols, kTileW) * wm::ceil_div(rows, kTileH);
 }
 
-// img (batch, rows, cols), wmark (rows, cols) f32; coeffs (batch, k) f32 with
-// k = p*p-1 for ME and 8 for NVF -> partials (batch,
-// wm_detect_partials_num_blocks(rows, cols), 3) f32.
+// img (batch, top + rows + bottom, cols), wmark (top + rows + bottom, cols)
+// f32; coeffs (batch, k) f32 with k = p*p-1 for ME and 8 for NVF; the
+// owned rows are rows [row_start, row_start + rows) of a frame of
+// total_rows -> partials (batch, wm_detect_partials_num_blocks(rows,
+// cols), 3) f32.
 extern "C" int wm_detect_partials(const float* img, const float* wmark,
                                   const float* coeffs, float* partials,
                                   int batch, int rows, int cols,
-                                  int mask_type, int p, void* stream) {
-  if (batch < 1 || rows < 1 || cols < 1 || coeffs == nullptr)
+                                  int mask_type, int p, int top, int bottom,
+                                  int row_start, int total_rows,
+                                  void* stream) {
+  if (batch < 1 || rows < 1 || cols < 1 || coeffs == nullptr || top < 0 ||
+      bottom < 0 || row_start < 0 || total_rows < row_start + rows)
     return cudaErrorInvalidValue;
+  const bool clamp_top = row_start == 0;
+  const bool clamp_bottom = row_start + rows == total_rows;
   if (batch > 65535 || wm::ceil_div(rows, kTileH) > 65535)
     return cudaErrorInvalidValue;  // gridDim.z, gridDim.y
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define WM_DETECT(mask, ph, nh)                                            \
   launch_detect<mask, ph, nh>(img, wmark, coeffs, partials, batch, rows,  \
-                              cols, s)
+                              cols, top, top + rows + bottom, clamp_top,     \
+                              clamp_bottom, s)
   if (mask_type == wm::kMaskME) {
     switch (p) {
       case 3: return WM_DETECT(wm::kMaskME, 1, 0);

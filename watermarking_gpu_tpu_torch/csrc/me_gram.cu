@@ -51,6 +51,16 @@
 // blocks start while the lag kernel's last wave runs, compute the boundary
 // terms, and wait (griddepcontrol.wait) only before they read the sums;
 // one warp then finishes. No float atomics: two calls give the same bits.
+//
+// Halo form (a row shard of a frame; the JAX package's me_gram_padded with
+// the exchanged rows spliced into its padding): the image holds top rows
+// above the rows owned and bottom rows below them, true neighbour rows at
+// a seam and replicated edge rows at the frame's border. Both kernels
+// address a frame from its first owned row and clamp row indices to
+// [-top, rows + bottom - 1] instead of [0, rows - 1]: that is all. The
+// sums then cover the owned rows' centres, the corrections read the rows
+// just past them, and the shards' Grams add up to the frame's. top =
+// bottom = 0 is the frame itself.
 #include <cuda_pipeline.h>
 
 #include <cstdint>
@@ -144,13 +154,15 @@ struct Lags {
 // Grid (column blocks, strips, batch). sums is (batch, 13, strips, column
 // blocks); lag_index maps (dc + 2) * 3 + dr to the lag's index in the
 // caller's order. Thread t owns columns x0 + 4 t .. + 3 of the block's
-// columns x0 ..; the block walks image rows y0 .. y_end + 1 (clamped), the
-// last two only as the bottom rows of the lags with dr > 0, through a ring
-// of kBuffers chunks of kChunk tile rows in shared memory, copied
-// kBuffers - 1 chunks ahead of the one it reads.
+// columns x0 ..; the block walks image rows y0 .. y_end + 1 (clamped to
+// rows + bottom - 1), the last two only as the bottom rows of the lags
+// with dr > 0, through a ring of kBuffers chunks of kChunk tile rows in
+// shared memory, copied kBuffers - 1 chunks ahead of the one it reads.
+// A frame holds top + rows + bottom rows, its owned row 0 at row top.
 __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
     const float* __restrict__ img, const int* __restrict__ lag_index,
-    float* __restrict__ sums, int rows, int cols, int strip, bool vec) {
+    float* __restrict__ sums, int rows, int cols, int strip, bool vec,
+    int top, int bottom) {
   __shared__ __align__(16) float tile[kBuffers][kChunk][kTileW];
   __shared__ float per_warp[kWarps][kLags];
   const int b = blockIdx.z;
@@ -163,7 +175,8 @@ __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
   const int y_end = min(y0 + strip, rows);   // base rows [y0, y_end)
   const int n_rows = y_end + 2 - y0;
   const int n_chunks = wm::ceil_div(n_rows, kChunk);
-  const float* frame = img + static_cast<size_t>(b) * rows * cols;
+  const float* frame =
+      img + (static_cast<size_t>(b) * (top + rows + bottom) + top) * cols;
 #ifdef __CUDA_ARCH__
   // the assembly kernel may start its reads of the image now; it waits for
   // this grid before it reads the sums
@@ -179,8 +192,8 @@ __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) {
         const float* row =
-            frame + static_cast<size_t>(min(y0 + c * kChunk + i, rows - 1)) *
-                        cols;
+            frame + static_cast<size_t>(
+                        min(y0 + c * kChunk + i, rows + bottom - 1)) * cols;
         stage_chunk(buf[i], row, x0, cols, vec, threadIdx.x + 1);
         if (threadIdx.x < 2)
           stage_chunk(buf[i], row, x0, cols, vec,
@@ -244,12 +257,12 @@ __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
 // One block per (lag, image). lags holds (dr, dc) per lag; pairs, grouped by
 // lag from pair_start[l] to pair_start[l + 1], hold (row, column, ar, ai),
 // ai = ac + 1. sums is the lag kernel's output, n_parts = strips x column
-// blocks a lag.
+// blocks a lag. A frame holds top + rows + bottom rows, as above.
 __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
     const float* __restrict__ img, const float* __restrict__ sums,
     const int* __restrict__ lags, const int* __restrict__ pair_start,
     const int* __restrict__ pairs, float* __restrict__ gram, int rows,
-    int cols, int n_parts) {
+    int cols, int n_parts, int top, int bottom) {
   __shared__ float s_full[8];
   __shared__ float s_edge[4][4];
   __shared__ float s_window[5][3];
@@ -258,11 +271,13 @@ __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
   const int tid = threadIdx.x;
   const int dr = __ldg(lags + 2 * l);
   const int dc = __ldg(lags + 2 * l + 1);
-  const float* frame = img + static_cast<size_t>(b) * rows * cols;
+  const float* frame =
+      img + (static_cast<size_t>(b) * (top + rows + bottom) + top) * cols;
   const int last = cols - 1;
   auto at = [&](int y, int x) {
-    return __ldg(frame + static_cast<size_t>(wm::clampi(y, 0, rows - 1)) *
-                             cols + wm::clampi(x, 0, last));
+    return __ldg(frame + static_cast<long long>(
+                             wm::clampi(y, -top, rows + bottom - 1)) * cols +
+                 wm::clampi(x, 0, last));
   };
   // the boundary rows -1, 0, H - 1, H and columns -1, 0, W - 1, W
   const int bank[4] = {-1, 0, rows - 1, rows};
@@ -335,16 +350,17 @@ __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
 
 }  // namespace
 
-// img (batch, rows, cols) f32 -> sums (batch, 13, strips, column blocks)
-// f32, strips = ceil(rows / strip), column blocks = ceil(cols /
-// block_cols); the caller owns that layout and passes its column block,
-// which must be kBlockCols.
+// img (batch, top + rows + bottom, cols) f32 -> sums (batch, 13, strips,
+// column blocks) f32 over the owned rows, strips = ceil(rows / strip),
+// column blocks = ceil(cols / block_cols); the caller owns that layout and
+// passes its column block, which must be kBlockCols.
 extern "C" int wm_me_gram_lags(const float* img, const int* lag_index,
                                float* sums, int batch, int rows, int cols,
-                               int strip, int block_cols, void* stream) {
-  if (batch < 1 || rows < 1 || cols < 1 || strip < 1 ||
-      block_cols != kBlockCols ||
-      static_cast<long long>(rows) * cols > 2147483647LL)
+                               int strip, int block_cols, int top,
+                               int bottom, void* stream) {
+  if (batch < 1 || rows < 1 || cols < 1 || strip < 1 || top < 0 ||
+      bottom < 0 || block_cols != kBlockCols ||
+      static_cast<long long>(top + rows + bottom) * cols > 2147483647LL)
     return cudaErrorInvalidValue;
   const int n_strips = wm::ceil_div(rows, strip);
   if (n_strips > 65535 || batch > 65535) return cudaErrorInvalidValue;
@@ -354,17 +370,18 @@ extern "C" int wm_me_gram_lags(const float* img, const int* lag_index,
   const dim3 grid(wm::ceil_div(cols, kBlockCols), n_strips, batch);
   me_gram_lags_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      img, lag_index, sums, rows, cols, strip, vec);
+      img, lag_index, sums, rows, cols, strip, vec, top, bottom);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The lag kernel's sums with the image -> gram (batch, 9, 9).
+// The lag kernel's sums with the image (as above) -> gram (batch, 9, 9).
 extern "C" int wm_me_gram_assemble(const float* img, const float* sums,
                                    const int* lags, const int* pair_start,
                                    const int* pairs, float* gram, int batch,
-                                   int rows, int cols, int n_parts,
-                                   void* stream) {
-  if (batch < 1 || rows < 1 || cols < 1 || n_parts < 1 || batch > 65535)
+                                   int rows, int cols, int n_parts, int top,
+                                   int bottom, void* stream) {
+  if (batch < 1 || rows < 1 || cols < 1 || n_parts < 1 || batch > 65535 ||
+      top < 0 || bottom < 0)
     return cudaErrorInvalidValue;
   const dim3 grid(kLags, batch);
   // programmatic dependent launch: the kernel may start before the lag
@@ -380,7 +397,7 @@ extern "C" int wm_me_gram_assemble(const float* img, const float* sums,
   config.numAttrs = 1;
   const cudaError_t code = cudaLaunchKernelEx(
       &config, me_gram_assemble_kernel, img, sums, lags, pair_start, pairs,
-      gram, rows, cols, n_parts);
+      gram, rows, cols, n_parts, top, bottom);
   if (code != cudaSuccess) return static_cast<int>(code);
   return static_cast<int>(cudaGetLastError());
 }

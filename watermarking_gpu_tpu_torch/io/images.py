@@ -8,11 +8,19 @@ float32 0..255 in, truncating u8 cast out (values are already clamped to
 [0, 255] by the embedder).
 
 The codec needs no Pillow, which the GPU machine does not have. It reads
-8-bit, non-interlaced PNGs of colour types 0 (gray), 2 (RGB), 4 (gray +
-alpha) and 6 (RGBA) with all five row filters, joins multiple IDAT chunks
-and checks every chunk's CRC. Any other PNG (16-bit, palette, interlaced)
-raises ``ValueError`` naming what it found, where a silent conversion would
-hide it. It writes gray or RGB with filter 0.
+8-bit PNGs of colour types 0 (gray), 2 (RGB), 4 (gray + alpha) and 6
+(RGBA), and palette PNGs (colour type 3) at 1, 2, 4 and 8 bits, with all
+five row filters, joins multiple IDAT chunks and checks every chunk's CRC.
+A palette PNG decodes to RGB through its ``PLTE`` (an index past the
+palette reads black) and its ``tRNS`` is ignored, as Pillow's
+``convert("RGB")`` does. Adam7-interlaced PNGs decode pass by pass: each
+pass is unfiltered on its own (its first row sees a zero row above) and
+scattered into place. 16-bit PNGs raise ``ValueError``: Pillow keeps the
+high byte of a 16-bit RGB PNG but clips a 16-bit gray one (mode ``I;16``)
+to 255, and its rules for the other 16-bit types differ between its
+versions, so a clear error is kept where a conversion might silently
+disagree with the JAX package's loader. So do gray or RGB PNGs below 8
+bits. It writes gray or RGB with filter 0.
 
 Unfiltering: None and Up take whole rows, Sub a per-channel cumulative sum
 modulo 256. Avg and Paeth depend on the pixel to their left, so they cannot
@@ -32,9 +40,14 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel, for the types the codec reads
-CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 COLOR_TYPE_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha",
                     6: "RGBA"}
+# bits a sample the codec reads, per colour type
+DEPTHS = {0: (8,), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
+# the seven Adam7 passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 BT601_WEIGHTS = np.array([0.299, 0.587, 0.114], dtype=np.float32)
 
 
@@ -104,9 +117,35 @@ def _unfilter_diagonals(kinds: np.ndarray, filtered: np.ndarray,
     return recon[1:, 1:].reshape(height, stride).astype(np.uint8)
 
 
+def _stride(width: int, samples: int, depth: int) -> int:
+    """Bytes a row of ``width`` pixels holds, the filter byte left out."""
+    return -(-width * samples * depth // 8)
+
+
+def _decode(raw: bytes, width: int, height: int, samples: int, depth: int,
+            path) -> np.ndarray:
+    """The filtered rows of one (sub)image -> uint8 (height, width,
+    samples): unfiltered, and below 8 bits unpacked, most significant bits
+    first."""
+    stride = _stride(width, samples, depth)
+    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
+    kinds = rows[:, 0]
+    if kinds.max() > 4:
+        raise ValueError(f"{path}: unknown row filter type {kinds.max()}")
+    unfilter = (_unfilter_rows if kinds.max() <= 2
+                else _unfilter_diagonals)
+    image = unfilter(kinds, rows[:, 1:], max(1, samples * depth // 8))
+    if depth == 8:
+        return image.reshape(height, width, samples)
+    bits = np.unpackbits(image, axis=1)[:, :width * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(height, width, depth) * weights).sum(
+        axis=-1, dtype=np.uint8)[..., None]
+
+
 def read_png(path: str | os.PathLike) -> np.ndarray:
     """Decode a PNG to uint8 (H, W) for gray, else (H, W, C) with C = 3
-    (RGB), 2 (gray + alpha) or 4 (RGBA)."""
+    (RGB and palette), 2 (gray + alpha) or 4 (RGBA)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:len(PNG_SIGNATURE)] != PNG_SIGNATURE:
@@ -119,33 +158,47 @@ def read_png(path: str | os.PathLike) -> np.ndarray:
     name = COLOR_TYPE_NAMES.get(color, "unknown")
     if color not in CHANNELS:
         raise ValueError(f"{path}: PNG colour type {color} ({name}) is not "
-                         f"supported; only 0, 2, 4 and 6 are")
-    if depth != 8:
+                         f"supported; only 0, 2, 3, 4 and 6 are")
+    if depth not in DEPTHS[color]:
         raise ValueError(f"{path}: {depth}-bit {name} PNG is not supported; "
-                         f"only 8 bits a sample are")
-    if interlace != 0:
-        raise ValueError(f"{path}: interlaced (method {interlace}) PNG is "
-                         f"not supported")
+                         f"only {DEPTHS[color]} bits a sample are")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: interlace method {interlace} is not "
+                         f"supported; only none (0) and Adam7 (1) are")
     if compression != 0 or filter_method != 0 or not width or not height:
         raise ValueError(f"{path}: invalid PNG header (compression "
                          f"{compression}, filter method {filter_method}, "
                          f"{width}x{height})")
-    bpp = CHANNELS[color]
-    stride = width * bpp
+    samples = CHANNELS[color]
     raw = zlib.decompress(b"".join(body for kind, body in chunks
                                    if kind == b"IDAT"))
-    if len(raw) != height * (stride + 1):
+    # (first column, first row, column step, row step, width, height) of
+    # each non-empty pass; the whole image when not interlaced
+    passes = [(x0, y0, dx, dy, -(-(width - x0) // dx),
+               -(-(height - y0) // dy))
+              for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),))
+              if x0 < width and y0 < height]
+    sizes = [h * (_stride(w, samples, depth) + 1)
+             for *_, w, h in passes]
+    if len(raw) != sum(sizes):
         raise ValueError(f"{path}: image data holds {len(raw)} bytes, "
-                         f"expected {height * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
-    kinds = rows[:, 0]
-    if kinds.max() > 4:
-        raise ValueError(f"{path}: unknown row filter type {kinds.max()}")
-    unfilter = (_unfilter_rows if kinds.max() <= 2
-                else _unfilter_diagonals)
-    image = unfilter(kinds, rows[:, 1:], bpp)
-    return image.reshape(height, width, bpp) if bpp > 1 else image.reshape(
-        height, width)
+                         f"expected {sum(sizes)}")
+    image = np.empty((height, width, samples), np.uint8)
+    offset = 0
+    for (x0, y0, dx, dy, w, h), size in zip(passes, sizes):
+        image[y0::dy, x0::dx] = _decode(raw[offset:offset + size], w, h,
+                                        samples, depth, path)
+        offset += size
+    if color == 3:
+        plte = [body for kind, body in chunks if kind == b"PLTE"]
+        if not plte or not plte[0] or len(plte[0]) % 3:
+            raise ValueError(f"{path}: palette PNG without a valid PLTE "
+                             f"chunk")
+        palette = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte[0], np.uint8).reshape(-1, 3)[:256]
+        palette[:len(entries)] = entries
+        return palette[image[..., 0]]
+    return image if samples > 1 else image[..., 0]
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

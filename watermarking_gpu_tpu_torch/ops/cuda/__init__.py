@@ -17,7 +17,7 @@ from ..me import (assemble_lags_plain, assemble_strips_plain,
                   me_gram_wide_plain)
 from .detect_many import detect_many_partials, detect_many_partials_plain
 from .fused import (detect_partials, detect_partials_plain, embed_field,
-                    embed_field_plain)
+                    embed_field_plain, stencil_reach)
 from .me_gram_wide import me_gram_wide, wide_assemble, wide_lag_strips
 from .me_kernel import (me_gram, me_gram_assemble, me_gram_lags,
                         me_gram_plain)
@@ -50,4 +50,5 @@ __all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
            "me_gram_lags", "me_gram_plain", "me_gram_wide",
            "me_gram_wide_plain", "nvf_mask", "nvf_mask_plain",
            "prediction_error", "prediction_error_plain",
-           "reset_launch_counts", "wide_assemble", "wide_lag_strips"]
+           "reset_launch_counts", "stencil_reach", "wide_assemble",
+           "wide_lag_strips"]

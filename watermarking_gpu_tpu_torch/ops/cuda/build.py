@@ -43,19 +43,19 @@ _INT = ctypes.c_int
 # ctypes does not cut 64-bit addresses to int)
 SIGNATURES = {
     "wm_me_gram_lags": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                        _PTR),
+                        _INT, _INT, _PTR),
     "wm_me_gram_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                            _INT, _INT, _PTR),
+                            _INT, _INT, _INT, _INT, _PTR),
     "wm_wide_lag_strips": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                            _INT, _INT, _INT, _PTR),
     "wm_wide_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
                          _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
     "wm_embed_field_num_blocks": (_INT, _INT, _INT, _INT),
     "wm_embed_field": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                       _INT, _PTR),
+                       _INT, _INT, _INT, _PTR),
     "wm_detect_partials_num_blocks": (_INT, _INT),
     "wm_detect_partials": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                           _INT, _PTR),
+                           _INT, _INT, _INT, _INT, _INT, _PTR),
     "wm_detect_many_chunk": (),
     "wm_detect_many_num_blocks": (_INT, _INT),
     "wm_detect_many": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,

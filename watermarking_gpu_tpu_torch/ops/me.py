@@ -18,6 +18,14 @@ here takes ``p`` in {3, 5, 7, 9} and generalizes to the (p*p-1)-tap
 predictor. All functions are batch-polymorphic over leading dims: images
 (..., H, W), coefficients (..., k), Rx (..., k, k), rx (..., k) with
 k = p*p - 1.
+
+The Gram, the prediction error and the lag functions also take a halo
+form for row shards (``parallel/spatial.py``): ``image`` is then (..., top
++ H + bottom, W), H owned rows with ``top`` rows above and ``bottom``
+below (true neighbour rows at a seam, replicated edge rows at the frame's
+border), rows read clamped to that range (``neighbors.pad_halo``) and the
+sums and errors over the owned rows only. ``top = bottom = 0`` is the
+frame itself.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import functools
 
 import torch
 
-from .neighbors import neighbor_offsets, pad_edge, shifted_views
+from .neighbors import neighbor_offsets, pad_edge, pad_halo, shifted_views
 
 SUPPORTED_P = (3, 5, 7, 9)
 
@@ -50,13 +58,18 @@ def wide_lag_geometry(rows: int, cols: int, p: int) -> bool:
     return p != 3 and rows >= 6 * half and cols >= 6 * half
 
 
-def gram_direct(image: torch.Tensor, p: int = 3) -> torch.Tensor:
+def gram_direct(image: torch.Tensor, p: int = 3, top: int = 0,
+                bottom: int = 0) -> torch.Tensor:
     """(..., H, W) -> (..., k+1, k+1) Gram of [k clamped neighbors; center]
     by direct per-pair sums of elementwise products (full f32; no matmul, so
-    no TF32 question arises on the card)."""
+    no TF32 question arises on the card); the halo form sums the owned
+    rows of a (..., top + H + bottom, W) shard."""
     require_supported_p(p)
-    rows, cols = image.shape[-2:]
-    views = shifted_views(pad_edge(image, p // 2), rows, cols, p) + [image]
+    cols = image.shape[-1]
+    rows = image.shape[-2] - top - bottom
+    views = shifted_views(pad_halo(image, p // 2, top, bottom), rows, cols,
+                          p)
+    views.append(image[..., top:top + rows, :])
     n = len(views)
     gram = image.new_empty(*image.shape[:-2], n, n)
     for i in range(n):
@@ -125,8 +138,8 @@ def lag_plan(p: int):
 
 
 @functools.lru_cache(maxsize=16)
-def _indices(p: int, rows: int, cols: int, device: torch.device) -> dict:
-    """Index tensors of the assembly for one geometry, on ``device``."""
+def _indices(p: int, cols: int, device: torch.device) -> dict:
+    """Index tensors of the assembly for W = ``cols``, on ``device``."""
     h = p // 2
     lags, pair_lag, pair_ar, pair_ai, pair_index = lag_plan(p)
     na = 2 * h + 1
@@ -135,18 +148,12 @@ def _indices(p: int, rows: int, cols: int, device: torch.device) -> dict:
     ar = torch.tensor(pair_ar, dtype=torch.long)
     ai = torch.tensor(pair_ai, dtype=torch.long)
     per_lag = (2 * h + 1) * na
-    bank = torch.arange(-h, 3 * h)
     index = {
         "base": pair_lag_t * na + ai,
         "hi": pair_lag_t * per_lag + (h + ar.clamp(min=0)) * na + ai,
         "lo": pair_lag_t * per_lag + (h + ar.clamp(max=0)) * na + ai,
         "sign": ar.sign().to(torch.float32),
         "pair": torch.tensor(pair_index, dtype=torch.long),
-        # boundary banks: rows [-h, 3h) and [H-h, H+3h), columns
-        # [-3h, W+3h) of the clamp-extended image
-        "low_rows": bank.clamp(0, rows - 1),
-        "high_rows": (rows + bank).clamp(0, rows - 1),
-        "bank_cols": torch.arange(-3 * h, cols + 3 * h).clamp(0, cols - 1),
         # Q_d's bottom factor in a bank: rows dr + [0, 2h), lanes
         # 2h + dc + [0, W + 2h)
         "q_rows": lag_t[:, 0, None] + torch.arange(2 * h),
@@ -155,16 +162,21 @@ def _indices(p: int, rows: int, cols: int, device: torch.device) -> dict:
     return {name: t.to(device) for name, t in index.items()}
 
 
-def lag_partials_plain(image: torch.Tensor, p: int) -> torch.Tensor:
+def lag_partials_plain(image: torch.Tensor, p: int, top: int = 0,
+                       bottom: int = 0) -> torch.Tensor:
     """(B, H, W) -> (B, L, W + 2h) per-lag lane partials (the JAX package's
     wide Gram kernel contract, its ``ops.me.lag_partials`` over a 3h-padded
-    image)."""
+    image); the halo form sums the owned rows of a (B, top + H + bottom, W)
+    shard, whose lag products read its rows below them."""
     h = p // 2
-    rows, cols = image.shape[-2:]
-    ext = pad_edge(image, 3 * h)   # image row 0 at 3h, column -h at 2h
-    base = ext[:, 3 * h:3 * h + rows, 2 * h:4 * h + cols]
+    cols = image.shape[-1]
+    rows = image.shape[-2] - top - bottom
+    # image row 0 at 3h + top, column -h at 2h
+    ext = pad_edge(image, 3 * h)
+    y0 = 3 * h + top
+    base = ext[:, y0:y0 + rows, 2 * h:4 * h + cols]
     return torch.stack(
-        [(base * ext[:, 3 * h + dr:3 * h + dr + rows,
+        [(base * ext[:, y0 + dr:y0 + dr + rows,
                      2 * h + dc:4 * h + dc + cols]).sum(dim=-2)
          for dr, dc in lag_plan(p)[0]], dim=1)
 
@@ -181,7 +193,7 @@ def _lane_windows(full: torch.Tensor, edges: torch.Tensor,
     return full[..., None] - left - right.flip(-1)
 
 
-def _edge_windows(x: torch.Tensor, h: int) -> torch.Tensor:
+def edge_windows(x: torch.Tensor, h: int) -> torch.Tensor:
     """All 2h+1 lane windows of (..., W + 2h) partials."""
     return _lane_windows(x.sum(dim=-1),
                          torch.cat([x[..., :2 * h], x[..., -2 * h:]], dim=-1),
@@ -193,37 +205,58 @@ def assemble_wide(partials: torch.Tensor, image: torch.Tensor,
     """(B, L, W + 2h) lane partials of the (B, H, W) image
     -> (B, k+1, k+1) Gram (the JAX package's ``_assemble_wide`` with the
     boundary rows taken from the raw image at clamped indices)."""
-    return _assemble(_edge_windows(partials, p // 2), image, p)
+    return _assemble(edge_windows(partials, p // 2), image, p)
 
 
-def _assemble(windows: torch.Tensor, image: torch.Tensor,
-              p: int) -> torch.Tensor:
+def _assemble(windows: torch.Tensor, image: torch.Tensor, p: int,
+              top: int = 0, bottom: int = 0) -> torch.Tensor:
     """(B, L, 2h+1) column windows of each lag's sum over rows [0, H)
-    -> (B, k+1, k+1) Gram, with the boundary-row corrections."""
+    -> (B, k+1, k+1) Gram, with the boundary-row corrections from the
+    banks of the (B, top + H + bottom, W) image."""
     h = p // 2
-    batch, rows, cols = image.shape
-    index = _indices(p, rows, cols, image.device)
+    rows = image.shape[1] - top - bottom
+    cols = image.shape[2]
+    bank = torch.arange(-h, 3 * h, device=image.device)
+    bank_cols = torch.arange(-3 * h, cols + 3 * h,
+                             device=image.device).clamp(0, cols - 1)
+
+    def rows_of(first):
+        # rows first + [-h, 3h), clamped to the image's, columns
+        # [-3h, W + 3h) clamped
+        index = (first + bank).clamp(-top, rows + bottom - 1) + top
+        return image.index_select(1, index).index_select(2, bank_cols)
+    return assemble_banks(windows, rows_of(0), rows_of(rows), p)
+
+
+def assemble_banks(windows: torch.Tensor, low: torch.Tensor,
+                   high: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, L, 2h+1) column windows of each lag's sum over rows [0, H)
+    -> (B, k+1, k+1) Gram, the boundary-row corrections taken from the
+    (B, 4h, W + 6h) banks of the clamp-extended frame: rows [-h, 3h)
+    (``low``) and [H - h, H + 3h) (``high``), columns [-3h, W + 3h). A
+    row-sharded frame's banks lie on its edge shards (``parallel``)."""
+    h = p // 2
+    batch = windows.shape[0]
+    cols = low.shape[-1] - 6 * h
+    index = _indices(p, cols, low.device)
 
     # base windows: rows [0, H) of each lag, all 2h+1 column windows
     base = windows.reshape(batch, -1)[:, index["base"]]
 
-    def q_windows(bank_rows):
+    def q_windows(bank):
         # Q_d over bank rows [-h, h): row j times row j + dr shifted dc
         # lanes, then all column windows; cumulated over the block rows with
         # a zero first, so cum[:, :, m] sums block rows [0, m)
-        bank = image.index_select(1, bank_rows).index_select(
-            2, index["bank_cols"])
         top = bank[:, None, 0:2 * h, 2 * h:4 * h + cols]
         bottom = bank[:, index["q_rows"][:, :, None],
                       index["q_cols"][:, None, :]]
-        windows = _edge_windows(top * bottom, h)       # (B, L, 2h, 2h+1)
+        windows = edge_windows(top * bottom, h)       # (B, L, 2h, 2h+1)
         return torch.cat([torch.zeros_like(windows[:, :, :1]),
                           windows.cumsum(dim=2)], dim=2)
 
     # a pair's window rows [ar, H + ar) correct the base rows [0, H) by
     # sign(ar) * (D[h + max(ar, 0)] - D[h + min(ar, 0)]), D = cumHigh - cumLow
-    diff = (q_windows(index["high_rows"])
-            - q_windows(index["low_rows"])).reshape(batch, -1)
+    diff = (q_windows(high) - q_windows(low)).reshape(batch, -1)
     values = base + index["sign"] * (diff[:, index["hi"]]
                                      - diff[:, index["lo"]])
     return values[:, index["pair"]]
@@ -328,17 +361,21 @@ def _lag_products(ext: torch.Tensor, rows: slice, cols: slice,
     return ext[:, rows, cols] * shift
 
 
-def gram_lags_plain(image: torch.Tensor) -> torch.Tensor:
+def gram_lags_plain(image: torch.Tensor, top: int = 0,
+                    bottom: int = 0) -> torch.Tensor:
     """(B, H, W) -> (B, 13, S, NB): per strip of rows and block of columns
     (``gram_lag_layout``) the sum of each lag product Q_d over the frame's
     own columns, lags in ``lag_plan(3)`` order (the plain version of the
-    3x3 lag kernel)."""
+    3x3 lag kernel); the halo form sums the owned rows of a (B, top + H +
+    bottom, W) shard."""
     batch, rows, cols = image.shape
+    rows -= top + bottom
     strip, n_strips, n_blocks = gram_lag_layout(rows, cols)
     ext = pad_edge(image, 3)
+    y0 = 3 + top
     sums = []
     for dr, dc in lag_plan(3)[0]:
-        product = _lag_products(ext, slice(3, 3 + rows),
+        product = _lag_products(ext, slice(y0, y0 + rows),
                                 slice(3, 3 + cols), dr, dc)
         product = torch.nn.functional.pad(
             product, (0, n_blocks * GRAM_BLOCK_COLS - cols, 0,
@@ -348,27 +385,29 @@ def gram_lags_plain(image: torch.Tensor) -> torch.Tensor:
     return torch.stack(sums, dim=1)
 
 
-def assemble_lags_plain(sums: torch.Tensor,
-                        image: torch.Tensor) -> torch.Tensor:
+def assemble_lags_plain(sums: torch.Tensor, image: torch.Tensor,
+                        top: int = 0, bottom: int = 0) -> torch.Tensor:
     """The 3x3 lag kernel's (B, 13, S, NB) sums of the (B, H, W) image
     -> (B, 9, 9) Gram (the plain version of the 3x3 assembly kernel): the
     column windows [ac, W + ac) of each lag's sum over rows [0, H) are the
     interior plus C(-1) - C(W - 1) (ac = -1) or C(W) - C(0) (ac = 1), C(x)
     column x of Q_d over rows [0, H); ``_assemble`` adds the boundary-row
-    corrections."""
+    corrections. The halo form takes a (B, top + H + bottom, W) shard."""
     rows, cols = image.shape[-2:]
+    rows -= top + bottom
     interior = sums.sum(dim=(2, 3))
     ext = pad_edge(image, 3)
+    y0 = 3 + top
     column = {}
     for x in (-1, 0, cols - 1, cols):
         column[x] = torch.stack(
-            [_lag_products(ext, slice(3, 3 + rows), slice(3 + x, 4 + x),
+            [_lag_products(ext, slice(y0, y0 + rows), slice(3 + x, 4 + x),
                            dr, dc).sum(dim=(1, 2))
              for dr, dc in lag_plan(3)[0]], dim=1)
     windows = torch.stack([interior + (column[-1] - column[cols - 1]),
                            interior,
                            interior + (column[cols] - column[0])], dim=-1)
-    return _assemble(windows, image, 3)
+    return _assemble(windows, image, 3, top, bottom)
 
 
 
@@ -476,14 +515,18 @@ def solve_coefficients_spd_wide(rx_matrix: torch.Tensor,
 
 
 def prediction_error(image: torch.Tensor, coefficients: torch.Tensor,
-                     p: int = 3) -> torch.Tensor:
+                     p: int = 3, top: int = 0,
+                     bottom: int = 0) -> torch.Tensor:
     """Error sequence e = image - sum_k c_k * neighbor_k (clamped), with the
-    taps subtracted in coefficient order (the order the kernels use)."""
+    taps subtracted in coefficient order (the order the kernels use); the
+    halo form gives the owned rows of a (..., top + H + bottom, W)
+    shard."""
     require_supported_p(p)
-    rows, cols = image.shape[-2:]
-    error = image
-    for k, view in enumerate(shifted_views(pad_edge(image, p // 2), rows,
-                                           cols, p)):
+    cols = image.shape[-1]
+    rows = image.shape[-2] - top - bottom
+    error = image[..., top:top + rows, :]
+    for k, view in enumerate(shifted_views(pad_halo(image, p // 2, top,
+                                                    bottom), rows, cols, p)):
         error = error - coefficients[..., k, None, None] * view
     return error
 

@@ -46,6 +46,21 @@ def pad_edge(image: torch.Tensor, halo: int) -> torch.Tensor:
     return padded.reshape(*lead, rows + 2 * halo, cols + 2 * halo)
 
 
+def pad_halo(image: torch.Tensor, halo: int, top: int = 0,
+             bottom: int = 0) -> torch.Tensor:
+    """Clamp-extend the owned rows of a row-extended shard by ``halo``.
+
+    ``image`` is (..., top + H + bottom, W): H owned rows with ``top`` rows
+    above and ``bottom`` below them (true neighbour rows at a shard's seam,
+    replicated edge rows at the frame's border). Returns (..., H + 2 halo,
+    W + 2 halo): owned rows [-halo, H + halo), rows clamped to the
+    extended range [-top, H + bottom - 1], columns clamped to the frame.
+    ``top = bottom = 0`` gives ``pad_edge(image, halo)``.
+    """
+    rows = image.shape[-2] - top - bottom
+    return pad_edge(image, halo)[..., top:top + rows + 2 * halo, :]
+
+
 def shifted_views(padded: torch.Tensor, rows: int, cols: int,
                   p: int = 3) -> list[torch.Tensor]:
     """The p*p-1 neighbor planes (views) of a halo-extended

@@ -17,14 +17,20 @@ from __future__ import annotations
 
 import torch
 
-from .neighbors import pad_edge
+from .neighbors import pad_halo
 
 
-def nvf_mask(image: torch.Tensor, p: int = 3) -> torch.Tensor:
-    """Local-variance visibility mask over a p x p window (p odd >= 3)."""
+def nvf_mask(image: torch.Tensor, p: int = 3, top: int = 0,
+             bottom: int = 0) -> torch.Tensor:
+    """Local-variance visibility mask over a p x p window (p odd >= 3).
+
+    ``top``/``bottom``: rows of ``image`` above and below the owned rows
+    that the windows read (``neighbors.pad_halo``); the mask covers the
+    owned rows only."""
     half = p // 2
-    rows, cols = image.shape[-2:]
-    padded = pad_edge(image, half)
+    cols = image.shape[-1]
+    rows = image.shape[-2] - top - bottom
+    padded = pad_halo(image, half, top, bottom)
     col_sum = padded[..., :, 0:cols]
     col_sq = col_sum * col_sum
     for dc in range(1, p):

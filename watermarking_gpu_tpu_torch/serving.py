@@ -9,10 +9,11 @@ overlap compute and dispatch.
 
 The answer to the reference's synchronous one-frame-at-a-time loop
 (``main.cpp:319-340``) for serving workloads. Counterpart of the JAX
-package's ``serving.py`` on one device (multi-GPU serving waits for the
-port's ``parallel/``). On a CUDA engine every launch of a service, from its
-dispatcher and its collector alike, goes to the stream that was current on
-the engine's device when the service was built.
+package's ``serving.py``, its ``mesh=`` included (``parallel/``: one
+process drives every device of the mesh, so a mesh needs no more threads).
+On a CUDA engine every launch of a service, from its dispatcher and its
+collector alike, goes to the stream that was current on the engine's
+device when the service was built.
 """
 
 from __future__ import annotations
@@ -28,10 +29,26 @@ import torch
 
 from .models.batched import BatchedWatermark, pad_to_batch
 from .models.masks import MaskType
+from .parallel import (DATA_AXIS, SPACE_AXIS, Sharded, make_dp_detect,
+                       make_dp_detect_many, make_dp_embed, make_hybrid_detect,
+                       make_hybrid_embed, replicate, shard, shard_frames,
+                       shard_hybrid, shard_watermark)
 
 
 class _BatchingService:
     """Shared machinery: batch former + dispatcher + result collector.
+
+    With ``mesh`` (a ``parallel.Mesh``), each batch is frame-split over the
+    mesh's ``data`` axis and every position runs the engine's pipeline on
+    its frames, with no communication (the batch size must be a multiple
+    of the data axis' size). A ``space`` axis > 1 also row-splits every
+    frame over that axis (the hybrid DP x SP route, halo rows moved between
+    the shards): the serving route for frames too large for one device.
+    The engine's ``impl`` carries over to the mesh functions; with
+    ``impl="cuda"``, ME at p > 3 over a space axis > 1 raises
+    ``NotImplementedError`` when the service is built (its sharded wide Gram
+    has no kernel yet), so such a service is built on an ``impl="torch"``
+    engine.
 
     ``max_queued`` bounds the submission queue: a producer faster than the
     device blocks in ``submit`` instead of buffering frames without limit
@@ -40,12 +57,29 @@ class _BatchingService:
     """
 
     def __init__(self, engine: BatchedWatermark, mask_type, batch_size: int,
-                 max_inflight: int, flush_timeout: float,
+                 max_inflight: int, flush_timeout: float, mesh=None,
                  max_queued: int | None = 256):
         self.engine = engine
         self.mask_type = MaskType.parse(mask_type)
         self.batch_size = batch_size
         self.flush_timeout = flush_timeout
+        self.mesh = mesh
+        self._space = 1
+        if mesh is not None:
+            if batch_size % mesh.shape[DATA_AXIS]:
+                raise ValueError(
+                    f"batch_size {batch_size} must be a multiple of the "
+                    f"mesh data axis ({mesh.shape[DATA_AXIS]})")
+            self._space = mesh.shape[SPACE_AXIS]
+            if self._space > 1:
+                if engine.rows % self._space:
+                    raise ValueError(
+                        f"rows {engine.rows} must divide over the mesh "
+                        f"space axis ({self._space})")
+                self._wm_sharded = shard_watermark(mesh,
+                                                   engine.random_matrix)
+            else:
+                self._wm_sharded = replicate(mesh, engine.random_matrix)
         device = torch.device(engine.device)
         self._stream = (torch.cuda.current_stream(device)
                         if device.type == "cuda" else None)
@@ -87,6 +121,14 @@ class _BatchingService:
     def _run_batch(self, stack: np.ndarray):
         raise NotImplementedError
 
+    def _mesh_stack(self, stack: np.ndarray) -> Sharded:
+        """A batch split over the mesh: frames over data (and rows over
+        space), in the engine's transfer dtype (u8 stays u8)."""
+        if stack.dtype != np.uint8:
+            stack = stack.astype(np.float32)
+        return (shard_hybrid if self._space > 1 else shard_frames)(
+            self.mesh, stack)
+
     def _resolve(self, future: Future, host_results, index: int) -> bool:
         raise NotImplementedError
 
@@ -101,7 +143,8 @@ class _BatchingService:
         """A batch's result tensor(s) as numpy arrays (waits for the
         device)."""
         with self._on_stream():
-            return [leaf.cpu().numpy() for leaf in
+            return [(leaf.gather() if isinstance(leaf, Sharded) else
+                     leaf).cpu().numpy() for leaf in
                     (result if isinstance(result, tuple) else (result,))]
 
     def _get_submission(self, timeout=None):
@@ -333,17 +376,29 @@ class _BatchingService:
 
 
 class DetectorService(_BatchingService):
-    """submit(gray frame) -> Future[float correlation]."""
+    """submit(gray frame) -> Future[float correlation].
+
+    ``mesh``: optional ``parallel.Mesh``: frame-parallel over its ``data``
+    axis and, with a ``space`` axis > 1, row-split frames (see
+    ``_BatchingService``; ME at p > 3 over a space axis > 1 needs an
+    ``impl="torch"`` engine).
+    """
 
     def __init__(self, engine: BatchedWatermark,
                  mask_type: "MaskType | str" = MaskType.ME,
                  batch_size: int = 8, max_inflight: int = 2,
-                 flush_timeout: float = 0.005,
+                 flush_timeout: float = 0.005, mesh=None,
                  max_queued: int | None = 256):
         super().__init__(engine, mask_type, batch_size, max_inflight,
-                         flush_timeout, max_queued)
+                         flush_timeout, mesh, max_queued)
+        if mesh is not None:
+            make = make_hybrid_detect if self._space > 1 else make_dp_detect
+            self._mesh_fn = make(mesh, self.mask_type.value, p=engine.p,
+                                 impl=engine.impl)
 
     def _run_batch(self, stack):
+        if self.mesh is not None:
+            return self._mesh_fn(self._mesh_stack(stack), self._wm_sharded)
         return self.engine.detect(stack, self.mask_type)
 
     def _resolve(self, future, host, index):
@@ -361,12 +416,18 @@ class IdentifierService(_BatchingService):
     candidates, through the multi-candidate kernel on the card. The
     reference could only loop N full detections per frame
     (``Watermark.cpp:234-250``).
+
+    ``mesh``: optional ``parallel.Mesh`` whose ``data`` axis splits the
+    CANDIDATE bank (each position scores N/n candidates against the whole
+    batch, ``parallel.make_dp_detect_many``). N must divide by the data
+    axis; a ``space`` axis > 1 is refused (``make_mesh_detect_many`` takes
+    frames too large for one device).
     """
 
     def __init__(self, engine: BatchedWatermark, candidates,
                  mask_type: "MaskType | str" = MaskType.ME,
                  batch_size: int = 8, max_inflight: int = 2,
-                 flush_timeout: float = 0.005,
+                 flush_timeout: float = 0.005, mesh=None,
                  max_queued: int | None = 256):
         device = torch.device(engine.device)
         bank = (candidates if isinstance(candidates, torch.Tensor)
@@ -376,11 +437,33 @@ class IdentifierService(_BatchingService):
             raise ValueError(
                 f"Candidate bank must be (N, {engine.rows}, {engine.cols}),"
                 f" got {tuple(bank.shape)}")
-        self._bank = bank.to(device=device, dtype=torch.float32).contiguous()
+        self._id_mesh = mesh
+        if mesh is not None:      # validate before starting worker threads
+            if mesh.shape[SPACE_AXIS] > 1:
+                raise ValueError(
+                    "IdentifierService splits candidates over the data "
+                    "axis only; space axes are not supported here")
+            if bank.shape[0] % mesh.shape[DATA_AXIS]:
+                raise ValueError(
+                    f"candidate count {bank.shape[0]} must divide over the "
+                    f"mesh data axis ({mesh.shape[DATA_AXIS]})")
+            self._bank = shard(mesh, bank.to(torch.float32), (DATA_AXIS,))
+        else:
+            self._bank = bank.to(device=device,
+                                 dtype=torch.float32).contiguous()
+        # the data axis splits candidates, not frames: the base class'
+        # mesh plumbing does not apply
         super().__init__(engine, mask_type, batch_size, max_inflight,
-                         flush_timeout, max_queued)
+                         flush_timeout, None, max_queued)
+        if mesh is not None:
+            self._mesh_fn = make_dp_detect_many(
+                mesh, self.mask_type.value, p=engine.p, impl=engine.impl,
+                batched=True)
 
     def _run_batch(self, stack):
+        if self._id_mesh is not None:
+            return self._mesh_fn(stack if stack.dtype == np.uint8
+                                 else stack.astype(np.float32), self._bank)
         return self.engine.detect_many(stack, self._bank, self.mask_type)
 
     def _resolve(self, future, host, index):
@@ -388,17 +471,32 @@ class IdentifierService(_BatchingService):
 
 
 class EmbedderService(_BatchingService):
-    """submit(gray frame) -> Future[(watermarked ndarray, strength)]."""
+    """submit(gray frame) -> Future[(watermarked ndarray, strength)].
+
+    ``mesh``: as for ``DetectorService``.
+    """
 
     def __init__(self, engine: BatchedWatermark,
                  mask_type: "MaskType | str" = MaskType.ME,
                  batch_size: int = 8, max_inflight: int = 2,
-                 flush_timeout: float = 0.005,
+                 flush_timeout: float = 0.005, mesh=None,
                  max_queued: int | None = 256):
         super().__init__(engine, mask_type, batch_size, max_inflight,
-                         flush_timeout, max_queued)
+                         flush_timeout, mesh, max_queued)
+        if mesh is not None:
+            if self._space > 1:
+                self._mesh_fn = make_hybrid_embed(
+                    mesh, self.mask_type.value, engine.strength_factor,
+                    p=engine.p, impl=engine.impl)
+            else:
+                self._mesh_fn = make_dp_embed(
+                    mesh, self.mask_type.value, engine.strength_factor,
+                    p=engine.p, impl=engine.impl)
 
     def _run_batch(self, stack):
+        if self.mesh is not None:
+            frames = self._mesh_stack(stack)
+            return self._mesh_fn(frames, frames, self._wm_sharded)
         return self.engine.embed(stack, mask_type=self.mask_type)
 
     def _resolve(self, future, host, index):
