@@ -62,26 +62,34 @@ prints no result:
 6. The sharded routes of ``parallel/`` (run before phase 4's profiler
    timings, at 8 x 1080 x 1920, the watermark of phase 3 and
    ``make_bank()``); on one card every mesh names cuda:0 for each shard,
-   so no transfer between devices is measured. First the halo forms of the
-   3x3 Gram's two kernels, the embed field and the detect tail against
-   their plain halo forms on the same extended shards, at 270- and 540-row
-   shards (space 4 and 2), every shard position, at ME p=3 and NVF p=3
-   and 5, with the shards' Grams summed against the unsharded kernel Gram,
-   then each one's ms on an interior shard (and, after phase 4's profiler
-   timings, its device ms). Then, each run's launch counters zeroed just
-   before it and read just after, with its ms from CUDA events: hybrid
-   embed then detect on data=2 x space=2 (ME p=3, NVF p=3 and 5,
-   ``impl="cuda"``) held to the single-device kernel route (correlations
-   1e-4, strengths 1e-4 relative, pixels 1e-2) and to the JAX numbers;
-   spatial detect on data=1 x space=4 (ME p=3 on ``impl="cuda"``, ME p=9
-   on ``impl="torch"``); DP embed and detect on data=4 at ME p=5 (the wide
+   so no transfer between devices is measured. First the halo forms
+   against their plain halo forms on the same extended shards, at 270- and
+   540-row shards (space 4 and 2), every shard position: the 3x3 Gram's
+   two kernels, the embed field and the detect tail at ME p=3 and NVF p=3
+   and 5, with the shards' Grams summed against the unsharded kernel Gram;
+   the wide Gram's lag kernel at ME p = 5, 7, 9, the shards' sums folded
+   and assembled with the frame's banks by the assembly kernel against its
+   plain version and the frame's wide Gram; the multi-candidate kernel at
+   ME p = 3, 5, 9 and NVF p=3 against the 64-candidate bank, the shards'
+   sums added up against the frame's. Then each one's ms on an interior
+   shard (and, after phase 4's profiler timings, its device ms). Then,
+   each run's launch counters zeroed just before it and read just after,
+   with its ms from CUDA events: hybrid embed then detect on data=2 x
+   space=2 (ME p = 3, 5, 9, NVF p=3 and 5, ``impl="cuda"``) held to the
+   single-device kernel route (correlations 1e-4, strengths 1e-4
+   relative, pixels 1e-2) and to the JAX numbers; spatial detect on data=1
+   x space=4 (ME p=3 and p=9 on ``impl="cuda"``, ME p=9 on
+   ``impl="torch"``); DP embed and detect on data=4 at ME p=5 (the wide
    Gram per shard); ``make_dp_detect_many`` at ME p=5 (16 candidates a
-   shard) and ``make_mesh_detect_many`` on data=2 x space=2 (``impl=
-   "torch"``, ME p=3), where the embedded candidate must win, within 1e-4
-   of single-device identification and 3e-4 of the JAX numbers; and the
-   three services with ``mesh=`` (the detector and embedder on data=2 x
-   space=2, the identifier on data=2), their answers equal to the mesh
-   functions'.
+   shard) and ``make_mesh_detect_many`` on data=2 x space=2 (ME p=3,
+   ``impl="torch"`` and ``"cuda"``) and on space=4 (ME p=9, NVF p=5,
+   ``impl="cuda"``), where the embedded candidate must win, within 1e-4 of
+   single-device identification and 3e-4 of the JAX numbers; each kernel
+   route's launches counted exactly (a halo-form kernel once a shard, the
+   wide Gram's assembly once a space row); and the services with
+   ``mesh=`` (the detector and embedder on data=2 x space=2, the
+   identifier on data=2 and on data=2 x space=2, a p=5 detector on data=2
+   x space=2), their answers equal to the mesh functions'.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
@@ -104,8 +112,10 @@ needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
 prediction error one grouped ``conv2d`` over the edge-padded frames (the
 pad included, cuDNN's TF32 off), null for the rest, which no single
 PyTorch call computes. The p=3 rows of the 3x3 Gram, the embed field and
-the detect tail also carry ``halo_form``: per shard height (270, 540) the
-halo form's ms, plain ms, bound, and device ms on an interior shard.
+the detect tail, the wide Gram's rows (its lag kernel) and the
+multi-candidate kernel's rows at ME p = 3, 5, 9 and NVF p=3 also carry
+``halo_form``: per shard height (270, 540) the halo form's ms, plain ms,
+bound, and device ms on an interior shard.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -712,9 +722,11 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                           rel_err(edges, edges_plain))
             check(lag_err <= SUM_RTOL, f"me_gram_wide {label}: lag kernel "
                   f"rel err {lag_err:.3e}")
-            assembled = kernels.wide_assemble(sums_plain, edges_plain, img, p)
+            assembled = kernels.wide_assemble(
+                sums_plain, edges_plain, *kernels.frame_banks(img, p), p,
+                img.shape[1])
             assembled_plain = kernels.assemble_strips_plain(
-                sums_plain, edges_plain, img, p)
+                sums_plain, edges_plain, *kernels.frame_banks(img, p), p)
             assemble_err = rel_err(assembled, assembled_plain)
             check(assemble_err <= SUM_RTOL, f"me_gram_wide {label}: "
                   f"assembly kernel rel err {assemble_err:.3e}")
@@ -984,21 +996,22 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     return split
 
 
-def halo_device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
+def halo_device_split(frames_d: torch.Tensor, wm_d: torch.Tensor,
+                      bank_d: torch.Tensor) -> dict:
     """Device ms a call of the halo forms on an interior shard of 270 and
-    of 540 rows (phase 6's shards), ME and NVF at p=3, one ``device_ms``
-    session a shard height: {(row name, shard rows): ms}, the 3x3 Gram as
-    its two kernels' sum (counting the assembly's wait, as
-    ``device_split``)."""
-    coeffs = predictor_coefficients(frames_d)[3]
+    of 540 rows (phase 6's shards; ``halo_timing_pairs``), one
+    ``device_ms`` session a shard height: {(row name, shard rows): ms}, the
+    3x3 Gram as its two kernels' sum (counting the assembly's wait, as
+    ``device_split``), the wide Gram as its lag kernel."""
+    coeffs = predictor_coefficients(frames_d)
     split = {}
     for space in HALO_SPACES:
         rows = ROWS // space
-        pairs = halo_timing_pairs(frames_d, wm_d, coeffs, rows)
+        pairs = halo_timing_pairs(frames_d, wm_d, bank_d, coeffs, rows)
         patterns = {}
         for pair in pairs.values():
             patterns.update(pair[-1])
-        times = device_ms([pair[2] for pair in pairs.values()], patterns)
+        times = device_ms([pair[3] for pair in pairs.values()], patterns)
         times["me_gram"] = sum(times.pop(name) for name in GRAM_KERNELS)
         split.update({(name, rows): ms for name, ms in times.items()})
     return split
@@ -1867,7 +1880,13 @@ def phase_video() -> None:
 # On one card every mesh names cuda:0 for each of its shards, so the
 # collectives' copies are no copies: the phase measures the routes and
 # their kernels, not a transfer between devices.
-MESH_CASES = (("me", 3), ("nvf", 3), ("nvf", 5))   # the halo-form kernels
+# the p=3 kernels' halo forms (the 3x3 Gram, the embed field, the detect
+# tail) are checked at these (mask, p); the hybrid route runs them and ME
+# p = 5, 9 (the wide Gram's halo form)
+HALO_CASES = (("me", 3), ("nvf", 3), ("nvf", 5))
+MESH_CASES = (*HALO_CASES, ("me", 5), ("me", 9))
+# the multi-candidate kernel's halo form is checked at these (mask, p)
+MANY_HALO_CASES = (("me", 3), ("me", 5), ("me", 9), ("nvf", 3))
 HALO_SPACES = (4, 2)                               # 270- and 540-row shards
 # the sharded routes against the single-device kernel route on the same
 # card: the same kernels' sums over other row splits and in another order
@@ -1883,14 +1902,21 @@ def one_card_mesh(data: int, space: int = 1):
                      devices=[torch.device("cuda", 0)] * (data * space))
 
 
+def padded_rows(x: torch.Tensor, halo: int) -> torch.Tensor:
+    """(..., H, W) edge-replicated by ``halo`` rows above and below; rows
+    [start, stop + 2 halo) of it are the shard [start, stop) as
+    exchange_row_halo extends it (``halo_extended``, padding once)."""
+    lead, (rows, cols) = x.shape[:-2], x.shape[-2:]
+    return F.pad(x.reshape(-1, 1, rows, cols), (0, 0, halo, halo),
+                 mode="replicate").reshape(*lead, rows + 2 * halo, cols)
+
+
 def halo_extended(frames: torch.Tensor, start: int, stop: int,
                   halo: int) -> torch.Tensor:
     """Rows [start - halo, stop + halo) of the edge-replicated frames: a
     row shard as exchange_row_halo extends it."""
-    lead, (rows, cols) = frames.shape[:-2], frames.shape[-2:]
-    padded = F.pad(frames.reshape(-1, 1, rows, cols), (0, 0, halo, halo),
-                   mode="replicate").reshape(*lead, rows + 2 * halo, cols)
-    return padded[..., start:stop + 2 * halo, :].contiguous()
+    return padded_rows(frames, halo)[..., start:stop + 2 * halo,
+                                     :].contiguous()
 
 
 def check_halo_shard(frames_d, wm_d, coeffs, mask: str, p: int, start: int,
@@ -1942,11 +1968,85 @@ def check_halo_shard(frames_d, wm_d, coeffs, mask: str, p: int, start: int,
     return grams, worst
 
 
+def check_wide_halo(frames_d: torch.Tensor, p: int, space: int) -> str:
+    """The wide Gram's two kernels in their halo forms at ME p: the lag
+    kernel on every shard of ``space`` (top, interior, bottom) with the 2h
+    rows of halo the routes give it, against its plain halo form; the
+    shards' sums and edges folded over strips, lane blocks and shards and
+    assembled with the frame's banks by the assembly kernel, against its
+    plain version on the same inputs and against the frame's kernel Gram.
+    Returns the errors as text."""
+    rows = ROWS // space
+    reach = stencil_reach("me", p)
+    padded = padded_rows(frames_d, reach)
+    lag_err, sums, edges = 0.0, 0.0, 0.0
+    for index in range(space):
+        start = index * rows
+        ext = padded[:, start:start + rows + 2 * reach].contiguous()
+        got = kernels.wide_lag_strips(ext, p, reach, reach, start, ROWS)
+        want = kernels.lag_strips_plain(ext, p, reach, reach)
+        err = max(rel_err(g, w) for g, w in zip(got, want))
+        check(err <= SUM_RTOL, f"wide lag kernel p={p}, {rows}-row shard "
+              f"{index}: rel err {err:.3e} against its plain halo form")
+        lag_err = max(lag_err, err)
+        sums = sums + got[0].sum(dim=(2, 3), keepdim=True)
+        edges = edges + got[1].sum(dim=2, keepdim=True)
+    banks = kernels.frame_banks(frames_d, p)
+    gram = kernels.wide_assemble(sums, edges, *banks, p, ROWS)
+    assemble_err = rel_err(gram, kernels.assemble_strips_plain(
+        sums, edges, *banks, p))
+    frame_err = rel_err(gram, kernels.me_gram_wide(frames_d, p))
+    check(assemble_err <= SUM_RTOL and frame_err <= SUM_RTOL,
+          f"wide Gram p={p} over {space} shards: assembly kernel rel err "
+          f"{assemble_err:.3e} against its plain version, {frame_err:.3e} "
+          f"against the frame's Gram")
+    return (f"lag kernel rel {lag_err:.2e}; folded and assembled: assembly "
+            f"kernel rel {assemble_err:.2e}, vs the frame's wide Gram rel "
+            f"{frame_err:.2e}")
+
+
+def check_many_halo(frames_d: torch.Tensor, bank_d: torch.Tensor,
+                    coeffs: torch.Tensor, mask: str, p: int,
+                    space: int) -> str:
+    """The multi-candidate kernel in its halo form on every shard of
+    ``space`` with ``stencil_reach`` rows of halo, against its plain halo
+    form (phase 2's tolerances); the shards' sums added up against the
+    frame's kernel sums. Returns the errors as text."""
+    rows = ROWS // space
+    reach = stencil_reach(mask, p)
+    padded = padded_rows(frames_d, reach)
+    padded_bank = padded_rows(bank_d, reach)
+    worst, total = 0.0, None
+    for index in range(space):
+        start = index * rows
+        where = (mask, p, reach, reach, start, ROWS)
+        ext = padded[:, start:start + rows + 2 * reach].contiguous()
+        bank = padded_bank[:, start:start + rows + 2 * reach].contiguous()
+        got = kernels.detect_many_partials(ext, bank, coeffs, *where)
+        err = detect_errors(got, kernels.detect_many_partials_plain(
+            ext, bank, coeffs, *where))[1]
+        check(err <= SUM_RTOL, f"detect_many {mask} p={p}, {rows}-row shard "
+              f"{index}: sums rel err {err:.3e} against the plain halo form")
+        worst = max(worst, err)
+        total = got if total is None else tuple(
+            a + b for a, b in zip(total, got))
+        del bank, got
+    frame_err = detect_errors(total, kernels.detect_many_partials(
+        frames_d, bank_d, coeffs, mask, p))[1]
+    check(frame_err <= SUM_RTOL, f"detect_many {mask} p={p} over {space} "
+          f"shards: summed sums rel err {frame_err:.3e} against the frame's")
+    return (f"sums rel {worst:.2e}; shards' sums added up vs the frame's "
+            f"rel {frame_err:.2e}")
+
+
 def halo_timing_pairs(frames_d: torch.Tensor, wm_d: torch.Tensor,
-                      coeffs: torch.Tensor, rows: int) -> dict:
-    """The halo forms on the first interior shard of ``rows`` rows, ME and
-    NVF at p=3, each beside its plain halo form: {row name: (kernel, mask,
-    kernel fn, plain fn, halo, {kernel name: its profiler pattern})}."""
+                      bank_d: torch.Tensor, coeffs: dict,
+                      rows: int) -> dict:
+    """The halo forms on the first interior shard of ``rows`` rows, each
+    beside its plain halo form: the p=3 kernels at ME and NVF, the wide
+    Gram's lag kernel at ME p = 5, 7, 9 and the multi-candidate kernel at
+    MANY_HALO_CASES: {row name: (kernel, mask, p, kernel fn, plain fn,
+    halo, {kernel name: its profiler pattern})}."""
     start, stop = rows, 2 * rows
     pairs = {}
     for mask in ("me", "nvf"):
@@ -1955,52 +2055,82 @@ def halo_timing_pairs(frames_d: torch.Tensor, wm_d: torch.Tensor,
         w_ext = halo_extended(wm_d, start, stop, reach)
         e_ext = halo_extended(frames_d, start, stop, 1)
         w_own = wm_d[start:stop]
-        c = coeffs if mask == "me" else None
+        c = coeffs[3] if mask == "me" else None
         code = MASK_CODES[mask]
         name = row_name("embed_field", mask, 3)
         pairs[name] = (
-            "embed_field", mask,
+            "embed_field", mask, 3,
             lambda c=c, m=mask, e=e_ext: kernels.embed_field(
                 e, w_own, c, m, 3, 1, 1),
             lambda m=mask, e=e_ext: kernels.embed_field_plain(
-                e, w_own, coeffs, m, 3, 1, 1),
+                e, w_own, coeffs[3], m, 3, 1, 1),
             1, {name: f"embed_field_kernel<{code}, 1>"})
         name = row_name("detect_partials", mask, 3)
         where = (mask, 3, reach, reach, start, ROWS)
         pairs[name] = (
-            "detect_partials", mask,
+            "detect_partials", mask, 3,
             lambda x=ext, w=w_ext, a=where: kernels.detect_partials(
-                x, w, coeffs, *a),
+                x, w, coeffs[3], *a),
             lambda x=ext, w=w_ext, a=where: kernels.detect_partials_plain(
-                x, w, coeffs, *a),
+                x, w, coeffs[3], *a),
             reach, {name: f"detect_tail_kernel<{code}, 1, {code}>"})
         if mask == "me":
             pairs["me_gram"] = (
-                "me_gram", mask,
+                "me_gram", mask, 3,
                 lambda x=ext, r=reach: kernels.me_gram(x, r, r, start, ROWS),
                 lambda x=ext, r=reach: kernels.me_gram_plain(x, r, r),
                 reach, {gram: f"{gram}_kernel" for gram in GRAM_KERNELS})
+    for p in WIDE_P:
+        reach = stencil_reach("me", p)
+        ext = halo_extended(frames_d, start, stop, reach)
+        name = f"me_gram_wide_p{p}"
+        pairs[name] = (
+            "me_gram_wide", "me", p,
+            lambda x=ext, p=p, r=reach: kernels.wide_lag_strips(
+                x, p, r, r, start, ROWS),
+            lambda x=ext, p=p, r=reach: kernels.lag_strips_plain(x, p, r, r),
+            reach, {name: f"wide_lag_strips_kernel<{p // 2}>"})
+    for mask, p in MANY_HALO_CASES:
+        reach = stencil_reach(mask, p)
+        ext = halo_extended(frames_d, start, stop, reach)
+        bank = halo_extended(bank_d, start, stop, reach)
+        c = coeffs[p if mask == "me" else 3]
+        where = (mask, p, reach, reach, start, ROWS)
+        half = (p // 2, 0) if mask == "me" else (1, p // 2)
+        name = f"detect_many_{mask}_p{p}"
+        pairs[name] = (
+            "detect_many", mask, p,
+            lambda x=ext, b=bank, c=c, a=where: kernels.detect_many_partials(
+                x, b, c, *a),
+            lambda x=ext, b=bank, c=c, a=where:
+                kernels.detect_many_partials_plain(x, b, c, *a),
+            reach, {name: f"detect_many_kernel<{MASK_CODES[mask]}, "
+                          f"{half[0]}, {half[1]}>"})
     return pairs
 
 
-def phase_halo_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
+def phase_halo_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor,
+                       bank_d: torch.Tensor) -> dict:
     """[6] The halo-form kernels against their plain halo forms at 270- and
-    540-row shards (space 4 and 2) at every shard position, the shards'
-    Grams at each halo summed against the unsharded kernel Gram; then each
-    kernel's ms in its halo form on an interior shard. Returns {(row name,
-    shard rows): (ms, plain ms, bound ms, bound by)}."""
-    coeffs = predictor_coefficients(frames_d)[3]
+    540-row shards (space 4 and 2) at every shard position: the p=3
+    kernels at HALO_CASES, the shards' 3x3 Grams at each halo summed
+    against the unsharded kernel Gram; the wide Gram's two kernels at ME
+    p = 5, 7, 9 (``check_wide_halo``); the multi-candidate kernel at
+    MANY_HALO_CASES against the 64-candidate bank (``check_many_halo``).
+    Then each kernel's ms in its halo form on an interior shard. Returns
+    {(row name, shard rows): (ms, plain ms, bound ms, bound by)}."""
+    coeffs = predictor_coefficients(frames_d)
     frame_gram = kernels.me_gram(frames_d)
     times = {}
     for space in HALO_SPACES:
         rows = ROWS // space
-        for mask, p in MESH_CASES:
+        for mask, p in HALO_CASES:
             grams, worst = {}, 0.0
             for index in range(space):
                 where = ("top" if index == 0 else "bottom"
                          if index == space - 1 else "interior")
                 shard_grams, err = check_halo_shard(
-                    frames_d, wm_d, coeffs, mask, p, index * rows,
+                    frames_d, wm_d, coeffs[3], mask, p, index * rows,
                     (index + 1) * rows,
                     f"{mask} p={p} {rows}-row shard {index} ({where})")
                 for halo, gram in shard_grams.items():
@@ -2019,19 +2149,36 @@ def phase_halo_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                   + ", ".join(f"{err:.2e} (halo {halo})"
                               for halo, err in sorted(sum_errs.items()))
                   + ": ok", flush=True)
-        # times on the first interior shard, ME and NVF at p=3
-        for name, (kernel, mask, kernel_fn, plain_fn, halo,
-                   _) in halo_timing_pairs(frames_d, wm_d, coeffs,
+        for p in WIDE_P:
+            print(f"[6] wide Gram halo forms, me p={p}, {space} shards of "
+                  f"{rows} rows (top, interior, bottom): "
+                  f"{check_wide_halo(frames_d, p, space)}: ok", flush=True)
+        for mask, p in MANY_HALO_CASES:
+            text = check_many_halo(frames_d, bank_d,
+                                   coeffs[p if mask == "me" else 3], mask, p,
+                                   space)
+            print(f"[6] detect_many halo form, {mask} p={p}, N="
+                  f"{N_CANDIDATES}, {space} shards of {rows} rows (top, "
+                  f"interior, bottom): {text}: ok", flush=True)
+        torch.cuda.empty_cache()
+        # times on the first interior shard
+        for name, (kernel, mask, p, kernel_fn, plain_fn, halo,
+                   _) in halo_timing_pairs(frames_d, wm_d, bank_d, coeffs,
                                            rows).items():
-            bound_ms, bound_by = kernel_bound(kernel, mask, 3, rows=rows,
+            bound_ms, bound_by = kernel_bound(kernel, mask, p, rows=rows,
                                               halo=halo)
-            times[(name, rows)] = (cuda_ms(kernel_fn), cuda_ms(plain_fn),
-                                   bound_ms, bound_by)
+            # the plain multi-candidate form takes ~0.1-1 s a call
+            many = kernel == "detect_many"
+            times[(name, rows)] = (
+                cuda_ms(kernel_fn, *((5, 1) if many else ())),
+                cuda_ms(plain_fn, *((2, 1) if many else ())),
+                bound_ms, bound_by)
             ms, plain_ms = times[(name, rows)][:2]
             print(f"[6] {name} halo form, {rows}-row interior shard of "
                   f"8x{COLS} (halo {halo}): kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}), {bound_ms / ms:.0%} of it", flush=True)
+        torch.cuda.empty_cache()
     return times
 
 
@@ -2131,8 +2278,17 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             return marked, strength, make_hybrid_detect(hybrid, mask, p=p)(
                 marked, wm_d)
         (marked, strength, corr), counts, ms = run_counted(step)
-        check(all(counts[k] > 0 for k in P3_KERNELS),
-              f"{label}: a kernel was never launched: {counts}")
+        # per data row, one launch a space shard of the embed field and the
+        # detect tail, and of the Gram's lag kernel (ME embed and detect,
+        # NVF detect); the wide Gram's assembly once a space row
+        if mask == "me" and p != 3:
+            want = {"wide_lag_strips": 8, "wide_assemble": 4}
+        else:
+            grams = 8 if mask == "me" else 4
+            want = {"me_gram_lags": grams, "me_gram_assemble": grams}
+        want.update(embed_field=4, detect_partials=4)
+        check({k: n for k, n in counts.items() if n} == want,
+              f"{label}: launches {launched(counts)}, expected {want}")
         add_counts(launches, counts, mask, p)
         marked, strength, corr = (t.gather() for t in (marked, strength,
                                                        corr))
@@ -2151,7 +2307,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
 
     # spatial detect, data=1 x space=4 (270-row shards)
     spatial = one_card_mesh(1, 4)
-    for p, impl in ((3, "cuda"), (9, "torch")):
+    for p, impl in ((3, "cuda"), (9, "torch"), (9, "cuda")):
         label = f"spatial 1x4 me p={p} impl={impl}"
         marked0, _ = batch_embed(frames_d[:1], frames_d[:1], wm_d, sf, "me",
                                  p=p)
@@ -2159,9 +2315,11 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         detect = make_spatial_detect(spatial, "me", p=p, impl=impl)
         corr, counts, ms = run_counted(lambda: detect(marked0[0], wm_d))
         if impl == "cuda":
-            check(counts["detect_partials"] == 4
-                  and counts["me_gram_lags"] == 4,
-                  f"{label}: launches {counts}")
+            want = ({"me_gram_lags": 4, "me_gram_assemble": 4} if p == 3
+                    else {"wide_lag_strips": 4, "wide_assemble": 1})
+            want["detect_partials"] = 4
+            check({k: n for k, n in counts.items() if n} == want,
+                  f"{label}: launches {launched(counts)}, expected {want}")
         else:
             check(not any(counts.values()), f"{label}: the plain route "
                   f"launched kernels: {counts}")
@@ -2201,21 +2359,36 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
           f"{launched(counts)}: ok", flush=True)
     del marked, ref_marked
 
-    # identification: the bank split 16 a shard over data=4 (ME p=5), and
-    # over data=2 x space=2 on the plain route (ME p=3)
-    for mesh, p, impl, make in ((dp, 5, "cuda", make_dp_detect_many),
-                                (hybrid, 3, "torch", make_mesh_detect_many)):
+    # identification: the bank split 16 a shard over data=4 (ME p=5); over
+    # data=2 x space=2 (ME p=3, plain and kernels) and over space=4 (ME p=9,
+    # NVF p=5: rows split, the whole bank on each shard)
+    for mesh, mask, p, impl, make in (
+            (dp, "me", 5, "cuda", make_dp_detect_many),
+            (hybrid, "me", 3, "torch", make_mesh_detect_many),
+            (hybrid, "me", 3, "cuda", make_mesh_detect_many),
+            (spatial, "me", 9, "cuda", make_mesh_detect_many),
+            (spatial, "nvf", 5, "cuda", make_mesh_detect_many)):
         label = (f"{make.__name__} {mesh.shape['data']}x"
-                 f"{mesh.shape['space']} me p={p} impl={impl}")
-        marked0, _ = batch_embed(frames_d[:1], frames_d[:1], wm_d, sf, "me",
+                 f"{mesh.shape['space']} {mask} p={p} impl={impl}")
+        marked0, _ = batch_embed(frames_d[:1], frames_d[:1], wm_d, sf, mask,
                                  p=p)
-        ref = detect_many_pipeline(marked0[0], bank_d, "me", p=p)
-        fn = make(mesh, "me", p=p, impl=impl)
+        ref = detect_many_pipeline(marked0[0], bank_d, mask, p=p)
+        fn = make(mesh, mask, p=p, impl=impl)
         scores, counts, ms = run_counted(lambda: fn(marked0[0], bank_d))
-        check(impl == "torch" and not any(counts.values())
-              or counts["detect_many"] == 4,
-              f"{label}: launches {counts}")
-        add_counts(launches, counts, "me", p)
+        if impl == "torch":
+            want = {}
+        elif mesh is dp:       # the single-device kernels on each shard
+            want = {"wide_lag_strips": 4, "wide_assemble": 4}
+        else:                  # the halo forms; the Gram once a space row
+            rows = mesh.shape["data"]
+            want = ({"wide_lag_strips": 4, "wide_assemble": rows}
+                    if mask == "me" and p != 3 else
+                    {"me_gram_lags": 4, "me_gram_assemble": 4})
+        if impl == "cuda":
+            want["detect_many"] = 4
+        check({k: n for k, n in counts.items() if n} == want,
+              f"{label}: launches {launched(counts)}, expected {want}")
+        add_counts(launches, counts, mask, p)
         scores = scores.gather()
         check(int(scores.argmax()) == ENGINE_CANDIDATE,
               f"{label}: argmax {int(scores.argmax())}, not "
@@ -2224,7 +2397,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         check(err <= MESH_CORR_ATOL, f"{label}: differs from single-device "
               f"identification by {err:.3e}")
         jax_err = float(np.abs(scores.cpu().numpy() - np.asarray(
-            JAX_IDENTIFY_REFERENCE[f"me:{p}"]["marked"])).max())
+            JAX_IDENTIFY_REFERENCE[f"{mask}:{p}"]["marked"])).max())
         check(jax_err <= MESH_IDENTIFY_ATOL, f"{label}: differs from JAX by "
               f"{jax_err:.3e}")
         print(f"[6] {label}: argmax {ENGINE_CANDIDATE} (corr "
@@ -2232,24 +2405,36 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
               f"{err:.1e}, JAX {jax_err:.1e}; {ms:.2f} ms ({power}); "
               f"launches {launched(counts)}: ok", flush=True)
 
-    # the three services over a mesh of data=2 (the detector and embedder
-    # with space=2 as well): answers equal to the mesh functions'
+    # the services over a mesh of data=2 (the detector and embedder with
+    # space=2 as well; the identifier over data=2 alone and over data=2 x
+    # space=2; a p=5 detector over data=2 x space=2): answers equal to the
+    # mesh functions'
     engine = BatchedWatermark(ROWS, COLS, SEED, p=3, psnr=PSNR,
                               device="cuda")
+    wide_engine = BatchedWatermark(ROWS, COLS, SEED, p=5, psnr=PSNR,
+                                   device="cuda")
     requests = frames[:4]
+    pair = one_card_mesh(2)
     services = (
-        ("DetectorService", DetectorService(engine, "me", batch_size=4,
-                                            mesh=hybrid),
+        ("DetectorService", 3, hybrid, DetectorService(
+            engine, "me", batch_size=4, mesh=hybrid),
          lambda: make_hybrid_detect(hybrid, "me")(requests, wm_d)),
-        ("EmbedderService", EmbedderService(engine, "me", batch_size=4,
-                                            mesh=hybrid),
+        ("EmbedderService", 3, hybrid, EmbedderService(
+            engine, "me", batch_size=4, mesh=hybrid),
          lambda: make_hybrid_embed(hybrid, "me", sf)(
              requests, requests, wm_d)),
-        ("IdentifierService", IdentifierService(
-            engine, bank_d, "me", batch_size=4, mesh=one_card_mesh(2)),
-         lambda: make_dp_detect_many(one_card_mesh(2), "me",
-                                     batched=True)(requests, bank_d)))
-    for name, service, direct in services:
+        ("IdentifierService", 3, pair, IdentifierService(
+            engine, bank_d, "me", batch_size=4, mesh=pair),
+         lambda: make_dp_detect_many(pair, "me", batched=True)(
+             requests, bank_d)),
+        ("IdentifierService", 3, hybrid, IdentifierService(
+            engine, bank_d, "me", batch_size=4, mesh=hybrid),
+         lambda: make_mesh_detect_many(hybrid, "me", batched=True)(
+             requests, bank_d)),
+        ("DetectorService", 5, hybrid, DetectorService(
+            wide_engine, "me", batch_size=4, mesh=hybrid),
+         lambda: make_hybrid_detect(hybrid, "me", p=5)(requests, wm_d)))
+    for name, p, mesh, service, direct in services:
         try:
             service.warmup(dtypes=(np.float32,))
 
@@ -2259,8 +2444,9 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             answers, counts, ms = run_counted(serve)
         finally:
             service.close()
-        check(counts["me_gram_lags"] > 0, f"{name}: launches {counts}")
-        add_counts(launches, counts, "me", 3)
+        gram = "me_gram_lags" if p == 3 else "wide_lag_strips"
+        check(counts[gram] > 0, f"{name} p={p}: launches {counts}")
+        add_counts(launches, counts, "me", p)
         want = direct()
         if name == "EmbedderService":
             got_px = np.stack([a[0] for a in answers])
@@ -2270,13 +2456,13 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         else:
             same = np.array_equal(np.asarray(answers, np.float32),
                                   np.asarray(want))
-        check(same, f"{name} over {service.mesh or 'a data=2 mesh'}: "
-              f"answers differ from the mesh function's")
-        print(f"[6] {name} (mesh data=2"
-              f"{', space=2' if name != 'IdentifierService' else ''}): "
-              f"{len(requests)} requests in {ms:.1f} ms ({power}), answers "
-              f"equal to the mesh function's; launches {launched(counts)}: "
-              f"ok", flush=True)
+        shape = ", ".join(f"{axis}={n}" for axis, n in mesh.shape.items()
+                          if n > 1)
+        check(same, f"{name} p={p} over {shape}: answers differ from the "
+              f"mesh function's")
+        print(f"[6] {name} me p={p} (mesh {shape}): {len(requests)} requests "
+              f"in {ms:.1f} ms ({power}), answers equal to the mesh "
+              f"function's; launches {launched(counts)}: ok", flush=True)
     print(f"[6] launches of the sharded routes by kernels-line row: "
           f"{launches}", flush=True)
     return launches
@@ -2295,11 +2481,12 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
                  halo: int = 0) -> tuple[float, str]:
     """The bound of one kernel call at 8 x 1080 x 1920 (or, in its halo
     form, on a shard of 8 x ``rows`` x 1920 extended by ``halo`` rows each
-    side: the extended frames, and the detect tail's extended watermark,
-    read once, the outputs over the owned rows): each input read once,
-    each output written once, and the flops the function needs, per owned
-    pixel (a multiply-add counts 2; the detect tail's ring is not
-    counted):
+    side: the extended frames, and the detect tail's extended watermark
+    and the multi-candidate kernel's extended bank, read once, the wide
+    Gram's lag kernel reading only the rows below; the outputs over the
+    owned rows): each input read once, each output written once, and the
+    flops the function needs, per owned pixel (a multiply-add counts 2;
+    the detect tail's ring is not counted):
 
     * the 3x3 Gram: 13 lag products (the TPU kernel's lag form);
     * the wide Gram: one product per canonical lag and lane of each row;
@@ -2325,7 +2512,8 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
         h = p // 2
         lags = ((4 * h + 1) ** 2 + 1) // 2
         lanes = BATCH * lags * (COLS + 2 * h)
-        return bound(frame_bytes + 4 * lanes, 2 * lanes * ROWS)
+        return bound(4 * BATCH * (rows + halo) * COLS + 4 * lanes,
+                     2 * lanes * rows)
     if kernel == "embed_field":
         mask_flops = 2 * k + 1 if mask == "me" else nvf_flops
         return bound(frame_bytes + out_bytes + wm_bytes + 8 * BATCH,
@@ -2339,8 +2527,9 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
     mask_flops = 1 if mask == "me" else nvf_flops
     if kernel == "detect_many":
         n = N_CANDIDATES
-        return bound(frame_bytes + n * wm_bytes + 4 * BATCH * (taps + 2 * n
-                                                               + 1),
+        bank_bytes = 4 * n * (rows + 2 * halo) * COLS
+        return bound(frame_bytes + bank_bytes + 4 * BATCH * (taps + 2 * n
+                                                             + 1),
                      ((2 * taps + 5) * n + 2 * taps + mask_flops + 2)
                      * pixels)
     wm_bytes = 4 * (rows + 2 * halo) * COLS
@@ -2395,10 +2584,10 @@ def main() -> int:
     # profiler's timings
     phase_cli()
     phase_video()
-    halo_times = phase_halo_kernels(frames_d, wm_d)
+    halo_times = phase_halo_kernels(frames_d, wm_d, bank_d)
     mesh_launches = phase_mesh(frames, bank, power)
     split = device_split(frames_d, wm_d)
-    halo_split = halo_device_split(frames_d, wm_d)
+    halo_split = halo_device_split(frames_d, wm_d, bank_d)
     for (name, shard_rows), ms in sorted(halo_split.items()):
         print(f"[6] {name} halo form, {shard_rows}-row interior shard of "
               f"8x{COLS} (device time a call, torch.profiler): {ms:.4f} ms "

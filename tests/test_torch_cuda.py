@@ -211,8 +211,11 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
         torch.testing.assert_close(sums, sums_plain, rtol=1e-4, atol=1e-2)
         torch.testing.assert_close(edges, edges_plain, rtol=1e-4, atol=1e-2)
         torch.testing.assert_close(
-            kernels.wide_assemble(sums_plain, edges_plain, frames, p),
-            kernels.assemble_strips_plain(sums_plain, edges_plain, frames,
+            kernels.wide_assemble(sums_plain, edges_plain,
+                                  *kernels.frame_banks(frames, p), p,
+                                  shape[1]),
+            kernels.assemble_strips_plain(sums_plain, edges_plain,
+                                          *kernels.frame_banks(frames, p),
                                           p), rtol=1e-4, atol=0)
         again = kernels.wide_lag_strips(frames, p)
         assert torch.equal(again[0], sums) and torch.equal(again[1], edges)
@@ -452,26 +455,53 @@ HALO_SHAPES = {(3, 40, 96): 10, (2, 150, 90): 75, (1, 810, 520): 270}
 @pytest.mark.parametrize("mask_type,p", [("me", 3), ("me", 5), ("me", 9),
                                          ("nvf", 3), ("nvf", 5), ("nvf", 9)])
 def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
-    """The halo forms of the 3x3 Gram's two kernels, the embed field and
-    the detect tail against their plain halo forms on the same extended
-    shards, at each shard position (the frame's top, the interior and its
-    bottom, with the halo each kernel reads; the Gram at the detect tail's
-    halo and at the embed field's, as the routes give it); the shards'
-    Grams summed against the frame's at each halo; the embed field's u_raw
-    bit-identical."""
+    """The halo forms of the 3x3 Gram's two kernels, the embed field, the
+    detect tail and the multi-candidate kernel (5 candidates) against their
+    plain halo forms on the same extended shards, at each shard position
+    (the frame's top, the interior and its bottom, with the halo each
+    kernel reads; the Gram at the detect tail's halo and at the embed
+    field's, as the routes give it); the shards' Grams summed against the
+    frame's at each halo, and their multi-candidate sums against the
+    frame's; the embed field's u_raw bit-identical. At ME p > 3 also the
+    wide Gram's lag kernel at the detect tail's 2h halo against its plain
+    halo form, the shards' sums folded and assembled with the frame's banks
+    by the assembly kernel against its plain version and the frame's wide
+    Gram."""
     frames, wm, coeffs = make_inputs(shape, device)
     if mask_type == "me" and p != 3:
         coeffs = torch.zeros(shape[0], p * p - 1, device=device)
         coeffs[:, (p * p - 1) // 2] = 0.5
+    c = coeffs if mask_type == "me" else coeffs[:, :8]
     rows = HALO_SHAPES[shape]
     total = shape[1]
     reach = kernels.stencil_reach(mask_type, p)
     half = max(1, p // 2)
+    wide = mask_type == "me" and p != 3
+    bank = torch.from_numpy(np.random.default_rng(p).normal(
+        size=(5,) + shape[1:]).astype(np.float32)).to(device)
     grams = {halo: [] for halo in {half, reach}}
+    many, strips = [], []
     for start in range(0, total, rows):
         stop = start + rows
         ext = extended(frames, start, stop, reach)
         w_ext = extended(wm, start, stop, reach)
+        where = (mask_type, p, reach, reach, start, total)
+        b_ext = extended(bank, start, stop, reach)
+        got = kernels.detect_many_partials(ext, b_ext, c, *where)
+        want = kernels.detect_many_partials_plain(ext, b_ext, c, *where)
+        scale = torch.sqrt(want[1] * want[2][:, None])
+        torch.testing.assert_close(got[0] / scale, want[0] / scale,
+                                   rtol=1e-4, atol=1e-6)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        many.append(got)
+        if wide:
+            got = kernels.wide_lag_strips(ext, p, reach, reach, start, total)
+            want = kernels.lag_strips_plain(ext, p, reach, reach)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-2)
+            strips.append((got[0].sum(dim=(2, 3), keepdim=True),
+                           got[1].sum(dim=2, keepdim=True)))
         for halo, parts in grams.items():
             g_ext = extended(frames, start, stop, halo)
             where = (g_ext, halo, halo, start, total)
@@ -511,6 +541,22 @@ def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
     frame_gram = kernels.me_gram(frames)
     for parts in grams.values():
         torch.testing.assert_close(sum(parts), frame_gram, rtol=1e-4, atol=0)
+    dot, norm_u, norm_z = (sum(parts) for parts in zip(*many))
+    want = kernels.detect_many_partials(frames, bank, c, mask_type, p)
+    scale = torch.sqrt(want[1] * want[2][:, None])
+    torch.testing.assert_close(dot / scale, want[0] / scale, rtol=1e-4,
+                               atol=1e-6)
+    torch.testing.assert_close(norm_u, want[1], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(norm_z, want[2], rtol=1e-4, atol=1e-6)
+    if wide:
+        folded = [sum(parts) for parts in zip(*strips)]
+        banks = kernels.frame_banks(frames, p)
+        gram = kernels.wide_assemble(*folded, *banks, p, total)
+        torch.testing.assert_close(
+            gram, kernels.assemble_strips_plain(*folded, *banks, p),
+            rtol=1e-4, atol=0)
+        torch.testing.assert_close(gram, kernels.me_gram_wide(frames, p),
+                                   rtol=1e-4, atol=0)
     torch.cuda.synchronize()
 
 
@@ -543,6 +589,63 @@ def test_hybrid_matches_single_device_on_card(device, mask_type, p):
     grams = 8 if mask_type == "me" else 4
     assert after["me_gram_lags"] - before["me_gram_lags"] == grams
     assert after["me_gram_assemble"] - before["me_gram_assemble"] == grams
+
+
+@pytest.mark.parametrize("p", [5, 9])
+def test_wide_and_identify_routes_match_single_device_on_card(device, p):
+    """On one card: hybrid embed then detect at ME p on a data=2 x space=2
+    mesh and spatial detect over 12 shards of 10 rows (shorter than 3h at
+    p=9: the banks from a 3h exchange) through the wide Gram's halo form,
+    and mesh identification (data=2 x space=2) at ME p and NVF p=3,
+    against the single-device kernel route (correlations 1e-4, strengths
+    1e-4 relative, pixels 1e-2); each halo-form kernel launched once a
+    shard, the wide Gram's assembly once a space row."""
+    from watermarking_gpu_tpu_torch.parallel import (make_hybrid_detect,
+                                                     make_hybrid_embed,
+                                                     make_mesh,
+                                                     make_mesh_detect_many,
+                                                     make_spatial_detect)
+    frames, wm, _ = make_inputs((4, 120, 200), device)
+    mesh = make_mesh(2, 2, devices=[device] * 4)
+    kernels.reset_launch_counts()
+    marked, strength = make_hybrid_embed(mesh, "me", 2.55, p=p)(
+        frames, frames, wm)
+    corr = make_hybrid_detect(mesh, "me", p=p)(marked.gather(), wm)
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert counts == {"wide_lag_strips": 8, "wide_assemble": 4,
+                      "embed_field": 4, "detect_partials": 4}
+    want_marked, want_s = pipelines.embed_pipeline(frames, frames, wm, 2.55,
+                                                   "me", p=p)
+    want_corr = pipelines.detect_pipeline(want_marked, wm, "me", p=p)
+    torch.testing.assert_close(marked.gather(), want_marked, atol=1e-2,
+                               rtol=0)
+    torch.testing.assert_close(strength.gather(), want_s, rtol=1e-4, atol=0)
+    torch.testing.assert_close(corr.gather(), want_corr, atol=1e-4, rtol=0)
+
+    kernels.reset_launch_counts()
+    spatial = make_spatial_detect(make_mesh(1, 12, devices=[device] * 12),
+                                  "me", p=p)(want_marked[0], wm)
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert counts == {"wide_lag_strips": 12, "wide_assemble": 1,
+                      "detect_partials": 12}
+    assert abs(float(spatial) - float(want_corr[0])) <= 1e-4
+
+    rng = np.random.default_rng(p)
+    bank = torch.from_numpy(np.concatenate([
+        wm.cpu().numpy()[None],
+        rng.normal(size=(5, 120, 200)).astype(np.float32)])).to(device)
+    for mask_type, pm in (("me", p), ("nvf", 3)):
+        kernels.reset_launch_counts()
+        scores = make_mesh_detect_many(mesh, mask_type, p=pm)(
+            want_marked[0], bank).gather()
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        gram = ({"wide_lag_strips": 4, "wide_assemble": 2} if mask_type == "me"
+                else {"me_gram_lags": 4, "me_gram_assemble": 4})
+        assert counts == {**gram, "detect_many": 4}
+        want = pipelines.detect_many_pipeline(want_marked[0], bank,
+                                              mask_type, p=pm)
+        torch.testing.assert_close(scores, want, atol=1e-4, rtol=0)
+        assert int(scores.argmax()) == 0
 
 
 def test_mesh_across_cards_matches_one_card(device):

@@ -58,8 +58,31 @@ def test_sources_name_no_jax():
     assert offenders == []
     imports = re.compile(r"^\s*(import|from)\s+(jax|PIL|watermarking_gpu_tpu)"
                          r"\b")
-    smoke = (REPO / "chip_smoke.py").read_text().splitlines()
-    assert [line for line in smoke if imports.search(line)] == []
+    for script in ("chip_smoke.py", "examples/multichip_watermark_torch.py"):
+        lines = (REPO / script).read_text().splitlines()
+        assert [line for line in lines if imports.search(line)] == [], script
+
+
+def test_multichip_example_loads_no_jax():
+    """The port's mesh example imports the port alone (nor Pillow), and
+    runs on the card unless given other devices."""
+    code = ("import runpy, sys; "
+            "ns = runpy.run_path('examples/multichip_watermark_torch.py'); "
+            "import inspect; "
+            "assert inspect.signature(ns['main']).parameters['devices']"
+            ".default is None; "
+            "bad = sorted(m for m in sys.modules if m.startswith('jax') or "
+            "m.split('.')[0] in ('watermarking_gpu_tpu', 'PIL')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stdout + result.stderr
+    if not torch.cuda.is_available():
+        result = subprocess.run(
+            [sys.executable, "examples/multichip_watermark_torch.py"],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert result.returncode != 0
+        assert "no CUDA device" in result.stderr
 
 
 def fake_nvcc(tmp_path: Path, body: str) -> Path:
@@ -146,7 +169,8 @@ def test_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.wide_assemble(torch.zeros(1, 41, 1, 1, device="meta"),
                               torch.zeros(1, 41, 1, 8, device="meta"),
-                              torch.zeros(1, 16, 16, device="meta"), 5)
+                              torch.zeros(1, 8, 16, device="meta"),
+                              torch.zeros(1, 8, 16, device="meta"), 5, 16)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.detect_many_partials(frames, wm[None],
                                      torch.zeros(1, 8, device="meta"))

@@ -6,12 +6,18 @@ JAX side runs ``impl="xla"``. Both get the same numpy inputs. The port's
 ``impl="cuda"`` route runs the kernels' plain halo forms here (the kernels
 themselves are held to them on the card: ``tests/test_torch_cuda.py``).
 Tolerances: those of ``tests/test_parallel.py`` (correlations 1e-4 to
-2e-4, strengths 1e-4 relative, pixels 2e-3), and for the 1080-row case
-the JAX package's own multi-device bounds (``__graft_entry__.py``: pixels
-1e-2, strengths 5e-3 relative, correlations 5e-4).
+2e-4, strengths 1e-4 relative, pixels 2e-3; identification 1e-4), and for
+the 1080-row case the JAX package's own multi-device bounds
+(``__graft_entry__.py``: pixels 1e-2, strengths 5e-3 relative,
+correlations 5e-4). ME strengths at p = 7, 9 take 1e-3 relative: the
+80-tap system's conditioning amplifies the Gram's summation order (the
+plain route's p=9 test holds the same bound).
 """
 
+import hashlib
+import importlib.util
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +32,8 @@ from watermarking_gpu_tpu.ops import strength_factor
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops.cuda.fused import stencil_reach
 from watermarking_gpu_tpu_torch.ops.neighbors import pad_edge
-from watermarking_gpu_tpu_torch.ops.pipelines import (detect_pipeline,
+from watermarking_gpu_tpu_torch.ops.pipelines import (detect_many_pipeline,
+                                                      detect_pipeline,
                                                       embed_pipeline)
 
 torch.set_num_threads(2)
@@ -158,8 +165,31 @@ def test_dp_detect_many_matches_jax(frames, watermark, bank, impl):
                                atol=1e-4)
 
 
+_JAX_RESULTS: dict = {}
+
+
+def jax_cached(fn, *args):
+    """fn(*args) of numpy arrays and numbers, computed once a module: the
+    JAX routes compile for seconds at p = 7, 9, and several tests ask
+    for the same."""
+    key = (fn.__name__,) + tuple(
+        hashlib.sha1(a.tobytes()).hexdigest() if isinstance(a, np.ndarray)
+        else a for a in args)
+    if key not in _JAX_RESULTS:
+        _JAX_RESULTS[key] = fn(*args)
+    return _JAX_RESULTS[key]
+
+
+def jax_spatial_detect(mask_type, p, space, img, wm):
+    mesh = jp.make_mesh(data=1, space=space)
+    return float(jp.make_spatial_detect(mesh, mask_type, p=p)(
+        jp.shard_rows(mesh, jnp.asarray(img)),
+        jp.shard_rows(mesh, jnp.asarray(wm))))
+
+
 def jax_spatial(mask_type, p, space, img, wm):
     """The JAX package's spatial detect and embed (impl="xla")."""
+    img, wm = jnp.asarray(img), jnp.asarray(wm)
     mesh = jp.make_mesh(data=1, space=space)
     img_sh, wm_sh = jp.shard_rows(mesh, img), jp.shard_rows(mesh, wm)
     corr = jp.make_spatial_detect(mesh, mask_type, p=p)(img_sh, wm_sh)
@@ -171,9 +201,8 @@ def jax_spatial(mask_type, p, space, img, wm):
 def assert_spatial_matches(mask_type, p, space, img, wm, impl,
                            corr_atol=2e-4, strength_rtol=1e-4,
                            pixel_atol=2e-3):
-    want_corr, want_out, want_s = jax_spatial(mask_type, p, space,
-                                              jnp.asarray(img),
-                                              jnp.asarray(wm))
+    want_corr, want_out, want_s = jax_cached(jax_spatial, mask_type, p,
+                                             space, img, wm)
     mesh = port_mesh(1, space)
     got = tp.make_spatial_detect(mesh, mask_type, p=p, impl=impl)(
         tp.shard_rows(mesh, img), tp.shard_rows(mesh, wm))
@@ -204,42 +233,66 @@ def test_spatial_halo_deeper_than_shard(frames, watermark, impl):
     assert_spatial_matches("nvf", 9, 8, frames[0], watermark, impl)
 
 
-def test_wide_me_p9_shards(frames, watermark):
+@pytest.mark.parametrize("impl", IMPLS)
+def test_wide_me_p9_shards(frames, watermark, impl):
     """ME p=9 (h = 4) on 4-row shards (the wide Gram's bank rows and its
     2h lag reach span several shards: multi-hop exchanges) and on 8-row
-    shards (2h rows, < 3h), on the plain route; the frame's lag form
+    shards (2h rows, < 3h: the banks from a 3h-row exchange), on the plain
+    route and on the kernel route (the lag kernel's halo form on each
+    shard, its sums folded and assembled once); the frame's lag form
     throughout, as the JAX package's shard analysis keeps it."""
-    img, wm = jnp.asarray(frames[0]), jnp.asarray(watermark)
-    jmesh = jp.make_mesh(data=1, space=8)
-    want = float(jp.make_spatial_detect(jmesh, "me", p=9)(
-        jp.shard_rows(jmesh, img), jp.shard_rows(jmesh, wm)))
-    got = tp.make_spatial_detect(port_mesh(1, 8), "me", p=9, impl="torch")(
+    want = jax_cached(jax_spatial_detect, "me", 9, 8, frames[0], watermark)
+    got = tp.make_spatial_detect(port_mesh(1, 8), "me", p=9, impl=impl)(
         frames[0], watermark)
     assert abs(float(got) - want) <= 1e-4
-    assert_spatial_matches("me", 9, 4, frames[0], watermark, "torch",
+    assert_spatial_matches("me", 9, 4, frames[0], watermark, impl,
                            strength_rtol=1e-3)
+
+
+@pytest.mark.parametrize("p", [5, 7, 9])
+def test_spatial_wide_me_kernel_route_matches_jax(frames, watermark, p):
+    """ME p = 5, 7, 9 over 4 shards of 8 rows on the kernel route: the
+    wide Gram's halo form (banks from the edge shards, from a 3h-row
+    exchange at p = 7, 9) and the tails' halo forms."""
+    assert_spatial_matches("me", p, 4, frames[0], watermark, "cuda",
+                           strength_rtol=1e-4 if p == 5 else 1e-3)
+
+
+def assert_hybrid_matches(frames, watermark, impl, p=3, strength_rtol=1e-4):
+    """Hybrid ME detect and embed on a 2 x 4 mesh against the JAX
+    package's."""
+    jmesh, mesh = jp.make_mesh(data=2, space=4), port_mesh(2, 4)
+    jframes = jp.shard_hybrid(jmesh, jnp.asarray(frames))
+    jwm = jp.shard_watermark(jmesh, jnp.asarray(watermark))
+    want = jp.make_hybrid_detect(jmesh, "me", p=p)(jframes, jwm)
+    got = tp.make_hybrid_detect(mesh, "me", p=p, impl=impl)(
+        tp.shard_hybrid(mesh, frames), tp.shard_watermark(mesh, watermark))
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-4)
+    want_out, want_s = jp.make_hybrid_embed(jmesh, "me", SF, ROWS, COLS,
+                                            p=p)(jframes, jframes, jwm)
+    got_out, got_s = tp.make_hybrid_embed(mesh, "me", SF, p=p, impl=impl)(
+        frames, frames, watermark)
+    assert got_out.spec == (tp.DATA_AXIS, tp.SPACE_AXIS, None)
+    np.testing.assert_allclose(np.asarray(got_s), np.asarray(want_s),
+                               rtol=strength_rtol)
+    np.testing.assert_allclose(np.asarray(got_out), np.asarray(want_out),
+                               atol=2e-3)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
 def test_hybrid_matches_jax(frames, watermark, impl):
     """A 2 x 4 mesh: frames over data, rows over space, ME detect and
     embed."""
-    jmesh, mesh = jp.make_mesh(data=2, space=4), port_mesh(2, 4)
-    jframes = jp.shard_hybrid(jmesh, jnp.asarray(frames))
-    jwm = jp.shard_watermark(jmesh, jnp.asarray(watermark))
-    want = jp.make_hybrid_detect(jmesh, "me")(jframes, jwm)
-    got = tp.make_hybrid_detect(mesh, "me", impl=impl)(
-        tp.shard_hybrid(mesh, frames), tp.shard_watermark(mesh, watermark))
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-4)
-    want_out, want_s = jp.make_hybrid_embed(jmesh, "me", SF, ROWS, COLS)(
-        jframes, jframes, jwm)
-    got_out, got_s = tp.make_hybrid_embed(mesh, "me", SF, impl=impl)(
-        frames, frames, watermark)
-    assert got_out.spec == (tp.DATA_AXIS, tp.SPACE_AXIS, None)
-    np.testing.assert_allclose(np.asarray(got_s), np.asarray(want_s),
-                               rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(got_out), np.asarray(want_out),
-                               atol=2e-3)
+    assert_hybrid_matches(frames, watermark, impl)
+
+
+@pytest.mark.parametrize("p", [5, 7, 9])
+def test_hybrid_wide_me_kernel_route_matches_jax(frames, watermark, p):
+    """ME p = 5, 7, 9 on a 2 x 4 mesh on the kernel route: the wide Gram's
+    halo form on every shard of each data row, one assembly and one solve
+    a space row."""
+    assert_hybrid_matches(frames, watermark, "cuda", p,
+                          1e-4 if p == 5 else 1e-3)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -290,6 +343,51 @@ def test_mesh_detect_many_matches_jax(frames, watermark, bank, mask_type):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("p", [5, 9])
+def test_one_space_shard_kernel_route_matches_single_device(frames,
+                                                            watermark, bank,
+                                                            p):
+    """A space axis of one shard on the kernel route: the hybrid detect's
+    halo forms see the frame's own edges on both sides, and mesh
+    identification runs the single-device kernels; both match the
+    single-device plain route within 1e-4."""
+    mesh = port_mesh(2, 1)
+    got = tp.make_hybrid_detect(mesh, "me", p, impl="cuda")(frames[:2],
+                                                            watermark)
+    want = detect_pipeline(torch.from_numpy(frames[:2]),
+                           torch.from_numpy(watermark), "me", p,
+                           impl="torch")
+    np.testing.assert_allclose(np.asarray(got), want.numpy(), atol=1e-4)
+    got = tp.make_mesh_detect_many(mesh, "me", p, impl="cuda")(frames[0],
+                                                               bank)
+    want = detect_many_pipeline(torch.from_numpy(frames[0]),
+                                torch.from_numpy(bank), "me", p,
+                                impl="torch")
+    np.testing.assert_allclose(np.asarray(got), want.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("space", [2, 4])
+@pytest.mark.parametrize("mask_type,p", [("me", 3), ("me", 5), ("nvf", 3)])
+def test_mesh_detect_many_kernel_route_matches_jax(frames, watermark, bank,
+                                                   mask_type, p, space):
+    """Identification on the kernel route over data=2 x space 2 and 4: the
+    Gram's and the multi-candidate kernel's halo forms on every shard; the
+    embedded candidate wins."""
+    marked, _ = embed_pipeline(torch.from_numpy(frames[0]),
+                               torch.from_numpy(frames[0]),
+                               torch.from_numpy(watermark), SF, mask_type,
+                               p=p, impl="torch")
+    marked = marked.numpy()
+    jmesh, mesh = jp.make_mesh(data=2, space=space), port_mesh(2, space)
+    want = jp.make_mesh_detect_many(jmesh, mask_type, p=p)(
+        jp.shard_rows(jmesh, jnp.asarray(marked)),
+        jp.shard_hybrid(jmesh, jnp.asarray(bank)))
+    got = np.asarray(tp.make_mesh_detect_many(mesh, mask_type, p=p,
+                                              impl="cuda")(marked, bank))
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-4)
+    assert int(np.argmax(got)) == 0
+
+
 def test_1080_rows_270_row_shards(watermark):
     """A 1080 x 384 frame over 4 shards of 270 rows (the card's shard
     height), ME p=3 on the kernel route's plain halo forms."""
@@ -310,18 +408,22 @@ def extended(frames: torch.Tensor, start: int, stop: int, halo: int):
 
 
 @pytest.mark.parametrize("bounds", [(0, 8, 16, 24, 32), (0, 16, 32)])
-@pytest.mark.parametrize("mask_type,p", [("me", 3), ("me", 5), ("nvf", 3),
-                                         ("nvf", 9)])
-def test_halo_plain_forms_sum_to_frame(frames, watermark, bounds, mask_type,
-                                       p):
+@pytest.mark.parametrize("mask_type,p", [("me", 3), ("me", 5), ("me", 9),
+                                         ("nvf", 3), ("nvf", 9)])
+def test_halo_plain_forms_sum_to_frame(frames, watermark, bank, bounds,
+                                       mask_type, p):
     """The kernels' plain halo forms per shard (top, interior, bottom)
     against the unsharded plain versions: the 3x3 Gram's lag sums, its
     assembly and the direct Gram summed (at the detect tail's halo and at
     the embed field's, which the embed route gives the Gram), the embed
-    field's u_raw joined (bit-equal) and its sums, the detect tail's sums
-    summed; with no halo each is the unsharded function exactly."""
+    field's u_raw joined (bit-equal) and its sums, the detect tail's and
+    the multi-candidate kernel's sums summed, and at ME p > 3 the wide
+    Gram's lag strips (at the detect tail's 2h halo) folded and assembled
+    with the frame's banks against the frame's wide Gram; with no halo each
+    is the unsharded function exactly."""
     img = torch.from_numpy(frames[:2])
     wm = torch.from_numpy(watermark)
+    candidates = torch.from_numpy(bank[:3])
     pred_p = p if mask_type == "me" else 3
     k = pred_p * pred_p - 1
     coeffs = torch.from_numpy(np.random.default_rng(p).normal(
@@ -330,13 +432,24 @@ def test_halo_plain_forms_sum_to_frame(frames, watermark, bounds, mask_type,
     u_raw, sum_u2, max_e = kernels.embed_field_plain(img, wm, coeffs,
                                                      mask_type, p)
     detect = kernels.detect_partials_plain(img, wm, coeffs, mask_type, p)
+    many = kernels.detect_many_partials_plain(img, candidates, coeffs,
+                                              mask_type, p)
+    wide = mask_type == "me" and p > 3
     reach = stencil_reach(mask_type, p)
     shards = list(zip(bounds, bounds[1:]))
     half = max(1, p // 2)
     grams = {halo: ([], []) for halo in {half, reach}}
-    fields, sums = [], []
+    fields, sums, many_sums, strips = [], [], [], []
     for start, stop in shards:
         ext = extended(img, start, stop, reach)
+        many_sums.append(kernels.detect_many_partials(
+            ext, extended(candidates, start, stop, reach), coeffs, mask_type,
+            p, reach, reach, start, ROWS))
+        if wide:
+            lag_sums, edges = kernels.wide_lag_strips(ext, p, reach, reach,
+                                                      start, ROWS)
+            strips.append((lag_sums.sum(dim=(2, 3), keepdim=True),
+                           edges.sum(dim=2, keepdim=True)))
         for halo, (direct, lag) in grams.items():
             e_ext = extended(img, start, stop, halo)
             direct.append(kernels.me_gram(e_ext, halo, halo, start, ROWS))
@@ -357,6 +470,23 @@ def test_halo_plain_forms_sum_to_frame(frames, watermark, bounds, mask_type,
     assert torch.equal(torch.stack([f[2] for f in fields]).amax(0), max_e)
     for got, want in zip(zip(*sums), detect):
         torch.testing.assert_close(sum(got), want, rtol=1e-5, atol=0)
+    # a dot as the correlation it becomes (test_torch_cuda.py's rule): a
+    # decoy's dot is a sum that cancels to near 0
+    dot, norm_u, norm_z = (sum(parts) for parts in zip(*many_sums))
+    scale = torch.sqrt(many[1] * many[2][:, None])
+    torch.testing.assert_close(dot / scale, many[0] / scale, rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(norm_u, many[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(norm_z, many[2], rtol=1e-5, atol=0)
+    if wide:
+        folded = [sum(parts) for parts in zip(*strips)]
+        torch.testing.assert_close(
+            kernels.wide_assemble(*folded, *kernels.frame_banks(img, p), p,
+                                  ROWS),
+            kernels.me_gram_wide_plain(img, p), rtol=1e-5, atol=0)
+        assert all(torch.equal(a, b) for a, b in zip(
+            kernels.wide_lag_strips(img, p, 0, 0, 0, ROWS),
+            kernels.lag_strips_plain(img, p)))
     # no halo: the frame itself
     assert torch.equal(kernels.me_gram(img, 0, 0), gram)
     assert torch.equal(kernels.embed_field(img, wm, coeffs, mask_type, p,
@@ -364,12 +494,17 @@ def test_halo_plain_forms_sum_to_frame(frames, watermark, bounds, mask_type,
     assert all(torch.equal(a, b) for a, b in zip(
         kernels.detect_partials(img, wm, coeffs, mask_type, p, 0, 0, 0,
                                 ROWS), detect))
+    assert all(torch.equal(a, b) for a, b in zip(
+        kernels.detect_many_partials(img, candidates, coeffs, mask_type, p,
+                                     0, 0, 0, ROWS), many))
 
 
 def test_halo_arguments_checked(frames, watermark):
     """The wrappers raise on what the kernels do not take: a seam with a
-    shorter halo than the detect tail reads, negative halos, rows outside
-    the frame, a watermark without the image's halo rows."""
+    shorter halo than the detect tail, the multi-candidate kernel or the
+    wide Gram's lag kernel reads (2h rows below; none above), negative
+    halos, rows outside the frame, a watermark without the image's halo
+    rows, a frame below the wide Gram's 6h rows."""
     img = torch.from_numpy(frames[:1])
     wm = torch.from_numpy(watermark)
     coeffs = torch.zeros(1, 8)
@@ -388,27 +523,43 @@ def test_halo_arguments_checked(frames, watermark):
                                 3, 1, 1, 28, ROWS)
     with pytest.raises(ValueError, match="holds no owned row"):
         kernels.embed_field(ext, wm[8:16], coeffs, "me", 3, 5, 5)
+    with pytest.raises(ValueError, match="needs 2 rows of halo for the "
+                                         "multi-candidate"):
+        kernels.detect_many_partials(ext, extended(wm[None], 8, 16, 1),
+                                     coeffs, "me", 3, 1, 1, 8, ROWS)
+    with pytest.raises(ValueError, match="needs 5 rows of halo for the "
+                                         "multi-candidate"):
+        kernels.detect_many_partials(
+            extended(img, 8, 16, 4), extended(wm[None], 8, 16, 4), coeffs,
+            "nvf", 9, 4, 4, 8, ROWS)
+    shallow = extended(img, 8, 16, 4)[:, 4:-1]    # 0 rows above, 3 below
+    with pytest.raises(ValueError, match="bottom seam .* needs 4 rows of "
+                                         "halo for the wide Gram"):
+        kernels.wide_lag_strips(shallow, 5, 0, 3, 8, ROWS)
+    sums, edges = kernels.wide_lag_strips(shallow, 5, 0, 3, ROWS - 8, ROWS)
+    assert sums.shape[:2] == (1, 41) and edges.shape[-1] == 8
+    with pytest.raises(ValueError, match=">= 12 at p=5"):
+        kernels.wide_lag_strips(img[:, :11], 5)
+    with pytest.raises(ValueError, match=">= 12 at p=5"):
+        kernels.wide_assemble(sums, edges, *kernels.frame_banks(img, 5), 5,
+                              11)
 
 
-def test_cuda_route_raises_where_no_halo_kernel(frames, watermark):
-    """impl="cuda" at ME p > 3 over several space shards, and
-    identification over several space shards, need halo forms of the wide
-    Gram and the multi-candidate kernel: they raise, naming them, instead
-    of taking the plain route. One space shard, and the DP route, run."""
-    mesh = port_mesh(2, 2)
-    for make in (partial(tp.make_spatial_detect, mesh, "me", 5),
-                 partial(tp.make_spatial_embed, mesh, "me", SF, 5),
-                 partial(tp.make_hybrid_detect, mesh, "me", 7),
-                 partial(tp.make_hybrid_embed, mesh, "me", SF, 9)):
-        with pytest.raises(NotImplementedError, match="me_gram_wide.cu"):
-            make(impl="cuda")
-        make(impl="torch")
-    with pytest.raises(NotImplementedError, match="detect_many.cu"):
-        tp.make_mesh_detect_many(mesh, "nvf", impl="cuda")
-    one_row = port_mesh(2, 1)
-    got = tp.make_hybrid_detect(one_row, "me", 5, impl="cuda")(
-        frames[:2], watermark)
-    want = detect_pipeline(torch.from_numpy(frames[:2]),
-                           torch.from_numpy(watermark), "me", 5,
-                           impl="torch")
-    np.testing.assert_allclose(np.asarray(got), want.numpy(), atol=1e-4)
+def test_multichip_example_runs_on_cpu_devices(capsys):
+    """examples/multichip_watermark_torch.py on four CPU devices (a 2 x 2
+    mesh, the kernels' plain halo forms): marked frames correlate, clean
+    ones do not, and identification picks the embedded candidate."""
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "multichip_watermark_torch.py"
+    spec = importlib.util.spec_from_file_location("multichip_example", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    example.main(devices=["cpu"] * 4)
+    out = capsys.readouterr().out
+    assert "4 devices -> mesh data=2 x space=2 (cpu)" in out
+    marked, clean = (np.array(out.split(f"{kind} correlations: [")[1]
+                              .split("]")[0].split(), dtype=float)
+                     for kind in ("marked", "clean "))
+    assert len(marked) == 4 and marked.min() > 0.3
+    assert np.abs(clean).max() < 0.1
+    assert "argmax=0 (0 = the embedded one)" in out

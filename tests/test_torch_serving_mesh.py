@@ -3,7 +3,7 @@ name ``torch.device("cpu")`` once per shard): the mesh cases of
 tests/test_serving.py. Frame-parallel and hybrid serving match the
 single-device engine, the batch must be a multiple of the data axis and the
 rows must divide over the space axis, the identifier splits its bank over
-the data axis and refuses a space axis."""
+the data axis and, over a space axis, its frames' and candidates' rows."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,9 @@ import torch
 from watermarking_gpu_tpu_torch import (DetectorService, EmbedderService,
                                         IdentifierService)
 from watermarking_gpu_tpu_torch.models import BatchedWatermark, MaskType
-from watermarking_gpu_tpu_torch.parallel import make_mesh
+from watermarking_gpu_tpu_torch.parallel import (make_hybrid_detect,
+                                                 make_mesh,
+                                                 make_mesh_detect_many)
 
 torch.set_num_threads(1)
 
@@ -78,7 +80,10 @@ def test_multichip_serving_generalized_me(frames):
 
 def test_identifier_service_mesh_candidate_sharding(engine, frames):
     """With a mesh, the bank splits over the data axis (each shard scores
-    N/n candidates); results match single-device identification."""
+    N/n candidates); results match single-device identification. Over a
+    space axis too (2 x 4: the frames' and the candidates' rows split, the
+    kernels' halo forms on each shard), the answers equal the mesh
+    function's."""
     rng = np.random.default_rng(78)
     bank = np.stack(
         [engine.random_matrix.numpy()]
@@ -95,8 +100,15 @@ def test_identifier_service_mesh_candidate_sharding(engine, frames):
 
     with pytest.raises(ValueError, match="divide"):
         IdentifierService(engine, bank[:6], mesh=cpu_mesh(4))
-    with pytest.raises(ValueError, match="space"):
-        IdentifierService(engine, bank, mesh=cpu_mesh(2, 4))
+    mesh = cpu_mesh(2, 4)
+    got = np.stack(serve(IdentifierService(
+        engine, bank, batch_size=2, mesh=mesh, flush_timeout=0.01), marked))
+    want = np.asarray(make_mesh_detect_many(mesh, "me", batched=True)(
+        marked, bank))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, direct, atol=1e-4)
+    with pytest.raises(ValueError, match="rows .* must divide"):
+        IdentifierService(engine, bank, mesh=cpu_mesh(1, 5))
 
 
 @pytest.mark.parametrize("impl", ["cuda", "torch"])
@@ -123,9 +135,10 @@ def test_spatial_mesh_serving_matches_single(frames, impl):
 
 def test_spatial_mesh_serving_wide_me(frames):
     """ME p=5 over a space mesh: an impl="torch" engine serves through the
-    sharded wide Gram's plain route and matches the single-device engine;
-    an impl="cuda" engine is refused when the service is built (no halo
-    form of the wide Gram yet), NVF p=5 on it serves."""
+    sharded wide Gram's plain route and a CUDA-default engine through its
+    halo form (the plain halo forms here), each matching the single-device
+    engine within 1e-4 and the mesh function exactly; NVF p=5 on the
+    latter serves."""
     wm = np.random.default_rng(9).normal(size=(48, 64)).astype(np.float32)
     mesh = cpu_mesh(2, 4)
     eng = BatchedWatermark(48, 64, wm, p=5, psnr=35.0, impl="torch",
@@ -134,8 +147,13 @@ def test_spatial_mesh_serving_wide_me(frames):
     got = serve(DetectorService(eng, batch_size=4, mesh=mesh), frames[:4])
     np.testing.assert_allclose(got, direct, atol=1e-4)
     cuda_engine = BatchedWatermark(48, 64, wm, p=5, psnr=35.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="impl='torch'"):
-        DetectorService(cuda_engine, batch_size=4, mesh=mesh)
+    assert cuda_engine.impl == "cuda"
+    got = serve(DetectorService(cuda_engine, batch_size=4, mesh=mesh),
+                frames[:4])
+    np.testing.assert_allclose(
+        got, cuda_engine.detect(frames[:4], MaskType.ME).numpy(), atol=1e-4)
+    np.testing.assert_array_equal(got, np.asarray(make_hybrid_detect(
+        mesh, "me", p=5)(frames[:4], cuda_engine.random_matrix)))
     got = serve(DetectorService(cuda_engine, MaskType.NVF, batch_size=4,
                                 mesh=mesh), frames[:4])
     np.testing.assert_allclose(

@@ -103,7 +103,8 @@ def test_wide_kernel_plain_versions_match_jax(p, rows):
         img = frames((2, rows, cols), seed=rows * cols + p)
         image = torch.from_numpy(img)
         sums, edges = tme.lag_strips_plain(image, p)
-        gram = tme.assemble_strips_plain(sums, edges, image, p)
+        gram = tme.assemble_strips_plain(sums, edges,
+                                         *tme.frame_banks(image, p), p)
         assert torch.equal(kernels.me_gram_wide(image, p), gram)
         rm, rv = split_gram(gram, k)
         rm_j, rv_j = jme.me_normal_equations(jnp.asarray(img), p)

@@ -12,9 +12,10 @@ on ``chip_smoke.py``'s frames and 64-candidate bank (8 x 1080 x 1920), at ME
 and NVF p = 3, 5, 7, 9; its partial sums are held to the first build's
 (largest relative difference printed) and it is timed with CUDA events, 5
 calls after 1, in turns (every build in order, then in reverse), so that
-builds compare within one call on one card. Prints ptxas' registers, shared
-memory and spills per instantiation. Needs a GPU and nvcc; imports nothing of
-JAX.
+builds compare within one call on one card. A source with the halo form
+(``row_start`` among its entry's arguments) is called with no halo, an
+earlier one without those arguments. Prints ptxas' registers, shared memory
+and spills per instantiation. Needs a GPU and nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,13 +38,14 @@ SLOTS = 2 * 64 + 1  # the kernel's partials per block: chunk of 64 candidates
 
 def build_variants(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
     nvcc = build.find_nvcc()
-    processes = {}
+    processes, sources = {}, {}
     for name, spec in specs.items():
         source = str(build.CSRC_DIR / "detect_many.cu")
         if "@" in spec:
             source, spec = spec.split("@", 1)
         command = [nvcc, *build.NVCC_FLAGS, "-shared", *spec.split(), "-I",
                    str(build.CSRC_DIR), "-o", str(out / f"{name}.so"), source]
+        sources[name] = source
         processes[name] = subprocess.Popen(command, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True)
@@ -60,9 +62,12 @@ def build_variants(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
                 template = line.split("detect_many_kernel")[1][:16]
                 print(f"{name} {template}: {' / '.join(report)}", flush=True)
         library = ctypes.CDLL(str(out / f"{name}.so"))
-        library.wm_detect_many.argtypes = (*[ctypes.c_void_p] * 4,
-                                           *[ctypes.c_int] * 6,
-                                           ctypes.c_void_p)
+        library.halo_form = ("int row_start"
+                             in Path(sources[name]).read_text())
+        library.wm_detect_many.argtypes = (
+            *[ctypes.c_void_p] * 4,
+            *[ctypes.c_int] * (10 if library.halo_form else 6),
+            ctypes.c_void_p)
         libraries[name] = library
     return libraries
 
@@ -92,6 +97,7 @@ def main() -> int:
                 frames.data_ptr(), bank.data_ptr(), c.data_ptr(),
                 out.data_ptr(), batch, n, rows, cols,
                 0 if mask == "me" else 1, p,
+                *((0, 0, 0, rows) if library.halo_form else ()),
                 torch.cuda.current_stream().cuda_stream)
             if code:
                 raise RuntimeError(f"wm_detect_many: CUDA error {code}")

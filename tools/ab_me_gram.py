@@ -60,9 +60,8 @@ ENTRIES = {"wm_me_gram": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
            "wm_me_gram_assemble": build.SIGNATURES["wm_me_gram_assemble"],
            "wm_wide_lag_strips": build.SIGNATURES["wm_wide_lag_strips"]}
 # the wide lag kernel's entry point, given its h = 1 instantiation
-WIDE_CASE = "    case 2: return launch_strips<2>("
-WIDE_CASE_H1 = ("    case 1: return launch_strips<1>(img, lag_index, sums, "
-                "edges, batch, rows, cols, strip, n_lags, s);\n" + WIDE_CASE)
+WIDE_CASE = "    case 2: return WM_STRIPS(2);"
+WIDE_CASE_H1 = "    case 1: return WM_STRIPS(1);\n" + WIDE_CASE
 
 
 def build_all(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
@@ -164,7 +163,7 @@ def wide_route(library, frames: torch.Tensor, strip: int):
         check(library.wm_wide_lag_strips(
             frames.data_ptr(), tables["lag_index"].data_ptr(),
             sums.data_ptr(), edges.data_ptr(), batch, rows, cols, 1, strip,
-            me.LANE_BLOCK, 13, stream()), "wm_wide_lag_strips")
+            me.LANE_BLOCK, 13, 0, 0, rows, stream()), "wm_wide_lag_strips")
     return lags, sums
 
 

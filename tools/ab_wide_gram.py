@@ -15,9 +15,14 @@ package's) built with the extra compiler flags; every build is a shared
 library of its own, all ``nvcc`` processes started together, and ptxas'
 registers, shared memory and spills are printed per kernel. Each new build
 runs at each ``--strips`` height (default ``ops.me.wide_lag_layout``'s).
+A source whose assembly takes the frame's banks (the halo form) is called
+with no halo, its Gram with the banks gathered in the call
+(``ops.me.frame_banks``, as ``me_gram_wide`` does); an earlier source's
+assembly reads the image.
 
 On ``chip_smoke.py``'s frames (8 x 1080 x 1920): every Gram is held to
-``ops.me.me_gram_wide_plain`` (largest relative difference printed), then
+``ops.me.me_gram_wide_plain`` (largest relative difference printed) and
+compared bit for bit with the first entry's, then
 timed with CUDA events, 20 calls after 3, in turns (every entry in order,
 then in reverse), so that the entries compare within one call on one card;
 for each entry also its kernels alone. Needs a GPU and nvcc; imports nothing
@@ -51,13 +56,14 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 def build_all(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
     nvcc = build.find_nvcc()
-    processes = {}
+    processes, sources = {}, {}
     for name, spec in specs.items():
         source = str(build.CSRC_DIR / "me_gram_wide.cu")
         if "@" in spec:
             source, spec = spec.split("@", 1)
         command = [nvcc, *build.NVCC_FLAGS, "-shared", *spec.split(), "-I",
                    str(build.CSRC_DIR), "-o", str(out / f"{name}.so"), source]
+        sources[name] = source
         processes[name] = subprocess.Popen(command, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True)
@@ -77,9 +83,18 @@ def build_all(specs: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
                 print(f"{name} {kernel}{template}: {' / '.join(report)}",
                       flush=True)
         library = ctypes.CDLL(str(out / f"{name}.so"))
-        if hasattr(library, "wm_wide_assemble"):
+        library.halo_form = ("const float* low"
+                             in Path(sources[name]).read_text())
+        if library.halo_form:
             for entry in ("wm_wide_lag_strips", "wm_wide_assemble"):
                 getattr(library, entry).argtypes = build.SIGNATURES[entry]
+        elif hasattr(library, "wm_wide_assemble"):
+            # (img, lag_index, sums, edges, 7 ints, stream) and (img, sums,
+            # edges, lags, pair_start, pairs, gram, 7 ints, stream)
+            library.wm_wide_lag_strips.argtypes = (*[_PTR] * 4, *[_INT] * 7,
+                                                   _PTR)
+            library.wm_wide_assemble.argtypes = (*[_PTR] * 7, *[_INT] * 7,
+                                                 _PTR)
         else:
             library.wm_me_gram_wide.argtypes = (_PTR, _PTR, *[_INT] * 4,
                                                 _PTR)
@@ -125,24 +140,38 @@ def new_route(library, frames: torch.Tensor, p: int, strip: int):
     edges = torch.empty((batch, n_lags, n_strips, 4 * h), device="cuda")
     out = torch.empty((batch, p * p, p * p), device="cuda")
 
+    halo = (0, 0, rows) if library.halo_form else ()
+    banks = me.frame_banks(frames, p)
+
     def lags():
         check(library.wm_wide_lag_strips(
             frames.data_ptr(), tables["lag_index"].data_ptr(),
             sums.data_ptr(), edges.data_ptr(), batch, rows, cols, h, strip,
-            me.LANE_BLOCK, n_lags, torch.cuda.current_stream().cuda_stream),
-            "wm_wide_lag_strips")
+            me.LANE_BLOCK, n_lags, *halo,
+            torch.cuda.current_stream().cuda_stream), "wm_wide_lag_strips")
 
-    def assemble():
+    def assemble(low=banks[0], high=banks[1]):
+        table_args = (tables["lags"].data_ptr(),
+                      tables["pair_start"].data_ptr(),
+                      tables["pairs"].data_ptr(), out.data_ptr())
+        if library.halo_form:
+            args = (low.data_ptr(), high.data_ptr(), low.stride(0),
+                    sums.data_ptr(), edges.data_ptr(), *table_args, batch,
+                    cols, h, n_lags, n_strips, n_blocks, rows)
+        else:
+            args = (frames.data_ptr(), sums.data_ptr(), edges.data_ptr(),
+                    *table_args, batch, rows, cols, h, n_lags, n_strips,
+                    n_blocks)
         check(library.wm_wide_assemble(
-            frames.data_ptr(), sums.data_ptr(), edges.data_ptr(),
-            tables["lags"].data_ptr(), tables["pair_start"].data_ptr(),
-            tables["pairs"].data_ptr(), out.data_ptr(), batch, rows, cols,
-            h, n_lags, n_strips, n_blocks,
-            torch.cuda.current_stream().cuda_stream), "wm_wide_assemble")
+            *args, torch.cuda.current_stream().cuda_stream),
+            "wm_wide_assemble")
 
     def gram():
         lags()
-        assemble()
+        if library.halo_form:
+            assemble(*me.frame_banks(frames, p))
+        else:
+            assemble()
         return out
     return gram, lags, assemble
 
@@ -183,8 +212,11 @@ def main() -> int:
                                                      strip)
                     entries[f"{name}/S{strip}"] = {
                         "gram": gram, "lags": lags, "assemble": assemble}
-            errors = {name: chip_smoke.rel_err(fns["gram"](), want)
-                      for name, fns in entries.items()}
+            grams = {name: fns["gram"]().clone()
+                     for name, fns in entries.items()}
+            errors = {name: chip_smoke.rel_err(gram, want)
+                      for name, gram in grams.items()}
+            first = next(iter(grams.values()))
             times = {name: {part: [] for part in fns}
                      for name, fns in entries.items()}
             for name in [*entries, *reversed(entries)]:
@@ -194,7 +226,10 @@ def main() -> int:
                 print(f"p={p} {name}: " + "; ".join(
                     f"{part} {min(t):.4f}/{max(t):.4f} ms"
                     for part, t in parts.items())
-                    + f" (Gram rel err {errors[name]:.1e})", flush=True)
+                    + f" (Gram rel err {errors[name]:.1e}; "
+                    + ("bit-identical to" if torch.equal(grams[name], first)
+                       else "differs from")
+                    + f" {next(iter(grams))}'s)", flush=True)
     return 0
 
 

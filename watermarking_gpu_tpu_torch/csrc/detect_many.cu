@@ -27,8 +27,9 @@
 //    block's 2 * 64 + 1 partials in a fixed order, with no float atomics.
 // 2. The next two candidates' W tiles are copied with cp.async into two of
 //    four buffers while the two before them compute (16-byte chunks of the
-//    frame's rows where the tile's rows lie inside the frame and are 16-byte
-//    aligned, else 4-byte copies of the clamped ring): one barrier every two
+//    ring's rows, clamped to the rows held, where the tile's columns and
+//    their ring lie inside the frame and the rows are 16-byte aligned, else
+//    4-byte copies of the clamped ring): one barrier every two
 //    candidates. At p >= 5 the copying thread multiplies its chunks by the
 //    mask when they land; at p = 3 and for NVF (3 x 3 predictor) each thread
 //    keeps the mask of its 3 x 10 window in registers and applies it to W as
@@ -41,6 +42,18 @@
 //    to the detect tail's. The sums of 8 candidates (4 at p >= 5) are reduced
 //    over the warp together, 16 values in 16 shuffles where one candidate at
 //    a time would take 40.
+//
+// Halo form (a row shard of a frame; the JAX package's
+// parallel/spatial.py::_detect_many_shard_pallas, with fused.cu's detect
+// tail's contract): the frame and every candidate hold top rows above the
+// rows owned and bottom rows below them, true neighbour rows at a seam and
+// replicated edge rows at the frame's border. Reads clamp to those rows
+// (img_rows = top + rows + bottom), the tiles cover the owned rows only,
+// and u's ring rows outside the shard are u's edge rows only where the
+// shard's edge is the frame's (clamp_top: row_start == 0, clamp_bottom:
+// row_start + rows == total_rows); at a seam they are u of the true rows,
+// which takes detect_halo rows of halo. top = bottom = 0 with both clamps
+// is the frame itself.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -110,13 +123,17 @@ __device__ __forceinline__ void warp_sums(float (&v)[V], int lane) {
 // blockIdx = (frame, tile, chunk): one tile of one frame against candidates
 // [chunk * kManyNC, + count). Partials (batch, n_chunks, n_tiles,
 // kManySlots); the slots of candidates past the bank's end are written as 0.
+// A frame of img and of bank holds img_rows rows, the rows owned from row
+// top (the halo form); clamp_top / clamp_bottom: the shard's top / bottom
+// edge is the frame's.
 template <int kMask, int kPH, int kNH>
 __global__ void __launch_bounds__(kTileThreads, 2)
     detect_many_kernel(const float* __restrict__ img,
                        const float* __restrict__ bank,
                        const float* __restrict__ coeffs,
                        float* __restrict__ partials, int n, int rows,
-                       int cols) {
+                       int cols, int top, int img_rows, bool clamp_top,
+                       bool clamp_bottom) {
   constexpr int kTaps = wm::taps(kPH);
   constexpr int kP = 2 * kPH + 1;
   constexpr int kS = wm::detect_halo(kMask, kPH, kNH);
@@ -138,9 +155,12 @@ __global__ void __launch_bounds__(kTileThreads, 2)
   constexpr int kG = kPH == 1 ? 8 : 4;  // candidates a reduction
   // the prologue's frame tile s_img[r][q] = frame(clamp(y0 - kS + r),
   // clamp(x0 - kS + q)), e_z over the tile and the mask over the tile and
-  // its ring, s_mask[r * kUW + q] = mask(clamp(y0 - kPH + r),
+  // its ring, s_mask[r * kUW + q] = mask(ring(y0 - kPH + r),
   // clamp(x0 - kPH + q)); then kBuffers u buffers,
-  // u[r * kUS + q + kOff] = u(clamp(y0 - kPH + r), clamp(x0 - kPH + q))
+  // u[r * kUS + q + kOff] = u(ring(y0 - kPH + r), clamp(x0 - kPH + q)).
+  // Rows count from the first owned one: clamp() clamps to the shard's
+  // rows [-top, rows + bottom), ring() to the frame's rows where the
+  // shard's edge is the frame's and to the shard's rows at a seam
   extern __shared__ __align__(16) float s_scratch[];  // many_scratch floats
   __shared__ float s_c[kTaps];
   // s_cg[dr][dc]: the coefficient of tap (dr - kPH, dc - kPH), centre 0
@@ -157,7 +177,10 @@ __global__ void __launch_bounds__(kTileThreads, 2)
   const int y0 = (blockIdx.y / tiles_x) * kTileH;
   const int first = blockIdx.z * kManyNC;
   const int count = min(kManyNC, n - first);
-  const size_t plane = static_cast<size_t>(rows) * cols;
+  const size_t plane = static_cast<size_t>(img_rows) * cols;
+  // ring(y) + top: a row of the ring in the shard's rows
+  const int ring_lo = clamp_top ? top : 0;
+  const int ring_hi = clamp_bottom ? top + rows - 1 : img_rows - 1;
   const int tid = threadIdx.x + threadIdx.y * blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -166,9 +189,9 @@ __global__ void __launch_bounds__(kTileThreads, 2)
   const int r = (warp & 3) * 8 + (lane & 7);
   const int q0 = ((warp >> 2) * 4 + (lane >> 3)) * kR;
   const int n_valid = y0 + r < rows ? wm::clampi(cols - x0 - q0, 0, kR) : 0;
-  // a buffer row is one 16-byte copy a chunk where the 18 chunks lie inside
-  // the frame's row and the rows are 16-byte aligned; else 4-byte copies of
-  // the ring's clamped columns
+  // a buffer row (a ring row, clamped to the rows held) is one 16-byte copy
+  // a chunk where the 18 chunks lie inside the frame's columns and the rows
+  // are 16-byte aligned; else 4-byte copies of the ring's clamped columns
   const bool whole_chunks = cols % 4 == 0 && x0 >= 4 &&
                             x0 + kTileW + 4 <= cols &&
                             reinterpret_cast<size_t>(bank) % 16 == 0;
@@ -182,8 +205,8 @@ __global__ void __launch_bounds__(kTileThreads, 2)
             ? 0.0f
             : __ldg(coeffs + b * kTaps + (k < kTaps / 2 ? k : k - 1));
   }
-  wm::stage_tile<kIH, kIW>(s_img, img + b * plane, y0, x0, kS, rows, cols,
-                           tid, kTileThreads);
+  wm::stage_tile<kIH, kIW>(s_img, img + b * plane, y0 + top, x0, kS,
+                           img_rows, cols, tid, kTileThreads);
   __syncthreads();
   const wm::Coeffs<kTaps> c(s_c);
 
@@ -191,9 +214,9 @@ __global__ void __launch_bounds__(kTileThreads, 2)
   for (int i = tid; i < kRing; i += kTileThreads) {
     const int ur = i / kUW;
     const int uq = i % kUW;
-    const int cy = wm::clampi(y0 - kPH + ur, 0, rows - 1);
+    const int cy = wm::clampi(y0 + top - kPH + ur, ring_lo, ring_hi);
     const int cx = wm::clampi(x0 - kPH + uq, 0, cols - 1);
-    const float* centre = &s_img[cy - y0 + kS][cx - x0 + kS];
+    const float* centre = &s_img[cy - y0 - top + kS][cx - x0 + kS];
     const float e_z = wm::prediction_error_at<kPH>(centre, kIW, c);
     s_mask[i] = kMask == wm::kMaskME ? fabsf(e_z)
                                      : wm::nvf_at<kNH>(centre, kIW);
@@ -218,7 +241,7 @@ __global__ void __launch_bounds__(kTileThreads, 2)
     const int i = tid + m * kTileThreads;
     const int ur = i / kChunksRow;
     col[m] = i % kChunksRow * 4;
-    row_at[m] = wm::clampi(y0 - kPH + ur, 0, rows - 1) * cols;
+    row_at[m] = wm::clampi(y0 + top - kPH + ur, ring_lo, ring_hi) * cols;
     if constexpr (!kMaskAtRead) {
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
@@ -388,7 +411,8 @@ __global__ void __launch_bounds__(kTileThreads, 2)
 template <int kMask, int kPH, int kNH>
 int launch_detect_many(const float* img, const float* bank,
                        const float* coeffs, float* partials, int batch, int n,
-                       int rows, int cols, cudaStream_t s) {
+                       int rows, int cols, int top, int img_rows,
+                       bool clamp_top, bool clamp_bottom, cudaStream_t s) {
   const dim3 grid(batch,
                   wm::ceil_div(cols, kTileW) * wm::ceil_div(rows, kTileH),
                   wm::ceil_div(n, kManyNC));
@@ -397,7 +421,8 @@ int launch_detect_many(const float* img, const float* bank,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   detect_many_kernel<kMask, kPH, kNH>
       <<<grid, wm::kTileBlock, bytes, s>>>(img, bank, coeffs, partials, n,
-                                           rows, cols);
+                                           rows, cols, top, img_rows,
+                                           clamp_top, clamp_bottom);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,27 +436,36 @@ extern "C" int wm_detect_many_num_blocks(int rows, int cols) {
   return wm::ceil_div(cols, kTileW) * wm::ceil_div(rows, kTileH);
 }
 
-// img (batch, rows, cols), bank (n, rows, cols) f32; coeffs (batch, k) f32
-// with k = p*p-1 for ME and 8 for NVF -> partials (batch, ceil(n / chunk),
+// img (batch, top + rows + bottom, cols), bank (n, top + rows + bottom,
+// cols) f32; coeffs (batch, k) f32 with k = p*p-1 for ME and 8 for NVF; the
+// owned rows are rows [row_start, row_start + rows) of a frame of
+// total_rows -> partials (batch, ceil(n / chunk),
 // wm_detect_many_num_blocks(rows, cols), 2 * chunk + 1) f32 with chunk =
 // wm_detect_many_chunk(): per candidate sum e_u*e_z and sum e_u^2, then
-// sum e_z^2.
+// sum e_z^2, over the owned rows.
 extern "C" int wm_detect_many(const float* img, const float* bank,
                               const float* coeffs, float* partials,
                               int batch, int n, int rows, int cols,
-                              int mask_type, int p, void* stream) {
-  if (batch < 1 || n < 1 || rows < 1 || cols < 1 || coeffs == nullptr)
+                              int mask_type, int p, int top, int bottom,
+                              int row_start, int total_rows, void* stream) {
+  if (batch < 1 || n < 1 || rows < 1 || cols < 1 || coeffs == nullptr ||
+      top < 0 || bottom < 0 || row_start < 0 ||
+      total_rows < row_start + rows)
     return cudaErrorInvalidValue;
+  const long long img_rows = static_cast<long long>(top) + rows + bottom;
   const long long tiles = static_cast<long long>(wm::ceil_div(cols, kTileW)) *
                           wm::ceil_div(rows, kTileH);
   if (tiles > 65535 || wm::ceil_div(n, kManyNC) > 65535)
     return cudaErrorInvalidValue;  // gridDim.y, gridDim.z
-  if (static_cast<long long>(rows) * cols > 0x7fffffff)
+  if (img_rows * cols > 0x7fffffff)
     return cudaErrorInvalidValue;  // the kernel's offsets in a frame are int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define WM_MANY(mask, ph, nh)                                              \
   launch_detect_many<mask, ph, nh>(img, bank, coeffs, partials, batch, n, \
-                                   rows, cols, s)
+                                   rows, cols, top,                        \
+                                   static_cast<int>(img_rows),             \
+                                   row_start == 0,                         \
+                                   row_start + rows == total_rows, s)
   if (mask_type == wm::kMaskME) {
     switch (p) {
       case 3: return WM_MANY(wm::kMaskME, 1, 0);

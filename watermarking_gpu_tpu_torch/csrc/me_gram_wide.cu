@@ -22,12 +22,24 @@
 //    output stays a sum over rows, so row shards add up.
 // 2. wide_assemble_kernel, one block per (image, lag): adds step 1's output
 //    up over strips and lane blocks, takes the 2h + 1 column windows, computes
-//    the products of the two boundary banks (rows [-h, 3h) and
-//    [H - h, H + 3h), lanes over columns [-3h, W + 3h)) from the image at
-//    clamped indices with their column windows cumulated over the 2h bank
-//    rows, and writes every pair of its lag into both triangles of the Gram:
+//    the products of the two boundary banks (the frame's rows [-h, 3h) and
+//    [H - h, H + 3h), clamped, which the caller gathers; lanes over columns
+//    [-3h, W + 3h) at clamped columns) with their column windows cumulated
+//    over the 2h bank rows, and writes every pair of its lag into both
+//    triangles of the Gram:
 //    base + sign(ar) * (D[h + max(ar, 0)] - D[h + min(ar, 0)]),
 //    D = cumHigh - cumLow (the JAX package's _assemble_wide).
+//
+// Halo form (a row shard of a frame; the JAX package's
+// parallel/spatial.py::_gram_wide_sharded with impl="pallas"): the lag
+// kernel takes a shard that holds top rows above its owned rows and bottom
+// rows below them, counts the owned rows from its row top, lays its strips
+// over them and clamps its row reads to the shard's img_rows = top + rows +
+// bottom rows. A lag reads rows [0, 2h] below, so a seam needs 2h rows of
+// halo below; the shards' outputs then add up to the frame's. The assembly
+// needs only the frame's banks, which lie on its edge shards: it takes them
+// (and the shards' sums folded), not the image. top = bottom = 0 is the
+// frame itself.
 //
 // What bounds it on an H100: arithmetic. Each canonical lag costs one FMA
 // per pixel: at 1080p x 8 that is 0.68 / 1.41 / 2.42 G FMA at p = 5 / 7 / 9,
@@ -98,10 +110,10 @@ __host__ __device__ constexpr int canonical_lags(int h, int dc0, int d) {
 // base column v - h at q = v - x0 + 2h.
 __host__ __device__ constexpr int tile_width(int h) { return kLanes + 4 * h; }
 
-// Copy rows [row0, row0 + chunk_rows(h)) of the block's tile (clamped) into
-// buf with cp.async, as one commit group: thread i copies tile column i (and
-// i + kLanes, for the first 4h threads) from src[0] (and src[1]), its
-// clamped image columns of row 0.
+// Copy rows [row0, row0 + chunk_rows(h)) of the block's tile (clamped to
+// rows) into buf with cp.async, as one commit group: thread i copies tile
+// column i (and i + kLanes, for the first 4h threads) from src[0] (and
+// src[1]), its clamped image columns of row 0.
 template <int H>
 __device__ __forceinline__ void stage_chunk(float* buf,
                                             const float* const (&src)[2],
@@ -162,8 +174,9 @@ struct Walk {
 };
 
 // One strip of one lane block for the column lags [DC0, DC0 + D): sum the
-// lag products over rows [y0, y0 + len), then write the block's lane sum
-// and the edge lanes of each canonical lag. The rows come through tile
+// lag products over rows [y0, y0 + len) of frame, whose reads clamp to its
+// rows [0, rows), then write the block's lane sum and the edge lanes of
+// each canonical lag. The rows come through tile
 // (kBuffers chunks of C tile rows): chunks c + 2 .. are copied while chunk
 // c is read, chunk c + 1 feeding its ring.
 template <int H, int DC0, int D>
@@ -278,15 +291,17 @@ __device__ __forceinline__ void dispatch_group(
   }
 }
 
-// Grid (lane blocks, column groups, batch * strips). sums is
-// (batch, L, strips, lane blocks), edges (batch, L, strips, 4h); lag_index
-// maps (dc + 2h) * (2h + 1) + dr to the lag's index in the caller's order.
+// Grid (lane blocks, column groups, batch * strips). A frame of img holds
+// img_rows rows, the rows owned from row top (the halo form); the strips
+// cover the owned rows. sums is (batch, L, strips, lane blocks), edges
+// (batch, L, strips, 4h); lag_index maps (dc + 2h) * (2h + 1) + dr to the
+// lag's index in the caller's order.
 template <int H>
 __global__ void __launch_bounds__(kLanes, min_blocks(H))
     wide_lag_strips_kernel(
     const float* __restrict__ img, const int* __restrict__ lag_index,
     float* __restrict__ sums, float* __restrict__ edges, int rows, int cols,
-    int strip, int n_strips, int n_lags) {
+    int strip, int n_strips, int n_lags, int top, int img_rows) {
   __shared__ float tile[kBuffers * chunk_rows(H) * tile_width(H)];
   const int b = blockIdx.z / n_strips;
   const int s = blockIdx.z % n_strips;
@@ -295,67 +310,57 @@ __global__ void __launch_bounds__(kLanes, min_blocks(H))
   // this (image, strip)'s lag 0; lag l sits l * n_strips planes further on
   const int plane = n_strips;
   const size_t first = static_cast<size_t>(b) * n_lags * n_strips + s;
+  // rows are read from the first owned one down, clamped to the shard's
   dispatch_group<H>(blockIdx.y,
-                    img + static_cast<size_t>(b) * rows * cols, lag_index,
-                    sums + first * gridDim.x, edges + first * 4 * H, tile,
-                    rows, cols, y0, len, plane, gridDim.x);
+                    img + (static_cast<size_t>(b) * img_rows + top) * cols,
+                    lag_index, sums + first * gridDim.x,
+                    edges + first * 4 * H, tile, img_rows - top, cols, y0,
+                    len, plane, gridDim.x);
 }
 
-// The assembly block's boundary-bank products for a lag (DR, dc): per bank
-// row j (0 .. 2h-1) the top image row j - h (low bank) or rows + j - h
-// (high bank) at lane u - h times the row DR further down at u - h + dc,
-// summed over the lanes into v[1 + j] and v[1 + 2h + j], the edge lanes'
-// products kept in s_qedge. With DR known at compile time every clamped row
-// is a constant offset from row 0 or row rows - 1 (rows >= 6h), so the rows
-// the clamp repeats are loaded once.
-template <int H, int DR>
-__device__ __forceinline__ void bank_products(const float* __restrict__ frame,
-                                              int rows, int cols, int dc,
+// The assembly block's boundary-bank products for a lag (dr, dc): per bank
+// row j (0 .. 2h-1) the low bank's row j (the frame's row j - h) at lane
+// u - h times its row j + dr at u - h + dc, summed over the lanes into
+// v[1 + j], and the same of the high bank into v[1 + 2h + j]; the edge
+// lanes' products kept in s_qedge. Columns clamp to the frame's.
+template <int H>
+__device__ __forceinline__ void bank_products(const float* __restrict__ low,
+                                              const float* __restrict__ high,
+                                              int cols, int dr, int dc,
                                               float (&v)[1 + 4 * H],
                                               float (*s_qedge)[4 * H]) {
-  const float* last = frame + (rows - 1) * cols;
   const int lanes = cols + 2 * H;
+  const int below = dr * cols;
   for (int u = threadIdx.x; u < lanes; u += kAssembleThreads) {
     const int xt = wm::clampi(u - H, 0, cols - 1);
-    const int xb = wm::clampi(u - H + dc, 0, cols - 1);
+    const int xb = wm::clampi(u - H + dc, 0, cols - 1) + below;
     const int e = u < 2 * H ? u : (u >= cols ? 2 * H + u - cols : -1);
 #pragma unroll
     for (int j = 0; j < 2 * H; ++j) {
-      const float low = __ldg(frame + max(j - H, 0) * cols + xt) *
-                        __ldg(frame + max(j - H + DR, 0) * cols + xb);
-      const float high = __ldg(last - max(H - 1 - j, 0) * cols + xt) *
-                         __ldg(last - max(H - 1 - j - DR, 0) * cols + xb);
-      v[1 + j] += low;
-      v[1 + 2 * H + j] += high;
+      const float lo = __ldg(low + j * cols + xt) * __ldg(low + j * cols + xb);
+      const float hi =
+          __ldg(high + j * cols + xt) * __ldg(high + j * cols + xb);
+      v[1 + j] += lo;
+      v[1 + 2 * H + j] += hi;
       if (e >= 0) {
-        s_qedge[j][e] = low;
-        s_qedge[2 * H + j][e] = high;
+        s_qedge[j][e] = lo;
+        s_qedge[2 * H + j][e] = hi;
       }
     }
   }
 }
 
-// bank_products at the row lag dr, picked at compile time.
-template <int H, int DR = 0>
-__device__ __forceinline__ void bank_products_at(
-    int dr, const float* __restrict__ frame, int rows, int cols, int dc,
-    float (&v)[1 + 4 * H], float (*s_qedge)[4 * H]) {
-  if constexpr (DR <= 2 * H) {
-    if (dr == DR)
-      bank_products<H, DR>(frame, rows, cols, dc, v, s_qedge);
-    else
-      bank_products_at<H, DR + 1>(dr, frame, rows, cols, dc, v, s_qedge);
-  }
-}
-
-// One block per (lag, image). lags holds (dr, dc) per lag; pairs, grouped by
-// lag from pair_start[l] to pair_start[l + 1], hold (row, column, ar, ai).
+// One block per (lag, image). low and high hold the frame's banks, (batch,
+// 4h, cols) each, image b's at b * bank_stride; lags holds (dr, dc) per lag;
+// pairs, grouped by lag from pair_start[l] to pair_start[l + 1], hold (row,
+// column, ar, ai).
 template <int H>
 __global__ void __launch_bounds__(kAssembleThreads) wide_assemble_kernel(
-    const float* __restrict__ img, const float* __restrict__ sums,
+    const float* __restrict__ low, const float* __restrict__ high,
+    int bank_stride, const float* __restrict__ sums,
     const float* __restrict__ edges, const int* __restrict__ lags,
     const int* __restrict__ pair_start, const int* __restrict__ pairs,
-    float* __restrict__ gram, int rows, int cols, int n_lags, int n_strips,
+    float* __restrict__ gram, int cols, int n_lags, int n_strips,
     int n_blocks) {
   constexpr int K = 2 * H + 1;
   constexpr int E = 4 * H;            // edge lanes: 2h left, 2h right
@@ -371,7 +376,7 @@ __global__ void __launch_bounds__(kAssembleThreads) wide_assemble_kernel(
   const int tid = threadIdx.x;
   const int dr = __ldg(lags + 2 * l);
   const int dc = __ldg(lags + 2 * l + 1);
-  const float* frame = img + static_cast<size_t>(b) * rows * cols;
+  const size_t bank = static_cast<size_t>(b) * bank_stride;
   const size_t lag = static_cast<size_t>(b) * n_lags + l;
 
   float v[kSums];
@@ -387,7 +392,7 @@ __global__ void __launch_bounds__(kAssembleThreads) wide_assemble_kernel(
     s_edge[tid] = total;
   }
 
-  bank_products_at<H>(dr, frame, rows, cols, dc, v, s_qedge);
+  bank_products<H>(low + bank, high + bank, cols, dr, dc, v, s_qedge);
   wm::block_reduce_store<kSums, kSums>(v, s_full);
   __syncthreads();
 
@@ -436,75 +441,87 @@ int lane_blocks(int cols, int half) {
 template <int H>
 int launch_strips(const float* img, const int* lag_index, float* sums,
                   float* edges, int batch, int rows, int cols, int strip,
-                  int n_lags, cudaStream_t s) {
+                  int n_lags, int top, int img_rows, cudaStream_t s) {
   const int n_strips = wm::ceil_div(rows, strip);
   if (static_cast<long long>(batch) * n_strips > 65535)
     return cudaErrorInvalidValue;
   const dim3 grid(lane_blocks(cols, H), column_groups(H), batch * n_strips);
   wide_lag_strips_kernel<H><<<grid, kLanes, 0, s>>>(
-      img, lag_index, sums, edges, rows, cols, strip, n_strips, n_lags);
+      img, lag_index, sums, edges, rows, cols, strip, n_strips, n_lags, top,
+      img_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int H>
-int launch_assemble(const float* img, const float* sums, const float* edges,
-                    const int* lags, const int* pair_start, const int* pairs,
-                    float* gram, int batch, int rows, int cols, int n_lags,
-                    int n_strips, int n_blocks, cudaStream_t s) {
+int launch_assemble(const float* low, const float* high, int bank_stride,
+                    const float* sums, const float* edges, const int* lags,
+                    const int* pair_start, const int* pairs, float* gram,
+                    int batch, int cols, int n_lags, int n_strips,
+                    int n_blocks, cudaStream_t s) {
   if (batch > 65535) return cudaErrorInvalidValue;
   const dim3 grid(n_lags, batch);
   wide_assemble_kernel<H><<<grid, kAssembleThreads, 0, s>>>(
-      img, sums, edges, lags, pair_start, pairs, gram, rows, cols, n_lags,
-      n_strips, n_blocks);
+      low, high, bank_stride, sums, edges, lags, pair_start, pairs, gram,
+      cols, n_lags, n_strips, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// img (batch, rows, cols) f32 -> sums (batch, n_lags, strips, lane blocks)
-// and edges (batch, n_lags, strips, 4h) f32, strips = ceil(rows / strip),
-// lane blocks = ceil((cols + 2h) / lane_block); the caller owns that layout
-// and passes its lane block, which must be kLanes. half = h in {2, 3, 4};
-// rows, cols >= 6h.
+// img (batch, top + rows + bottom, cols) f32, the owned rows from row top
+// -> sums (batch, n_lags, strips, lane blocks) and edges (batch, n_lags,
+// strips, 4h) f32 over the owned rows, strips = ceil(rows / strip), lane
+// blocks = ceil((cols + 2h) / lane_block); the caller owns that layout and
+// passes its lane block, which must be kLanes. half = h in {2, 3, 4}; the
+// frame's total_rows and cols >= 6h.
 extern "C" int wm_wide_lag_strips(const float* img, const int* lag_index,
                                   float* sums, float* edges, int batch,
                                   int rows, int cols, int half, int strip,
-                                  int lane_block, int n_lags, void* stream) {
-  if (batch < 1 || strip < 1 || lane_block != kLanes || rows < 6 * half ||
-      cols < 6 * half || static_cast<long long>(rows) * cols > 2147483647LL)
+                                  int lane_block, int n_lags, int top,
+                                  int bottom, int total_rows, void* stream) {
+  const long long img_rows = static_cast<long long>(top) + rows + bottom;
+  if (batch < 1 || rows < 1 || strip < 1 || lane_block != kLanes ||
+      top < 0 || bottom < 0 || total_rows < rows ||
+      total_rows < 6 * half || cols < 6 * half ||
+      img_rows * cols > 2147483647LL)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WM_STRIPS(h)                                                        \
+  launch_strips<h>(img, lag_index, sums, edges, batch, rows, cols, strip,   \
+                   n_lags, top, static_cast<int>(img_rows), s)
   switch (half) {
-    case 2: return launch_strips<2>(img, lag_index, sums, edges, batch, rows,
-                                    cols, strip, n_lags, s);
-    case 3: return launch_strips<3>(img, lag_index, sums, edges, batch, rows,
-                                    cols, strip, n_lags, s);
-    case 4: return launch_strips<4>(img, lag_index, sums, edges, batch, rows,
-                                    cols, strip, n_lags, s);
+    case 2: return WM_STRIPS(2);
+    case 3: return WM_STRIPS(3);
+    case 4: return WM_STRIPS(4);
   }
+#undef WM_STRIPS
   return cudaErrorInvalidValue;
 }
 
-// The lag kernel's sums and edges with the image -> gram (batch, k+1, k+1).
-extern "C" int wm_wide_assemble(const float* img, const float* sums,
+// The lag kernel's sums and edges (any strips and lane blocks, e.g. a row
+// shard's folded to one each) with the frame's banks low and high, (batch,
+// 4h, cols) each, image b's at b * bank_stride floats: rows [-h, 3h) and
+// [total_rows - h, total_rows + 3h) of the frame, clamped to it -> gram
+// (batch, k+1, k+1). total_rows, cols >= 6h.
+extern "C" int wm_wide_assemble(const float* low, const float* high,
+                                int bank_stride, const float* sums,
                                 const float* edges, const int* lags,
                                 const int* pair_start, const int* pairs,
-                                float* gram, int batch, int rows, int cols,
-                                int half, int n_lags, int n_strips,
-                                int n_blocks, void* stream) {
-  if (batch < 1 || rows < 6 * half || cols < 6 * half)
+                                float* gram, int batch, int cols, int half,
+                                int n_lags, int n_strips, int n_blocks,
+                                int total_rows, void* stream) {
+  if (batch < 1 || total_rows < 6 * half || cols < 6 * half ||
+      bank_stride < 4 * half * cols || n_strips < 1 || n_blocks < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WM_ASSEMBLE(h)                                                      \
+  launch_assemble<h>(low, high, bank_stride, sums, edges, lags, pair_start, \
+                     pairs, gram, batch, cols, n_lags, n_strips, n_blocks, s)
   switch (half) {
-    case 2: return launch_assemble<2>(img, sums, edges, lags, pair_start,
-                                      pairs, gram, batch, rows, cols, n_lags,
-                                      n_strips, n_blocks, s);
-    case 3: return launch_assemble<3>(img, sums, edges, lags, pair_start,
-                                      pairs, gram, batch, rows, cols, n_lags,
-                                      n_strips, n_blocks, s);
-    case 4: return launch_assemble<4>(img, sums, edges, lags, pair_start,
-                                      pairs, gram, batch, rows, cols, n_lags,
-                                      n_strips, n_blocks, s);
+    case 2: return WM_ASSEMBLE(2);
+    case 3: return WM_ASSEMBLE(3);
+    case 4: return WM_ASSEMBLE(4);
   }
+#undef WM_ASSEMBLE
   return cudaErrorInvalidValue;
 }

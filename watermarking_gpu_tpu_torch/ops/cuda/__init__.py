@@ -12,7 +12,7 @@ calls (their modules say why); the rest carry the embed, detect and
 identification paths.
 """
 
-from ..me import (assemble_lags_plain, assemble_strips_plain,
+from ..me import (assemble_lags_plain, assemble_strips_plain, frame_banks,
                   gram_lags_plain, lag_partials_plain, lag_strips_plain,
                   me_gram_wide_plain)
 from .detect_many import detect_many_partials, detect_many_partials_plain
@@ -43,9 +43,10 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
-           "detect_many_partials", "detect_many_partials_plain",
-           "detect_partials", "detect_partials_plain", "embed_field",
-           "embed_field_plain", "gram_lags_plain", "lag_partials_plain",
+           "detect_many_partials",
+           "detect_many_partials_plain", "detect_partials",
+           "detect_partials_plain", "embed_field", "embed_field_plain",
+           "frame_banks", "gram_lags_plain", "lag_partials_plain",
            "lag_strips_plain", "launch_counts", "me_gram", "me_gram_assemble",
            "me_gram_lags", "me_gram_plain", "me_gram_wide",
            "me_gram_wide_plain", "nvf_mask", "nvf_mask_plain",

@@ -47,9 +47,10 @@ SIGNATURES = {
     "wm_me_gram_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                             _INT, _INT, _INT, _INT, _PTR),
     "wm_wide_lag_strips": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                           _INT, _INT, _INT, _PTR),
-    "wm_wide_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
-                         _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
+                           _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
+    "wm_wide_assemble": (_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
+                         _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                         _PTR),
     "wm_embed_field_num_blocks": (_INT, _INT, _INT, _INT),
     "wm_embed_field": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                        _INT, _INT, _INT, _PTR),
@@ -59,7 +60,7 @@ SIGNATURES = {
     "wm_detect_many_chunk": (),
     "wm_detect_many_num_blocks": (_INT, _INT),
     "wm_detect_many": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                       _INT, _PTR),
+                       _INT, _INT, _INT, _INT, _INT, _PTR),
     "wm_prediction_error": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "wm_nvf_mask": (_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
 }

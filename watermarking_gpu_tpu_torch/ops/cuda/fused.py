@@ -76,11 +76,13 @@ def _rows(image: torch.Tensor, top: int, bottom: int, lo: int,
 
 def check_halo(image: torch.Tensor, top: int, bottom: int, reach: int = 0,
                row_start: int = 0, total_rows: int | None = None,
-               what: str = "") -> tuple[int, int]:
+               what: str = "", reach_top: int | None = None
+               ) -> tuple[int, int]:
     """Raise on halo-form arguments the kernels do not take; returns
     (owned rows, total_rows). A seam (an edge of the shard that is not the
-    frame's) must have ``reach`` rows of halo: a shorter one would read
-    clamped rows where the frame has true ones."""
+    frame's) must have ``reach`` rows of halo (``reach_top`` at the top
+    seam, if given): a shorter one would read clamped rows where the frame
+    has true ones."""
     if top < 0 or bottom < 0:
         raise ValueError(f"halo rows must be >= 0, got top={top}, "
                          f"bottom={bottom}")
@@ -92,13 +94,14 @@ def check_halo(image: torch.Tensor, top: int, bottom: int, reach: int = 0,
     if row_start < 0 or total_rows < row_start + rows:
         raise ValueError(f"rows [{row_start}, {row_start + rows}) do not lie "
                          f"in a frame of {total_rows} rows")
-    for side, halo, seam in (("top", top, row_start > 0),
-                             ("bottom", bottom,
-                              row_start + rows < total_rows)):
-        if seam and halo < reach:
+    above = reach if reach_top is None else reach_top
+    for side, halo, seam, need in (
+            ("top", top, row_start > 0, above),
+            ("bottom", bottom, row_start + rows < total_rows, reach)):
+        if seam and halo < need:
             raise ValueError(
                 f"the {side} seam of rows [{row_start}, {row_start + rows}) "
-                f"needs {reach} rows of halo for {what}, got {halo}")
+                f"needs {need} rows of halo for {what}, got {halo}")
     return rows, total_rows
 
 
@@ -118,6 +121,42 @@ def embed_field_plain(image: torch.Tensor, watermark: torch.Tensor,
             mask.amax(dim=(-2, -1)))
 
 
+def tail_analysis(image: torch.Tensor, coefficients: torch.Tensor,
+                  mask_type: str, p: int, top: int = 0, bottom: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The image-only part of detection on a (B, top + H + bottom, W)
+    shard: (e_z (B, H, W) of the owned rows, the mask (B, H + 2 ph, W) over
+    them and u's ring of ph = pred_p // 2 rows each side), e_z and the mask
+    of the ring read ``stencil_reach`` rows beyond the shard."""
+    pred_p = predictor_p(mask_type, p)
+    ph = pred_p // 2
+    rows = image.shape[-2] - top - bottom
+    # the shard with exactly `reach` rows around its owned ones, so the
+    # region rows [-ph, H + ph) have `inner` rows of halo each side
+    reach = stencil_reach(mask_type, p)
+    inner = reach - ph
+    frame = _rows(image, top, bottom, -reach, rows + reach)
+    e_region = prediction_error(frame, coefficients, pred_p, inner, inner)
+    mask = (e_region.abs() if _mask_code(mask_type, p) == MASK_CODES["me"]
+            else nvf_mask(frame, p, inner, inner))
+    return e_region[..., ph:ph + rows, :], mask
+
+
+def tail_u(mask: torch.Tensor, watermark: torch.Tensor, ph: int, top: int,
+           bottom: int, row_start: int, total_rows: int) -> torch.Tensor:
+    """u = mask * W over the owned rows and its ring of ph rows (``mask``
+    from ``tail_analysis``; ``watermark`` (..., top + H + bottom, W) rows
+    that broadcast against it), with the ring rows outside the frame set to
+    u's edge rows."""
+    rows = watermark.shape[-2] - top - bottom
+    u = mask * _rows(watermark, top, bottom, -ph, rows + ph)
+    if row_start == 0:
+        u[..., :ph, :] = u[..., ph:ph + 1, :]
+    if row_start + rows == total_rows:
+        u[..., ph + rows:, :] = u[..., ph + rows - 1:ph + rows, :]
+    return u
+
+
 def detect_partials_plain(image: torch.Tensor, watermark: torch.Tensor,
                           coefficients: torch.Tensor, mask_type: str = "me",
                           p: int = 3, top: int = 0, bottom: int = 0,
@@ -131,27 +170,15 @@ def detect_partials_plain(image: torch.Tensor, watermark: torch.Tensor,
     from e_z and the mask there (which read ``stencil_reach`` rows beyond
     the shard), then the ring rows outside the frame become u's edge rows.
     """
-    code = _mask_code(mask_type, p)
     rows, total_rows = check_halo(
         image, top, bottom, stencil_reach(mask_type, p), row_start,
         total_rows, f"the detect tail at {mask_type} p={p}")
     pred_p = predictor_p(mask_type, p)
-    ph = pred_p // 2
-    # the shard with exactly `reach` rows around its owned ones, so the
-    # region rows [-ph, H + ph) have `inner` rows of halo each side
-    reach = stencil_reach(mask_type, p)
-    inner = reach - ph
-    frame = _rows(image, top, bottom, -reach, rows + reach)
-    e_region = prediction_error(frame, coefficients, pred_p, inner, inner)
-    mask = (e_region.abs() if code == MASK_CODES["me"]
-            else nvf_mask(frame, p, inner, inner))
-    u = mask * _rows(watermark, top, bottom, -ph, rows + ph)
-    if row_start == 0:
-        u[..., :ph, :] = u[..., ph:ph + 1, :]
-    if row_start + rows == total_rows:
-        u[..., ph + rows:, :] = u[..., ph + rows - 1:ph + rows, :]
-    e_u = prediction_error(u, coefficients, pred_p, ph, ph)
-    e_z = e_region[..., ph:ph + rows, :]
+    e_z, mask = tail_analysis(image, coefficients, mask_type, p, top, bottom)
+    u = tail_u(mask, watermark, pred_p // 2, top, bottom, row_start,
+               total_rows)
+    e_u = prediction_error(u, coefficients, pred_p, pred_p // 2,
+                           pred_p // 2)
     dims = (-2, -1)
     return ((e_u * e_z).sum(dim=dims), (e_u * e_u).sum(dim=dims),
             (e_z * e_z).sum(dim=dims))

@@ -274,9 +274,11 @@ def me_gram_wide_plain(image: torch.Tensor, p: int) -> torch.Tensor:
 # lanes into blocks as ``wide_lag_layout`` says (the last strip and block
 # shorter); per (image, lag, strip, lane block) it writes the sum over the
 # block's lanes, and per (image, lag, strip) the 2h left and 2h right edge
-# lanes. The assembly kernel turns that and the image into the Gram. Below
-# are their plain versions; chained, they are the CPU route of
-# ``ops.cuda.me_gram_wide``.
+# lanes. The assembly kernel turns that and the frame's two boundary banks
+# (``frame_banks``) into the Gram. Below are their plain versions; chained,
+# they are the CPU route of ``ops.cuda.me_gram_wide``. The lag kernel's
+# output is a sum over rows, so a row shard's (its halo form) adds up to
+# the frame's.
 
 # lanes a block of the lag kernel: its threads a block (the kernel refuses
 # any other value)
@@ -293,21 +295,25 @@ def wide_lag_layout(rows: int, cols: int, p: int) -> tuple[int, int, int]:
     return strip, -(-rows // strip), -(-(cols + 2 * (p // 2)) // LANE_BLOCK)
 
 
-def lag_strips_plain(image: torch.Tensor, p: int
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def lag_strips_plain(image: torch.Tensor, p: int, top: int = 0,
+                     bottom: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W) -> (sums (B, L, S, NB), edges (B, L, S, 4h)): per strip of
     rows (``wide_lag_layout``) the lane partials' sum over each block of
     LANE_BLOCK lanes and their 2h left and 2h right edge lanes, lags in
-    ``lag_plan`` order (the plain version of the lag kernel)."""
+    ``lag_plan`` order (the plain version of the lag kernel); the halo form
+    sums the owned rows of a (B, top + H + bottom, W) shard, whose lag
+    products read its rows below them."""
     h = p // 2
     batch, rows, cols = image.shape
+    rows -= top + bottom
     strip, n_strips, n_blocks = wide_lag_layout(rows, cols, p)
     lanes = cols + 2 * h
     ext = pad_edge(image, 3 * h)   # image row 0 at 3h, column -h at 2h
-    base = ext[:, 3 * h:3 * h + rows, 2 * h:4 * h + cols]
+    y0 = 3 * h + top
+    base = ext[:, y0:y0 + rows, 2 * h:4 * h + cols]
     sums, edges = [], []
     for dr, dc in lag_plan(p)[0]:
-        product = base * ext[:, 3 * h + dr:3 * h + dr + rows,
+        product = base * ext[:, y0 + dr:y0 + dr + rows,
                              2 * h + dc:4 * h + dc + cols]
         product = torch.nn.functional.pad(
             product, (0, n_blocks * LANE_BLOCK - lanes, 0,
@@ -320,12 +326,39 @@ def lag_strips_plain(image: torch.Tensor, p: int
     return torch.stack(sums, dim=1), torch.stack(edges, dim=1)
 
 
+@functools.lru_cache(maxsize=16)
+def _bank_rows(rows: int, h: int, device: torch.device) -> torch.Tensor:
+    """The frame rows of the two boundary banks, [-h, 3h) and
+    [H - h, H + 3h), clamped to [0, H), on ``device``."""
+    bank = torch.arange(-h, 3 * h)
+    return torch.cat([bank, rows + bank]).clamp(0, rows - 1).to(device)
+
+
+def frame_banks(image: torch.Tensor, p: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (B, H, W) frames' boundary banks, (B, 4h, W) each at raw
+    columns: rows [-h, 3h) (``low``) and [H - h, H + 3h) (``high``),
+    clamped to the frame; two views of one (B, 8h, W) gather."""
+    h = p // 2
+    both = image.index_select(-2, _bank_rows(image.shape[-2], h,
+                                             image.device))
+    return both[..., :4 * h, :], both[..., 4 * h:, :]
+
+
 def assemble_strips_plain(sums: torch.Tensor, edges: torch.Tensor,
-                          image: torch.Tensor, p: int) -> torch.Tensor:
-    """The lag kernel's (sums, edges) of the (B, H, W) image
-    -> (B, k+1, k+1) Gram (the plain version of the assembly kernel)."""
-    return _assemble(_lane_windows(sums.sum(dim=(2, 3)), edges.sum(dim=2),
-                                   p // 2), image, p)
+                          low: torch.Tensor, high: torch.Tensor,
+                          p: int) -> torch.Tensor:
+    """The lag kernel's (sums, edges) over a frame's rows (any strips and
+    lane blocks: a row shard's, folded) and the frame's (B, 4h, W) banks
+    (``frame_banks``) -> (B, k+1, k+1) Gram (the plain version of the
+    assembly kernel)."""
+    h = p // 2
+    cols = low.shape[-1]
+    bank_cols = torch.arange(-3 * h, cols + 3 * h,
+                             device=low.device).clamp(0, cols - 1)
+    return assemble_banks(
+        _lane_windows(sums.sum(dim=(2, 3)), edges.sum(dim=2), h),
+        low.index_select(-1, bank_cols), high.index_select(-1, bank_cols), p)
 
 
 # ---- the 3x3 Gram kernels' own functions ----------------------------------

@@ -14,8 +14,7 @@ from __future__ import annotations
 
 from ..ops.pipelines import _check_args
 from .mesh import DATA_AXIS, SPACE_AXIS, Mesh, Sharded, shard
-from .spatial import (_detect_many_shard, _detect_shard, _embed_shard,
-                      _require_kernel_route)
+from .spatial import _detect_many_shard, _detect_shard, _embed_shard
 
 
 def shard_hybrid(mesh: Mesh, frames) -> Sharded:
@@ -32,10 +31,9 @@ def shard_watermark(mesh: Mesh, watermark) -> Sharded:
 def make_hybrid_detect(mesh: Mesh, mask_type: str, p: int = 3,
                        impl: str = "cuda"):
     """(B, H, W) frames + (H, W) watermark -> (B,) correlations split over
-    the data axis. ``impl="cuda"`` at ME p > 3 over more than one space
-    shard raises ``NotImplementedError`` (use ``impl="torch"``)."""
+    the data axis. ``impl="cuda"`` runs the kernels' halo forms at every
+    mask and p, ``impl="torch"`` the plain ops."""
     _check_args(mask_type, p, impl)
-    _require_kernel_route(mesh.shape[SPACE_AXIS], mask_type, p, impl)
 
     def detect(frames, watermark) -> Sharded:
         frames = shard_hybrid(mesh, frames)
@@ -54,7 +52,6 @@ def make_hybrid_embed(mesh: Mesh, mask_type: str,
     The JAX package's ``rows`` and ``cols`` arguments are not taken: the
     frames' shape carries them."""
     _check_args(mask_type, p, impl)
-    _require_kernel_route(mesh.shape[SPACE_AXIS], mask_type, p, impl)
 
     def embed(frames, outputs, watermark) -> tuple[Sharded, Sharded]:
         frames = shard_hybrid(mesh, frames)
@@ -83,12 +80,11 @@ def make_mesh_detect_many(mesh: Mesh, mask_type: str, p: int = 3,
     rows with no collectives; each position runs the shared-analysis shard
     function (``spatial._detect_many_shard``). With data=1 this is purely
     spatial identification, with space=1 purely candidate-parallel (see
-    ``make_dp_detect_many``). ``impl="cuda"`` over more than one space
-    shard raises ``NotImplementedError`` (use ``impl="torch"``).
+    ``make_dp_detect_many``). ``impl="cuda"`` runs the Gram's and the
+    multi-candidate kernel's halo forms on every shard (the single-device
+    kernels where the space axis has one shard).
     """
     _check_args(mask_type, p, impl)
-    _require_kernel_route(mesh.shape[SPACE_AXIS], mask_type, p, impl,
-                          many=True)
     img_spec = (None, SPACE_AXIS) if batched else (SPACE_AXIS,)
     out_spec = (None, DATA_AXIS) if batched else (DATA_AXIS,)
 

@@ -27,14 +27,14 @@ Two routes per shard:
   mask from exchanged halos, u's halo exchanged in turn for e_u.
 * ``impl="cuda"``: the kernels' halo forms on each shard (the JAX
   package's ``impl="pallas"`` shard functions, whose exchanged rows sit
-  where the kernels' padding would): the 3x3 Gram of the shard's owned
-  rows, summed, and the embed field or the detect tail, whose u ring is
-  clamped only at the frame's own top and bottom (``row_start``,
-  ``total_rows``). On CPU tensors the kernels' plain halo forms run. ME at
-  p > 3 and identification need the sharded wide Gram and the sharded
-  multi-candidate kernel, which have no halo form yet: with more than one
-  space shard they raise ``NotImplementedError`` (``impl="torch"`` runs
-  them); on a space axis of one shard they run the single-device kernels.
+  where the kernels' padding would): the Gram of the shard's owned rows
+  (the 3x3 Gram's, or at ME p > 3 the wide Gram's lag kernel, its sums
+  folded and assembled once with the frame's boundary banks from the edge
+  shards), summed, and the embed field, the detect tail or the
+  multi-candidate kernel, whose u ring is clamped only at the frame's own
+  top and bottom (``row_start``, ``total_rows``). On CPU tensors the
+  kernels' plain halo forms run. Identification on a space axis of one
+  shard runs the single-device kernels (no halo to exchange).
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ import math
 
 import torch
 
-from ..ops.cuda import detect_partials, embed_field, me_gram
+from ..ops.cuda import (detect_many_partials, detect_partials, embed_field,
+                        me_gram, wide_assemble, wide_lag_strips)
 from ..ops.cuda.fused import predictor_p, stencil_reach
 from ..ops.me import (assemble_banks, edge_windows, gram_direct,
                       lag_partials_plain, prediction_error,
@@ -122,6 +123,30 @@ def _nvf_local(xs: Shards, p: int) -> Shards:
     return [nvf_mask(e, p, h, h) for e in exchange_row_halo(xs, h)]
 
 
+def _wide_banks(imgs: Shards, p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frame's boundary banks for the wide Gram's assembly, (B, 4h, W)
+    each at raw columns, on the first shard's device: rows [-h, 3h) and
+    [H-h, H+3h), clamped to the frame, which the first and last shard
+    hold. Shards shorter than 3h take their bank rows from a 3h-row
+    exchanged halo (several hops where a shard is shorter still)."""
+    h = p // 2
+    h_local, cols = imgs[0].shape[-2:]
+    flat = [x.reshape(-1, h_local, cols) for x in imgs]
+    device = flat[0].device
+    if h_local >= 3 * h:
+        bank = torch.arange(-h, 3 * h)
+        low = flat[0][:, bank.clamp(0, h_local - 1).to(device)]
+        high = flat[-1][:, (h_local + bank).clamp(0, h_local - 1).to(
+            flat[-1].device)]
+    else:
+        # shard 0's row t of a 3h halo exchange is the frame's row t - 3h,
+        # the last shard's is the frame's row (rows - h_local) + t - 3h
+        ext = exchange_row_halo(flat, 3 * h)
+        low = ext[0][:, 2 * h:6 * h]
+        high = ext[-1][:, 2 * h + h_local:6 * h + h_local]
+    return low.contiguous(), high.to(device, non_blocking=True).contiguous()
+
+
 def _gram_wide_sharded(imgs: Shards, p: int) -> torch.Tensor:
     """The frame's wide-window Gram (..., k+1, k+1) on the first shard's
     device, from per-shard lag partials summed there and one assembly.
@@ -130,32 +155,17 @@ def _gram_wide_sharded(imgs: Shards, p: int) -> torch.Tensor:
     ``assemble_banks``) splits over row shards: each lag's lane partials
     are a sum over the frame's rows, so the shards' partials over their own
     rows (with a 2h-row halo below for the lag reach) sum to the frame's,
-    and the boundary-row corrections read only the frame's edge rows: the
-    banks [-h, 3h) and [H-h, H+3h), which the first and last shard
-    hold. Shards shorter than 3h take their bank rows from a 3h-row
-    exchanged halo (several hops where a shard is shorter still).
+    and the boundary-row corrections read only the frame's edge rows
+    (``_wide_banks``).
     """
     h = p // 2
     lead = imgs[0].shape[:-2]
-    h_local, cols = imgs[0].shape[-2:]
+    cols = imgs[0].shape[-1]
     partials = fold([lag_partials_plain(_flat(e), p, 2 * h, 2 * h)
                      for e in exchange_row_halo(imgs, 2 * h)])
-    device = partials.device
-    flat = [x.reshape(-1, h_local, cols) for x in imgs]
-    bank_cols = torch.arange(-3 * h, cols + 3 * h).clamp(0, cols - 1)
-    if h_local >= 3 * h:
-        bank = torch.arange(-h, 3 * h, device=device)
-        low = flat[0][:, bank.clamp(0, h_local - 1)]
-        high = flat[-1][:, (h_local + bank.to(flat[-1].device)).clamp(
-            0, h_local - 1)]
-    else:
-        # shard 0's row t of a 3h halo exchange is the frame's row t - 3h,
-        # the last shard's is the frame's row (rows - h_local) + t - 3h
-        ext = exchange_row_halo(flat, 3 * h)
-        low = ext[0][:, 2 * h:6 * h]
-        high = ext[-1][:, 2 * h + h_local:6 * h + h_local]
-    low = low[..., bank_cols.to(device)]
-    high = high.to(device, non_blocking=True)[..., bank_cols.to(device)]
+    bank_cols = torch.arange(-3 * h, cols + 3 * h,
+                             device=partials.device).clamp(0, cols - 1)
+    low, high = (bank[..., bank_cols] for bank in _wide_banks(imgs, p))
     k = p * p
     return assemble_banks(edge_windows(partials, h), low, high, p).reshape(
         lead + (k, k))
@@ -204,38 +214,33 @@ def _analysis_and_mask(imgs: Shards, mask_type: str, p: int):
     return pred_p, coefficients, valid, e_z, mask
 
 
-def _require_kernel_route(n_space: int, mask_type: str, p: int, impl: str,
-                          many: bool = False) -> None:
-    """Raise where ``impl="cuda"`` needs a kernel's halo form that the port
-    does not have yet (more than one space shard)."""
-    if impl != "cuda" or n_space == 1:
-        return
-    if many:
-        raise NotImplementedError(
-            "identification over more than one space shard with "
-            "impl='cuda' needs the sharded multi-candidate kernel (a halo "
-            "form of csrc/detect_many.cu), which is not ported yet; "
-            "impl='torch' runs it")
-    if mask_type == "me" and p != 3:
-        raise NotImplementedError(
-            f"ME at p={p} over more than one space shard with impl='cuda' "
-            f"needs the sharded wide Gram (a halo form of "
-            f"csrc/me_gram_wide.cu), which is not ported yet; impl='torch' "
-            f"runs it")
-
-
 def _solve_cuda(imgs: Shards, ext: Shards, halo: int, pred_p: int):
     """(coefficients (B, k), valid (B,)) on every shard through the
-    kernels: the 3x3 Gram's halo form over each shard's owned rows (``ext``
-    holds ``halo`` >= 1 rows each side), summed on the first shard, and
-    the unrolled Cholesky once; the wide Gram on a space axis of one
-    shard."""
-    if pred_p != 3:
-        return [_fused_analysis(_flat(x), pred_p) for x in imgs]
-    h_local = imgs[0].shape[-2]
-    gram = fold([me_gram(e, halo, halo, i * h_local, len(imgs) * h_local)
-                 for i, e in enumerate(ext)])
-    return _solve_once(gram, solve_coefficients_spd, [x.device for x in imgs])
+    kernels, ``ext`` holding each shard with ``halo`` rows each side (>= 1
+    at p = 3, >= 2h above): the Gram's halo form over each shard's owned
+    rows, folded onto the first shard, and one solve there. At p = 3 the
+    3x3 Gram and the unrolled Cholesky; above, the wide Gram's lag kernel
+    (its sums reduced over strips before the fold), one assembly with the
+    frame's banks and the library Cholesky, or, for a frame below the lag
+    form's 6h geometry, the direct per-pair sums, as a single device takes
+    them."""
+    h_local, cols = imgs[0].shape[-2:]
+    total_rows = len(imgs) * h_local
+    devices = [x.device for x in imgs]
+    if pred_p == 3:
+        gram = fold([me_gram(e, halo, halo, i * h_local, total_rows)
+                     for i, e in enumerate(ext)])
+        return _solve_once(gram, solve_coefficients_spd, devices)
+    if not wide_lag_geometry(total_rows, cols, pred_p):
+        gram = fold([gram_direct(e, pred_p, halo, halo) for e in ext])
+    else:
+        parts = [wide_lag_strips(e, pred_p, halo, halo, i * h_local,
+                                 total_rows) for i, e in enumerate(ext)]
+        sums = fold([s.sum(dim=(2, 3), keepdim=True) for s, _ in parts])
+        edges = fold([e.sum(dim=2, keepdim=True) for _, e in parts])
+        gram = wide_assemble(sums, edges, *_wide_banks(imgs, pred_p),
+                             pred_p, total_rows)
+    return _solve_once(gram, solve_coefficients_spd_wide, devices)
 
 
 def _detect_shard_cuda(imgs: Shards, wms: Shards, mask_type: str,
@@ -243,8 +248,8 @@ def _detect_shard_cuda(imgs: Shards, wms: Shards, mask_type: str,
     """Per shard: the Gram and the detect tail in their halo forms, the
     image and the watermark extended by ``stencil_reach`` rows (the u
     ring's rows at a seam are the neighbour's true rows; the tail clamps
-    the ring only at the frame's own top and bottom), then psum'd sums."""
-    _require_kernel_route(len(imgs), mask_type, p, "cuda")
+    the ring only at the frame's own top and bottom; at ME p > 3 the same
+    2h rows serve the wide Gram's lag kernel), then psum'd sums."""
     h_local = imgs[0].shape[-2]
     batch_shape = imgs[0].shape[:-2]
     total_rows = len(imgs) * h_local
@@ -280,6 +285,29 @@ def _detect_shard(imgs: Shards, wms: Shards, mask_type: str, p: int,
             for v, d, u, z in zip(valid, dot, norm_u, norm_z)]
 
 
+def _detect_many_shard_cuda(imgs: Shards, watermarks: Shards,
+                            mask_type: str, p: int) -> Shards:
+    """Per shard: the Gram and the multi-candidate kernel in their halo
+    forms, the image and the candidates extended by ``stencil_reach`` rows
+    (as ``_detect_shard_cuda``), one solve a space row, then the three sums
+    psum'd: (..., N_local) correlations on every shard."""
+    h_local = imgs[0].shape[-2]
+    batch_shape = imgs[0].shape[:-2]
+    n = watermarks[0].shape[0]
+    total_rows = len(imgs) * h_local
+    halo = stencil_reach(mask_type, p)
+    ext = [_flat(e) for e in exchange_row_halo(imgs, halo)]
+    bank_ext = [w.contiguous() for w in exchange_row_halo(watermarks, halo)]
+    solved = _solve_cuda(imgs, ext, halo, predictor_p(mask_type, p))
+    sums = [detect_many_partials(e, w, c, mask_type, p, halo, halo,
+                                 i * h_local, total_rows)
+            for i, (e, w, (c, _)) in enumerate(zip(ext, bank_ext, solved))]
+    dot, norm_u, norm_z = (psum([s[m] for s in sums]) for m in range(3))
+    return [torch.where(v[:, None], d / torch.sqrt(u * z[:, None]),
+                        0.0).reshape(batch_shape + (n,))
+            for (_, v), d, u, z in zip(solved, dot, norm_u, norm_z)]
+
+
 def _detect_many_shard(imgs: Shards, watermarks: Shards, mask_type: str,
                        p: int, impl: str = "cuda") -> Shards:
     """Identification per shard: (..., h_local, W) image rows x (N_local,
@@ -287,12 +315,14 @@ def _detect_many_shard(imgs: Shards, watermarks: Shards, mask_type: str,
     shard. The image analysis (Gram summed, one solve, error
     sequence, mask) runs once per shard and serves all its candidates; row
     reductions psum over the space axis, the candidate axis needs no
-    collectives. ``impl="cuda"`` runs ``detect_many_pipeline``'s kernels on
-    a space axis of one shard and raises on more (module docstring)."""
+    collectives. ``impl="cuda"`` runs the kernels' halo forms
+    (``_detect_many_shard_cuda``), or ``detect_many_pipeline``'s kernels on
+    a space axis of one shard."""
     imgs = [_to_f32(x) for x in imgs]
     watermarks = [_to_f32(w) for w in watermarks]
     if impl == "cuda":
-        _require_kernel_route(len(imgs), mask_type, p, impl, many=True)
+        if len(imgs) > 1:
+            return _detect_many_shard_cuda(imgs, watermarks, mask_type, p)
         return [detect_many_pipeline(imgs[0], watermarks[0], mask_type, p,
                                      impl="cuda")]
     pred_p, coefficients, valid, e_z, mask = _analysis_and_mask(
@@ -324,18 +354,19 @@ def _embed_shard_cuda(imgs: Shards, outputs: Shards, wms: Shards,
                       strength_factor_value: float, mask_type: str, p: int):
     """Per shard: the Gram (ME) and the embed field in their halo forms,
     the frame extended by max(1, p // 2) rows (the field's reach, and the
-    3x3 Gram's); sum u^2 psum'd and max |e| pmax'd."""
-    _require_kernel_route(len(imgs), mask_type, p, "cuda")
+    3x3 Gram's); sum u^2 psum'd and max |e| pmax'd. At ME p > 3 the frame
+    is extended once by the wide Gram's 2h rows, of which the field reads
+    the inner h."""
     h_local, cols = imgs[0].shape[-2:]
     batch_shape = imgs[0].shape[:-2]
-    half = max(1, p // 2)
-    ext = [_flat(e) for e in exchange_row_halo(imgs, half)]
+    halo = 2 * (p // 2) if mask_type == "me" and p != 3 else max(1, p // 2)
+    ext = [_flat(e) for e in exchange_row_halo(imgs, halo)]
     if mask_type == "me":
-        solved = _solve_cuda(imgs, ext, half, p)
+        solved = _solve_cuda(imgs, ext, halo, p)
     else:
         solved = [(None, torch.ones(e.shape[0], dtype=torch.bool,
                                     device=e.device)) for e in ext]
-    fields = [embed_field(e, w.contiguous(), c, mask_type, p, half, half)
+    fields = [embed_field(e, w.contiguous(), c, mask_type, p, halo, halo)
               for e, w, (c, _) in zip(ext, wms, solved)]
     sum_u2 = psum([f[1] for f in fields])
     max_e = pmax([f[2] for f in fields])
@@ -396,10 +427,8 @@ def make_spatial_detect(mesh: Mesh, mask_type: str, p: int = 3,
     correlation, a ``Sharded`` scalar (``float(...)`` reads it).
 
     ``impl="cuda"`` runs the Gram and detect-tail kernels' halo forms per
-    shard; ME at p > 3 over more than one space shard raises
-    ``NotImplementedError`` there (use ``impl="torch"``)."""
+    shard at every mask and p; ``impl="torch"`` the plain ops."""
     _check_args(mask_type, p, impl)
-    _require_kernel_route(mesh.shape[SPACE_AXIS], mask_type, p, impl)
 
     def detect(image, watermark) -> Sharded:
         image = shard_rows(mesh, image)
@@ -421,7 +450,6 @@ def make_spatial_embed(mesh: Mesh, mask_type: str,
     ``make_spatial_detect``."""
     del channels
     _check_args(mask_type, p, impl)
-    _require_kernel_route(mesh.shape[SPACE_AXIS], mask_type, p, impl)
 
     def embed(image, output, watermark) -> tuple[Sharded, Sharded]:
         image, output = shard_rows(mesh, image), shard_rows(mesh, output)

@@ -31,8 +31,8 @@ from .models.batched import BatchedWatermark, pad_to_batch
 from .models.masks import MaskType
 from .parallel import (DATA_AXIS, SPACE_AXIS, Sharded, make_dp_detect,
                        make_dp_detect_many, make_dp_embed, make_hybrid_detect,
-                       make_hybrid_embed, replicate, shard, shard_frames,
-                       shard_hybrid, shard_watermark)
+                       make_hybrid_embed, make_mesh_detect_many, replicate,
+                       shard, shard_frames, shard_hybrid, shard_watermark)
 
 
 class _BatchingService:
@@ -44,11 +44,9 @@ class _BatchingService:
     of the data axis' size). A ``space`` axis > 1 also row-splits every
     frame over that axis (the hybrid DP x SP route, halo rows moved between
     the shards): the serving route for frames too large for one device.
-    The engine's ``impl`` carries over to the mesh functions; with
-    ``impl="cuda"``, ME at p > 3 over a space axis > 1 raises
-    ``NotImplementedError`` when the service is built (its sharded wide Gram
-    has no kernel yet), so such a service is built on an ``impl="torch"``
-    engine.
+    The engine's ``impl`` carries over to the mesh functions: with
+    ``impl="cuda"`` every shard runs the kernels' halo forms, at every mask
+    and p.
 
     ``max_queued`` bounds the submission queue: a producer faster than the
     device blocks in ``submit`` instead of buffering frames without limit
@@ -380,8 +378,7 @@ class DetectorService(_BatchingService):
 
     ``mesh``: optional ``parallel.Mesh``: frame-parallel over its ``data``
     axis and, with a ``space`` axis > 1, row-split frames (see
-    ``_BatchingService``; ME at p > 3 over a space axis > 1 needs an
-    ``impl="torch"`` engine).
+    ``_BatchingService``).
     """
 
     def __init__(self, engine: BatchedWatermark,
@@ -420,8 +417,10 @@ class IdentifierService(_BatchingService):
     ``mesh``: optional ``parallel.Mesh`` whose ``data`` axis splits the
     CANDIDATE bank (each position scores N/n candidates against the whole
     batch, ``parallel.make_dp_detect_many``). N must divide by the data
-    axis; a ``space`` axis > 1 is refused (``make_mesh_detect_many`` takes
-    frames too large for one device).
+    axis. A ``space`` axis > 1 also row-splits every frame and candidate
+    over that axis (``parallel.make_mesh_detect_many``: halo rows moved
+    between the shards, the route for frames too large for one device);
+    the rows must divide over it.
     """
 
     def __init__(self, engine: BatchedWatermark, candidates,
@@ -439,15 +438,18 @@ class IdentifierService(_BatchingService):
                 f" got {tuple(bank.shape)}")
         self._id_mesh = mesh
         if mesh is not None:      # validate before starting worker threads
-            if mesh.shape[SPACE_AXIS] > 1:
+            space = mesh.shape[SPACE_AXIS]
+            if space > 1 and engine.rows % space:
                 raise ValueError(
-                    "IdentifierService splits candidates over the data "
-                    "axis only; space axes are not supported here")
+                    f"rows {engine.rows} must divide over the mesh space "
+                    f"axis ({space})")
             if bank.shape[0] % mesh.shape[DATA_AXIS]:
                 raise ValueError(
                     f"candidate count {bank.shape[0]} must divide over the "
                     f"mesh data axis ({mesh.shape[DATA_AXIS]})")
-            self._bank = shard(mesh, bank.to(torch.float32), (DATA_AXIS,))
+            self._bank = (shard_hybrid(mesh, bank.to(torch.float32))
+                          if space > 1 else
+                          shard(mesh, bank.to(torch.float32), (DATA_AXIS,)))
         else:
             self._bank = bank.to(device=device,
                                  dtype=torch.float32).contiguous()
@@ -456,9 +458,10 @@ class IdentifierService(_BatchingService):
         super().__init__(engine, mask_type, batch_size, max_inflight,
                          flush_timeout, None, max_queued)
         if mesh is not None:
-            self._mesh_fn = make_dp_detect_many(
-                mesh, self.mask_type.value, p=engine.p, impl=engine.impl,
-                batched=True)
+            make = (make_mesh_detect_many if mesh.shape[SPACE_AXIS] > 1
+                    else make_dp_detect_many)
+            self._mesh_fn = make(mesh, self.mask_type.value, p=engine.p,
+                                 impl=engine.impl, batched=True)
 
     def _run_batch(self, stack):
         if self._id_mesh is not None:
