@@ -90,12 +90,26 @@ prints no result:
    ``mesh=`` (the detector and embedder on data=2 x space=2, the
    identifier on data=2 and on data=2 x space=2, a p=5 detector on data=2
    x space=2), their answers equal to the mesh functions'.
+7. The tools and the examples a user runs (run before phase 4's profiler
+   timings), each through its entry point on the card, its launch
+   counters zeroed just before and read just after, held to the JAX
+   package's own tools and examples (``JAX_TOOLS_REFERENCE``):
+   ``generate_watermark`` (the .dat byte-equal to ``save_watermark``'s,
+   with and without ``--repeat-blocks 4``); ``calibrate_threshold`` on
+   phase 5's PNG at its defaults (8 images, 256 nulls, FPR 1e-6) at ME p=3,
+   NVF p=3 and ME p=5 (the null matrix one ``detect_many`` dispatch; the
+   host's matrix generation, the upload and the null dispatch timed);
+   ``evaluate_robustness`` at ME and NVF, then ME with Pillow hidden (its
+   JPEG rows skipped, 9 attacks in one batch); the image and the
+   identification examples on the PNG, the video and the serving examples
+   at their own sizes.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks): launches in its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
 path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
-Gram), plus the launches of phase 6's runs at that kernel, mask and p;
+Gram), plus the launches of phase 6's and phase 7's runs at that kernel,
+mask and p;
 ``max_abs_err`` of
 its main output against the plain version at 8 x 1080 x 1920 (the Gram,
 u_raw, the correlation formed from the detect sums, or the standalone op's
@@ -123,6 +137,8 @@ The last line is
 from __future__ import annotations
 
 import contextlib
+import importlib.metadata
+import importlib.util
 import io
 import json
 import os
@@ -164,6 +180,10 @@ from watermarking_gpu_tpu_torch.parallel import (make_dp_detect,
                                                  make_hybrid_embed, make_mesh,
                                                  make_mesh_detect_many,
                                                  make_spatial_detect)
+from watermarking_gpu_tpu_torch.tools import (calibrate_threshold,
+                                              evaluate_robustness)
+from watermarking_gpu_tpu_torch.tools import \
+    generate_watermark as generate_tool
 from watermarking_gpu_tpu_torch.video import (detect_video, embed_video,
                                               frame_bytes, synthesize)
 
@@ -1876,6 +1896,172 @@ def phase_video() -> None:
               flush=True)
 
 
+# Phase 7: the tools and the examples a user runs, on phase 5's PNG and
+# watermark: calibrate_threshold at its defaults for each of these runs
+# (name -> extra arguments), evaluate_robustness for each mask, the
+# identification example against IDENTIFY_N candidates.
+CALIBRATE_RUNS = {"me:3": [], "nvf:3": ["--mask", "nvf"], "me:5": ["--p", "5"]}
+ROBUSTNESS_MASKS = ("me", "nvf")
+IDENTIFY_N = 16
+
+
+# Computed by the JAX package on the CPU by
+#   JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --tools
+# from its own tools and examples run in process, their engines wrapped so
+# that what they compute is recorded at full precision: "calibrate",
+# tools/calibrate_threshold.py on make_cli_image()'s PNG at its defaults for
+# each of CALIBRATE_RUNS (the null matrix's mean, per-image std range and
+# max, z, the threshold, the 8 signals, their mean and min); "robustness",
+# tools/evaluate_robustness.py on the PNG for each mask (the strength and
+# each attack's correlation, Pillow's JPEG included); the image and
+# identification examples on the PNG (and the watermark of phase 5), the
+# video and serving examples at their own sizes.
+JAX_TOOLS_REFERENCE = {
+    "calibrate": {
+        "me:3": {
+            "mean": 0.00015261606313288212,
+            "std_min": 0.0012685440015047789,
+            "std_max": 0.0012915056431666017,
+            "max": 0.0036530019715428352,
+            "z": 4.753424308817089,
+            "threshold": 0.006291690382335456,
+            "signal_mean": 0.1320761600509286,
+            "signal_min": 0.11555091291666031,
+            "signals": [
+                0.12312136590480804, 0.1355436146259308, 0.11555091291666031,
+                0.13508909940719604, 0.14077609777450562, 0.14473362267017365,
+                0.12514498829841614, 0.13664957880973816
+            ],
+        },
+        "nvf:3": {
+            "mean": 3.0767150747124106e-05,
+            "std_min": 0.0007536179618909955,
+            "std_max": 0.0007794869015924633,
+            "max": 0.002117675496265292,
+            "z": 4.753424308817089,
+            "threshold": 0.003735999137181253,
+            "signal_mean": 0.06536913802847266,
+            "signal_min": 0.05813652276992798,
+            "signals": [
+                0.06140398234128952, 0.06700316816568375, 0.05813652276992798,
+                0.06633887439966202, 0.06949272751808167, 0.07136756181716919,
+                0.061904799193143845, 0.06730546802282333
+            ],
+        },
+        "me:5": {
+            "mean": 0.00015403619909193367,
+            "std_min": 0.0011525211157277226,
+            "std_max": 0.0011959221446886659,
+            "max": 0.003256813623011112,
+            "z": 4.753424308817089,
+            "threshold": 0.005838761593107706,
+            "signal_mean": 0.1304125413298607,
+            "signal_min": 0.11357805877923965,
+            "signals": [
+                0.12190355360507965, 0.1333783119916916, 0.11357805877923965,
+                0.13372111320495605, 0.14044779539108276, 0.14272354543209076,
+                0.12330865114927292, 0.1342393010854721
+            ],
+        },
+    },
+    "robustness": {
+        "me": {
+            "strength": 10.71573257446289,
+            "rows": {
+                "none": 0.13074438273906708,
+                "clean image (no mark)": 0.002547062933444977,
+                "gaussian noise sigma=2": 0.12357740104198456,
+                "gaussian noise sigma=5": 0.12835440039634705,
+                "gaussian noise sigma=10": 0.12266657501459122,
+                "gaussian noise sigma=20": 0.1049024686217308,
+                "u8 quantization": 0.13075986504554749,
+                "jpeg q=90": 0.1290653944015503,
+                "jpeg q=70": 0.11977176368236542,
+                "jpeg q=50": 0.10415923595428467,
+                "jpeg q=30": 0.07468228787183762,
+                "brightness x0.9": 0.13074378669261932,
+                "brightness x1.1": 0.1274552345275879,
+            },
+        },
+        "nvf": {
+            "strength": 2.553189992904663,
+            "rows": {
+                "none": 0.06463152915239334,
+                "clean image (no mark)": 0.0010087157133966684,
+                "gaussian noise sigma=2": 0.061557698994874954,
+                "gaussian noise sigma=5": 0.06408118456602097,
+                "gaussian noise sigma=10": 0.06285511702299118,
+                "gaussian noise sigma=20": 0.05778689682483673,
+                "u8 quantization": 0.06463789194822311,
+                "jpeg q=90": 0.0643056258559227,
+                "jpeg q=70": 0.06199311465024948,
+                "jpeg q=50": 0.05730001628398895,
+                "jpeg q=30": 0.04189842939376831,
+                "brightness x0.9": 0.06463517248630524,
+                "brightness x1.1": 0.06456219404935837,
+            },
+        },
+    },
+    "image_example": {
+        "NVF": {
+            "strength": 2.553189992904663,
+            "corr_marked": 0.06463152915239334,
+            "corr_clean": 0.0010087161790579557,
+        },
+        "ME": {
+            "strength": 10.71573257446289,
+            "corr_marked": 0.13074438273906708,
+            "corr_clean": 0.002547062234953046,
+        },
+    },
+    "identify_example": {
+        "strength": 10.715357780456543,
+        "corrs": [
+            -0.0014704472851008177, 0.0007601346005685627,
+            -6.837120599811897e-05, -0.0007407297380268574,
+            0.0002059407124761492, -0.0016588715370744467,
+            -0.000643152859993279, 3.979267262366193e-07, 0.12899911403656006,
+            0.00040226077544502914, -0.000161426913109608,
+            0.0025110600981861353, -0.0009410659549757838,
+            -0.00024063784803729504, -0.0006080802995711565,
+            0.0006757103838026524
+        ],
+    },
+    "video_example": {
+        "marked": [
+            0.4251946806907654, 0.4239501953125, 0.42341554164886475,
+            0.42151013016700745, 0.42682328820228577, 0.418636292219162
+        ],
+        "clean": [
+            0.0014001285890117288, -0.001505363266915083,
+            -0.0013665473088622093, -0.0052162110805511475,
+            0.003661304246634245, -0.00888986699283123
+        ],
+    },
+    "serving_example": {
+        "corrs": [
+            0.22329863905906677, 0.22279970347881317, 0.22107531130313873,
+            0.21943901479244232, 0.22127707302570343, 0.22008714079856873,
+            0.22518585622310638, 0.22009222209453583, 0.2187434881925583,
+            0.21974335610866547, 0.22059966623783112, 0.2245413213968277,
+            0.2233869731426239, 0.22743423283100128, 0.22019323706626892,
+            0.22712230682373047, 0.22241586446762085, 0.2267526537179947,
+            0.2230176478624344, 0.2209503948688507, 0.2225261926651001,
+            0.22389940917491913, 0.22547534108161926, 0.22712966799736023,
+            0.22496360540390015, 0.2186424881219864, 0.2236294001340866,
+            0.22086410224437714, 0.22223041951656342, 0.22425629198551178,
+            0.22674748301506042, 0.23098234832286835
+        ],
+        "scores": [
+            0.22329863905906677, 0.0028511204291135073, -0.0024862049613147974,
+            -0.0032479658257216215, 0.001203165389597416,
+            -0.0004792766412720084, -0.0016611478058621287,
+            -0.0013771953526884317
+        ],
+    },
+}
+
+
 # Phase 6: the sharded routes of parallel/ on the card, at 8 x 1080 x 1920.
 # On one card every mesh names cuda:0 for each of its shards, so the
 # collectives' copies are no copies: the phase measures the routes and
@@ -2468,6 +2654,302 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
     return launches
 
 
+TOOLS_ATOL = 3e-4    # calibration and identification against JAX (3e-4)
+
+
+def load_example(name: str):
+    """The module of ``examples/<name>_torch.py``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class CountsAtLines(io.StringIO):
+    """Captured standard output that also keeps the launch counts at the
+    moment the first line starting with each of ``prefixes`` is written (a
+    run's launches up to that line: the counters are host integers)."""
+
+    def __init__(self, prefixes: tuple[str, ...]):
+        super().__init__()
+        self.prefixes, self.at = prefixes, {}
+
+    def write(self, text: str) -> int:
+        for prefix in self.prefixes:
+            if text.startswith(prefix) and prefix not in self.at:
+                self.at[prefix] = kernels.launch_counts()
+        return super().write(text)
+
+
+def run_entry(fn, prefixes: tuple[str, ...] = ()):
+    """(fn's result, its standard output, the kernels' launches in it, its
+    seconds by CUDA events, the counts at ``prefixes``' lines):
+    ``run_counted`` with the standard output captured."""
+    buffer = CountsAtLines(prefixes)
+    with contextlib.redirect_stdout(buffer):
+        result, counts, ms = run_counted(fn)
+    return result, buffer.getvalue(), counts, ms / 1e3, buffer.at
+
+
+def check_ran(label: str, counts: dict, names) -> None:
+    check(all(counts[name] > 0 for name in names),
+          f"{label}: a kernel of its path was never launched: {counts}")
+
+
+def phase_tools_generate(tmp: str) -> None:
+    """``generate_watermark`` in process: the .dat byte-equal to
+    ``save_watermark(generate_watermark(...))``, with and without
+    ``--repeat-blocks 4``; no kernel launched."""
+    for repeat in (1, 4):
+        path = os.path.join(tmp, f"generated_{repeat}.dat")
+        extra = [] if repeat == 1 else ["--repeat-blocks", str(repeat)]
+        rc, out, counts, seconds, _ = run_entry(lambda: generate_tool.main(
+            [str(ROWS), str(COLS), str(SEED), path, *extra]))
+        check(rc == 0 and out == f"Successfully wrote {ROWS * COLS} random "
+              f"floats to {path}.\n", f"generate_watermark: rc {rc}:\n{out}")
+        want = os.path.join(tmp, "want.dat")
+        save_watermark(want, generate_watermark(ROWS, COLS, SEED,
+                                                repeat_blocks=repeat))
+        with open(path, "rb") as got, open(want, "rb") as expected:
+            check(got.read() == expected.read(), f"generate_watermark "
+                  f"{extra}: the .dat differs from save_watermark's")
+        check(not launched(counts), f"generate_watermark launched {counts}")
+        print(f"[7] generate_watermark {ROWS} {COLS} {SEED} "
+              f"{' '.join(extra)}: rc 0 in {seconds:.2f} s, the .dat "
+              f"byte-equal to save_watermark(generate_watermark(...)); no "
+              f"launch: ok", flush=True)
+
+
+def phase_tools_calibrate(png: str, power: str, launches: dict) -> None:
+    """``calibrate_threshold`` at its defaults (8 images, 256 nulls, FPR
+    1e-6) for each of CALIBRATE_RUNS, held to JAX_TOOLS_REFERENCE."""
+    for name, argv in CALIBRATE_RUNS.items():
+        mask, p = name.split(":")
+        p = int(p)
+        res = {}
+        rc, out, counts, seconds, _ = run_entry(
+            lambda: calibrate_threshold.main([png, *argv], results=res))
+        label = f"calibrate_threshold {name}"
+        check(rc == 0 and res["misses"] == 0, f"{label}: rc {rc}:\n{out}")
+        ref = JAX_TOOLS_REFERENCE["calibrate"][name]
+        errors = {key: abs(res[key] - ref[key]) for key in (
+            "mean", "std_min", "std_max", "max", "signal_mean",
+            "signal_min")}
+        errors["signals"] = float(np.abs(res["signals"]
+                                         - ref["signals"]).max())
+        check(max(errors.values()) <= TOOLS_ATOL,
+              f"{label}: differs from JAX's {ref}: {errors}")
+        threshold_err = abs(res["threshold"] - ref["threshold"])
+        check(threshold_err <= (1 + ref["z"]) * TOOLS_ATOL,
+              f"{label}: threshold {res['threshold']} vs JAX "
+              f"{ref['threshold']}")
+        check(res["nulls"].shape == (8, 256), f"{label}: nulls "
+              f"{res['nulls'].shape}")
+        grams = WIDE_GRAM_KERNELS if mask == "me" and p > 3 else GRAM_KERNELS
+        check_ran(label, counts, (*grams, "embed_field", "detect_partials",
+                                  "detect_many"))
+        check(counts["detect_many"] == 1, f"{label}: the null matrix took "
+              f"{counts['detect_many']} dispatches")
+        add_counts(launches, counts, mask, p)
+        print(f"[7] {label} (1080x1920 PNG, 8 images x 256 nulls, FPR "
+              f"1e-6): rc 0 in {seconds:.1f} s; host matrices "
+              f"{res['host_s']:.2f} s, images and bank upload "
+              f"{res['upload_ms']:.1f} ms, null dispatch {res['null_ms']:.3f} ms (CUDA events, "
+              f"{power}); threshold {res['threshold']:.6f} (JAX "
+              f"{ref['threshold']:.6f}), null mean {res['mean']:+.2e} std "
+              f"{res['std_min']:.6f}..{res['std_max']:.6f} max "
+              f"{res['max']:.6f}, signals mean {res['signal_mean']:.6f} min "
+              f"{res['signal_min']:.6f}; JAX max abs diff "
+              f"{max(errors.values()):.1e}; launches {launched(counts)}: ok",
+              flush=True)
+
+
+@contextlib.contextmanager
+def pillow_hidden():
+    """``from PIL import ...`` raises ImportError inside, as where Pillow
+    is not installed."""
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+
+
+def phase_tools_robustness(png: str, launches: dict) -> None:
+    """``evaluate_robustness`` at its defaults for each mask, then ME with
+    Pillow hidden (the JPEG rows skipped, 9 attacks in the batch), held to
+    JAX_TOOLS_REFERENCE: each correlation that ran, the strength, and the
+    mark's lead over the clean image (above 0.1 at ME, the JAX test's
+    bound, tests/test_cli.py:269; at NVF and PSNR 40 the JAX numbers
+    themselves lead by 0.064, so NVF is held to JAX's lead)."""
+    installed = importlib.util.find_spec("PIL") is not None
+    pillow = (f"Pillow {importlib.metadata.version('pillow')}" if installed
+              else "no Pillow")
+    first = {}
+    for mask, hidden in (*((mask, False) for mask in ROBUSTNESS_MASKS),
+                         ("me", True)):
+        res = {}
+        with pillow_hidden() if hidden else contextlib.nullcontext():
+            rc, out, counts, seconds, _ = run_entry(
+                lambda: evaluate_robustness.main([png, "--mask", mask],
+                                                 results=res))
+        jpeg = installed and not hidden
+        label = f"evaluate_robustness {mask}"
+        check(rc == 0, f"{label}: rc {rc}:\n{out}")
+        ref = JAX_TOOLS_REFERENCE["robustness"][mask]
+        rows = dict(res["rows"])
+        check(list(rows) == list(ref["rows"]), f"{label}: rows {list(rows)}")
+        check(_close(res["strength"], ref["strength"], rtol=STRENGTH_RTOL),
+              f"{label}: strength {res['strength']} vs {ref['strength']}")
+        errs = []
+        for name, corr in res["rows"]:
+            if name.startswith("jpeg") and not jpeg:
+                check(corr is None and any(
+                    line.startswith(name) and line.endswith(
+                        evaluate_robustness.JPEG_SKIPPED)
+                    for line in out.splitlines()),
+                      f"{label}: {name} is not printed as skipped:\n{out}")
+                continue
+            errs.append(abs(corr - ref["rows"][name]))
+            check(errs[-1] <= CORR_ATOL, f"{label}: {name} {corr} vs JAX "
+                  f"{ref['rows'][name]}")
+        lead = rows["none"] - rows["clean image (no mark)"]
+        jax_lead = ref["rows"]["none"] - ref["rows"]["clean image (no mark)"]
+        check(lead >= jax_lead - 2 * CORR_ATOL and (mask != "me" or lead
+                                                    > 0.1),
+              f"{label}: the mark leads the clean image by {lead} (JAX "
+              f"{jax_lead})")
+        check(res["batch"] == (13 if jpeg else 9), f"{label}: batch of "
+              f"{res['batch']}")
+        check_ran(label, counts, (*GRAM_KERNELS, "embed_field",
+                                  "detect_partials"))
+        check(counts["embed_field"] == counts["detect_partials"] == 1,
+              f"{label}: not one embed and one batched detect: {counts}")
+        add_counts(launches, counts, mask, 3)
+        note = ""
+        if hidden:
+            other = dict(first[mask])
+            diff = max(abs(corr - other[name]) for name, corr in res["rows"]
+                       if corr is not None)
+            note = f", against the run with every attack {diff:.1e}"
+        first.setdefault(mask, res["rows"])
+        print(f"[7] {label} (1080x1920 PNG, p=3, PSNR 40; "
+              f"{'Pillow hidden' if hidden else pillow}): rc 0 "
+              f"in {seconds:.2f} s; strength {res['strength']:.5f} (JAX "
+              f"{ref['strength']:.5f}); {res['batch']} attacks in one "
+              f"detect, none {rows['none']:+.6f}, clean "
+              f"{rows['clean image (no mark)']:+.6f} (lead {lead:.6f}, JAX "
+              f"{jax_lead:.6f}), JAX max abs diff {max(errs):.1e}{note}; "
+              f"JPEG rows {'held to JAX' if jpeg else 'printed as skipped'};"
+              f" launches {launched(counts)}: ok", flush=True)
+
+
+def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
+    """The four examples through their ``main(..., device="cuda")``, held to
+    JAX_TOOLS_REFERENCE."""
+    ref = JAX_TOOLS_REFERENCE["image_example"]
+    got, _, counts, seconds, at = run_entry(
+        lambda: load_example("image_watermark").main(
+            png, dat, device="cuda", out_dir=tmp), ("NVF:",))
+    nvf = at["NVF:"]
+    me = {name: counts[name] - nvf[name] for name in counts}
+    for mask, run in (("NVF", nvf), ("ME", me)):
+        check(_close(got[mask]["strength"], ref[mask]["strength"],
+                     rtol=STRENGTH_RTOL)
+              and all(abs(got[mask][key] - ref[mask][key]) <= CORR_ATOL
+                      for key in ("corr_marked", "corr_clean")),
+              f"image example {mask}: {got[mask]} vs JAX {ref[mask]}")
+        check(read_png(got[mask]["path"]).shape == (ROWS, COLS),
+              f"image example: {got[mask]['path']} not written")
+        check_ran(f"image example {mask}", run, (
+            *GRAM_KERNELS, "embed_field", "detect_partials"))
+        add_counts(launches, run, mask.lower(), 3)
+    print(f"[7] image_watermark example (1080x1920 PNG): {seconds:.2f} s; "
+          + "; ".join(f"{mask} strength {got[mask]['strength']:.5f} "
+                      f"corr(marked) {got[mask]['corr_marked']:.6f} "
+                      f"corr(clean) {got[mask]['corr_clean']:+.6f}"
+                      for mask in ("NVF", "ME"))
+          + f", within the JAX bounds; both PNGs written; launches NVF "
+          f"{launched(nvf)}, ME {launched(me)}: ok", flush=True)
+
+    ref = JAX_TOOLS_REFERENCE["identify_example"]
+    got, _, counts, seconds, _ = run_entry(
+        lambda: load_example("identify_watermark").main(
+            png, IDENTIFY_N, device="cuda"))
+    err = float(np.abs(got["corrs"] - ref["corrs"]).max())
+    check(got["best"] == IDENTIFY_N // 2 and err <= TOOLS_ATOL
+          and _close(got["strength"], ref["strength"], rtol=STRENGTH_RTOL),
+          f"identify example: {got} vs JAX {ref}")
+    check_ran("identify example", counts, (*GRAM_KERNELS, "embed_field",
+                                           "detect_many"))
+    add_counts(launches, counts, "me", 3)
+    print(f"[7] identify_watermark example (1080x1920 PNG, "
+          f"{IDENTIFY_N} candidates): {seconds:.2f} s; identified "
+          f"#{got['best']} (corr {got['corrs'][got['best']]:.6f}), JAX max "
+          f"abs diff {err:.1e}; launches {launched(counts)}: ok", flush=True)
+
+    ref = JAX_TOOLS_REFERENCE["video_example"]
+    got, _, counts, seconds, _ = run_entry(
+        lambda: load_example("video_watermark").main(device="cuda"))
+    corrs = {name: np.array([c for _, c in got[name]]) for name in got}
+    err = max(float(np.abs(corrs[name] - ref[name]).max())
+              for name in ("marked", "clean"))
+    margin = corrs["marked"].min() - np.abs(corrs["clean"]).max()
+    jax_margin = min(ref["marked"]) - max(abs(c) for c in ref["clean"])
+    check(err <= CORR_ATOL and margin >= jax_margin - 2 * CORR_ATOL,
+          f"video example: {corrs} vs JAX {ref}")
+    check_ran("video example", counts, (*GRAM_KERNELS, "embed_field",
+                                        "detect_partials"))
+    add_counts(launches, counts, "me", 3)
+    print(f"[7] video_watermark example (640x360, 60 frames, interval 10):"
+          f" {seconds:.2f} s; marked min {corrs['marked'].min():.6f}, clean "
+          f"max |corr| {np.abs(corrs['clean']).max():.2e}, margin "
+          f"{margin:.6f} (JAX {jax_margin:.6f}), JAX max abs diff "
+          f"{err:.1e}; launches {launched(counts)}: ok", flush=True)
+
+    ref = JAX_TOOLS_REFERENCE["serving_example"]
+    got, _, counts, seconds, _ = run_entry(
+        lambda: load_example("serving_demo").main(device="cuda"))
+    err = float(np.abs(np.asarray(got["corrs"]) - ref["corrs"]).max())
+    score_err = float(np.abs(got["scores"] - ref["scores"]).max())
+    check(err <= CORR_ATOL and score_err <= TOOLS_ATOL
+          and got["identified"] == 0,
+          f"serving example: {got} vs JAX {ref}")
+    check_ran("serving example", counts, (*GRAM_KERNELS, "embed_field",
+                                          "detect_partials", "detect_many"))
+    add_counts(launches, counts, "me", 3)
+    print(f"[7] serving_demo example (32 frames of 360x640): {seconds:.2f} s"
+          f" ({len(got['corrs']) / got['seconds']:.1f} fps embed+detect "
+          f"through the services); correlations {min(got['corrs']):.6f}.."
+          f"{max(got['corrs']):.6f}, JAX max abs diff {err:.1e}; identified "
+          f"candidate 0 (scores JAX max abs diff {score_err:.1e}); launches "
+          f"{launched(counts)}: ok", flush=True)
+
+
+def phase_tools(power: str) -> dict:
+    """[7] The tools and the examples a user runs, each through its entry
+    point on the card; returns their launches by kernels-line row."""
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        write_png(png, make_cli_image())
+        dat = os.path.join(tmp, "w.dat")
+        save_watermark(dat, generate_watermark(ROWS, COLS, SEED))
+        phase_tools_generate(tmp)
+        phase_tools_calibrate(png, power, launches)
+        phase_tools_robustness(png, launches)
+        phase_examples(png, dat, tmp, launches)
+    print(f"[7] launches of the tools and examples by kernels-line row: "
+          f"{launches}", flush=True)
+    return launches
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """(least ms, what binds it) for moving ``nbytes`` and doing ``flops``
     on an H100 SXM at its data-sheet peaks."""
@@ -2586,6 +3068,7 @@ def main() -> int:
     phase_video()
     halo_times = phase_halo_kernels(frames_d, wm_d, bank_d)
     mesh_launches = phase_mesh(frames, bank, power)
+    tool_launches = phase_tools(power)
     split = device_split(frames_d, wm_d)
     halo_split = halo_device_split(frames_d, wm_d, bank_d)
     for (name, shard_rows), ms in sorted(halo_split.items()):
@@ -2675,6 +3158,11 @@ def main() -> int:
             row["halo_form"] = halo
     check(not mesh_launches, f"phase 6 launches without a row: "
           f"{mesh_launches}")
+    # the tools' and examples' launches (phase 7)
+    for row in rows:
+        row["launches"] += tool_launches.pop(row["name"], 0)
+    check(not tool_launches, f"phase 7 launches without a row: "
+          f"{tool_launches}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

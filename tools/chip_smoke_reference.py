@@ -7,6 +7,7 @@
     JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py \
         --identify me:3 nvf:3 me:5
     JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --cli --video
+    JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --tools
 
 For each window size p and mask, frame by frame (``impl="xla"``, the JAX
 package's oracle): ``embed_pipeline(frame, frame, W, strength_factor(40),
@@ -33,17 +34,31 @@ and ME strengths of ``embed(gray, rgb, mask)`` and the correlations of
 at each of ``VIDEO_INTERVALS`` (batches of 8), then the correlations
 ``detect_video`` prints for each output at its interval and for the clean
 clip at interval 1.
+
+With ``--tools``: the numbers of ``chip_smoke.py`` phase 7, in the layout
+of ``chip_smoke.JAX_TOOLS_REFERENCE``, from the JAX package's own tools and
+examples run in process (``run_jax_*`` below), their engines wrapped so that
+what they compute is recorded at full precision, not as printed.
+``chip_smoke.make_cli_image()`` as a PNG and ``generate_watermark(1080,
+1920, 28390211)`` as a ``.dat``: ``tools/calibrate_threshold.py`` at its
+defaults for ME p=3, NVF p=3 and ME p=5 (``CALIBRATE_RUNS``),
+``tools/evaluate_robustness.py`` for ME and NVF p=3, the image and the
+identification examples on the PNG, the video and serving examples at
+their own sizes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib.util
 import io
 import json
 import os
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -51,9 +66,10 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (CLI_P, COLS, PSNR, ROWS, SEED,  # noqa: E402
-                        VIDEO_BATCH, VIDEO_FRAMES, VIDEO_INTERVALS,
-                        VIDEO_SEED, make_bank, make_cli_image, make_frames)
+from chip_smoke import (CALIBRATE_RUNS, CLI_P, COLS, IDENTIFY_N,  # noqa
+                        PSNR, ROBUSTNESS_MASKS, ROWS, SEED, VIDEO_BATCH,
+                        VIDEO_FRAMES, VIDEO_INTERVALS, VIDEO_SEED, make_bank,
+                        make_cli_image, make_frames)
 from watermarking_gpu_tpu.io.config import Settings  # noqa: E402
 from watermarking_gpu_tpu.io.images import load_image_rgb  # noqa: E402
 from watermarking_gpu_tpu.io.matfile import generate_watermark  # noqa: E402
@@ -180,6 +196,199 @@ def video_reference(watermark: np.ndarray) -> dict:
     return out
 
 
+REPO = Path(__file__).resolve().parents[1]
+
+
+def load_script(relative: str) -> types.ModuleType:
+    """A fresh module of one of the JAX package's scripts (``tools/`` or
+    ``examples/``), under a name of its own."""
+    name = "jax_" + relative.replace("/", "_").removesuffix(".py")
+    spec = importlib.util.spec_from_file_location(name, REPO / relative)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def recording(engine_cls: type, log: list) -> type:
+    """``engine_cls`` whose embed, detect and detect_many append
+    (method, numpy result) to ``log`` (embed: its strength)."""
+    class Recording(engine_cls):
+        def embed(self, *args, **kwargs):
+            out = super().embed(*args, **kwargs)
+            log.append(("embed", np.asarray(out[1])))
+            return out
+
+        def detect(self, *args, **kwargs):
+            out = super().detect(*args, **kwargs)
+            log.append(("detect", np.asarray(out)))
+            return out
+
+        def detect_many(self, *args, **kwargs):
+            out = super().detect_many(*args, **kwargs)
+            log.append(("detect_many", np.asarray(out)))
+            return out
+    return Recording
+
+
+def run_main(module: types.ModuleType, argv: list[str]) -> tuple:
+    """(main's return value, its stdout): a script's ``main()`` that reads
+    ``sys.argv``, run with ``argv`` as its arguments."""
+    old_argv, buffer = sys.argv, io.StringIO()
+    sys.argv = [module.__file__, *argv]
+    try:
+        with contextlib.redirect_stdout(buffer):
+            rc = module.main()
+    finally:
+        sys.argv = old_argv
+    return rc, buffer.getvalue()
+
+
+def run_jax_calibrate(argv: list[str]) -> dict:
+    """``tools/calibrate_threshold.py`` with ``argv``: its exit code and
+    lines, the null matrix, the signals and the statistics it prints, in
+    the layout of the port's ``results``."""
+    module = load_script("tools/calibrate_threshold.py")
+    log: list = []
+    module.Watermark = recording(module.Watermark, log)
+    rc, out = run_main(module, argv)
+    nulls = next(r for kind, r in log if kind == "detect_many")
+    signals = np.asarray([float(r) for kind, r in log if kind == "detect"])
+    per_image_std = nulls.std(axis=1, ddof=1)
+    fpr = float(argv[argv.index("--fpr") + 1]) if "--fpr" in argv else 1e-6
+    z = module._z_for(fpr)
+    mean, sigma = float(nulls.mean()), float(per_image_std.max())
+    return {"rc": rc, "out": out, "nulls": nulls, "signals": signals,
+            "mean": mean, "std_min": float(per_image_std.min()),
+            "std_max": sigma, "max": float(nulls.max()), "z": z,
+            "threshold": mean + z * sigma,
+            "signal_mean": float(signals.mean()),
+            "signal_min": float(signals.min())}
+
+
+def run_jax_robustness(argv: list[str]) -> dict:
+    """``tools/evaluate_robustness.py`` with ``argv``: its exit code and
+    lines, the strength and {attack: correlation}."""
+    module = load_script("tools/evaluate_robustness.py")
+    log: list = []
+    module.BatchedWatermark = recording(module.BatchedWatermark, log)
+    rc, out = run_main(module, argv)
+    lines = out.splitlines()
+    names = [line.rsplit(None, 1)[0].strip()
+             for line in lines[lines.index(next(
+                 line for line in lines if line.startswith("attack"))) + 1:]]
+    corrs = next(r for kind, r in log if kind == "detect")
+    strength = next(r for kind, r in log if kind == "embed")
+    return {"rc": rc, "out": out, "strength": float(strength[0]),
+            "rows": dict(zip(names, map(float, corrs)))}
+
+
+def run_jax_image_example(image: str, dat: str, out_dir: str) -> dict:
+    """``examples/image_watermark.py image dat``, its PNGs written to
+    ``out_dir``: {mask name: {"strength", "corr_marked", "corr_clean"}}."""
+    module = load_script("examples/image_watermark.py")
+    log: list = []
+    module.Watermark = recording(module.Watermark, log)
+    save = module.save_image_u8
+    module.save_image_u8 = lambda path, image: save(
+        os.path.join(out_dir, os.path.basename(path)), image)
+    run_main(module, [image, dat])
+    values = [float(r) for _, r in log]
+    return {name: dict(zip(("strength", "corr_marked", "corr_clean"),
+                           values[3 * i:3 * i + 3]))
+            for i, name in enumerate(("NVF", "ME"))}
+
+
+def run_jax_identify_example(image: str, n: int) -> dict:
+    """``examples/identify_watermark.py image n``: {"strength", "corrs"}."""
+    module = load_script("examples/identify_watermark.py")
+    log: list = []
+    module.Watermark = recording(module.Watermark, log)
+    run_main(module, [image, str(n)])
+    return {"strength": float(log[0][1]), "corrs": log[1][1].tolist()}
+
+
+def run_jax_video_example() -> dict:
+    """``examples/video_watermark.py``: the per-frame correlations of the
+    marked and of the clean clip."""
+    module = load_script("examples/video_watermark.py")
+    runs: list = []
+    detect = module.detect_video
+
+    def recorded(settings, *args, **kwargs):
+        out = detect(settings, *args, **kwargs)
+        runs.append([corr for _, corr in out[1]])
+        return out
+    module.detect_video = recorded
+    with tempfile.TemporaryDirectory() as tmp:
+        module.tempfile = types.SimpleNamespace(
+            mkdtemp=lambda prefix: tempfile.mkdtemp(prefix=prefix, dir=tmp))
+        run_main(module, [])
+    return {"marked": runs[0], "clean": runs[1]}
+
+
+def run_jax_serving_example() -> dict:
+    """``examples/serving_demo.py``: the detector's correlations and the
+    identifier's scores."""
+    module = load_script("examples/serving_demo.py")
+    futures: dict = {"detector": [], "identifier": []}
+
+    def recording_service(cls, key):
+        class Recorded(cls):
+            def submit(self, *args, **kwargs):
+                future = super().submit(*args, **kwargs)
+                futures[key].append(future)
+                return future
+        return Recorded
+    module.DetectorService = recording_service(module.DetectorService,
+                                               "detector")
+    module.IdentifierService = recording_service(module.IdentifierService,
+                                                 "identifier")
+    run_main(module, [])
+    return {"corrs": [float(f.result()) for f in futures["detector"]],
+            "scores": np.asarray(futures["identifier"][0].result()).tolist()}
+
+
+def tools_reference() -> dict:
+    """Phase 7's numbers (``chip_smoke.JAX_TOOLS_REFERENCE``)."""
+    out: dict = {"calibrate": {}, "robustness": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        write_png(png, make_cli_image())
+        dat = os.path.join(tmp, "w.dat")
+        save_watermark(dat, generate_watermark(ROWS, COLS, SEED))
+        for name, argv in CALIBRATE_RUNS.items():
+            start = time.perf_counter()
+            got = run_jax_calibrate([png, *argv])
+            if got["rc"] != 0:
+                raise SystemExit(f"calibrate {name}:\n{got['out']}")
+            out["calibrate"][name] = {
+                key: got[key] for key in (
+                    "mean", "std_min", "std_max", "max", "z", "threshold",
+                    "signal_mean", "signal_min")}
+            out["calibrate"][name]["signals"] = got["signals"].tolist()
+            print(f"calibrate {name}: {time.perf_counter() - start:.1f} s",
+                  file=sys.stderr, flush=True)
+        for mask in ROBUSTNESS_MASKS:
+            start = time.perf_counter()
+            got = run_jax_robustness([png, "--mask", mask])
+            out["robustness"][mask] = {"strength": got["strength"],
+                                       "rows": got["rows"]}
+            print(f"robustness {mask}: {time.perf_counter() - start:.1f} s",
+                  file=sys.stderr, flush=True)
+        start = time.perf_counter()
+        out["image_example"] = run_jax_image_example(png, dat, tmp)
+        out["identify_example"] = run_jax_identify_example(png, IDENTIFY_N)
+        print(f"image and identify examples: "
+              f"{time.perf_counter() - start:.1f} s", file=sys.stderr,
+              flush=True)
+    start = time.perf_counter()
+    out["video_example"] = run_jax_video_example()
+    out["serving_example"] = run_jax_serving_example()
+    print(f"video and serving examples: {time.perf_counter() - start:.1f} s",
+          file=sys.stderr, flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--p", type=int, nargs="+", default=[5, 7, 9])
@@ -187,7 +396,11 @@ def main() -> int:
     parser.add_argument("--identify", nargs="+", metavar="MASK:P")
     parser.add_argument("--cli", action="store_true")
     parser.add_argument("--video", action="store_true")
+    parser.add_argument("--tools", action="store_true")
     args = parser.parse_args()
+    if args.tools:
+        print(json.dumps(tools_reference()))
+        return 0
     if args.cli or args.video:
         matrix = generate_watermark(ROWS, COLS, SEED)
         result = {}

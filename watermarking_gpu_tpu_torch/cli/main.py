@@ -32,6 +32,8 @@ from ..ops.cuda.build import BUILD_ROOT
 from ..utils.timing import Timer, execution_time
 
 MIN_DIM = 64  # main.cpp:161
+NO_CARD = ("CUDA is not available (torch.cuda.is_available() is False): "
+           "this command runs on an NVIDIA GPU")
 
 
 def _select_device(index: int) -> torch.device:
@@ -190,8 +192,7 @@ def main(argv: list[str] | None = None,
 
     if device is None:
         if not torch.cuda.is_available():
-            print("CUDA is not available (torch.cuda.is_available() is "
-                  "False): this command runs on an NVIDIA GPU")
+            print(NO_CARD)
             return 1
         device = _select_device(settings.device)
     else:
