@@ -22,7 +22,10 @@ prints no result:
    at ME and NVF p; then at p = 3, 5, 7, 9 the multi-candidate detect at
    ME and NVF against the 64-candidate bank (70 at the small shape: a full
    chunk of 64 and a partial one) and the standalone prediction error and
-   NVF mask.
+   NVF mask. The 8x8 solve kernel (``spd_solve8``) on the kernel Gram of
+   each shape, against its plain version, the unrolled (B,)-vector
+   Cholesky: coefficients and valid flags bit-identical, as are two calls
+   (a difference up to 1e-6 relative would be reported and pass).
 3. The main paths, through ``BatchedWatermark(1080, 1920, 28390211, p=P,
    psnr=40, device="cuda")``. P=3: ME and NVF embed then detect of 8
    frames, ``embed_luma_u8`` and one single-frame ``Watermark`` round trip.
@@ -37,11 +40,14 @@ prints no result:
    each P through the kernels and through the plain path
    (``impl="torch"``), each kernel beside its plain version (the wide Gram
    as its two kernels together; the prediction error also beside one
-   ``conv2d``), and the identification of 8 frames against 64 candidates
+   ``conv2d``; the 8x8 solve at B = 8 beside the plain unrolled solve and
+   the library pair ``cholesky_ex`` + ``cholesky_solve``), and the
+   identification of 8 frames against 64 candidates
    (ME) at each P through the kernel, through the plain route and as 64
    looped detects. Last, after every timing, the device time a call of the
-   3x3 and the wide Gram's two kernels, and of the embed field and the
-   detect tail at each mask and P, from one ``torch.profiler`` session.
+   3x3 and the wide Gram's two kernels, of the 8x8 solve kernel, and of
+   the embed field and the detect tail at each mask and P, from one
+   ``torch.profiler`` session.
 5. The entry points a user runs, at 1080 x 1920 (run before phase 4's
    profiler timings, since it times them too). The CLI: a PNG of
    ``make_cli_image()`` and a ``.dat`` of the engines' watermark in a
@@ -105,11 +111,15 @@ prints no result:
    at their own sizes.
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
-window and mask (the 3x3 Gram serves both masks): launches in its part of
+window and mask (the 3x3 Gram serves both masks), and ``replaces_kind``
+("pallas", or "xla" for the 8x8 solve, which replaces XLA code of the JAX
+package's jitted step, not a Pallas kernel): launches in its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
 path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
-Gram), plus the launches of phase 6's and phase 7's runs at that kernel,
-mask and p;
+Gram; for the 8x8 solve, one a solve of a 3x3-predictor system, those of
+every phase-3 run: the p=3 path, the NVF detects at p = 5, 7, 9 and the
+identification at p=3 and NVF), plus the launches of phase 6's and phase
+7's runs at that kernel, mask and p;
 ``max_abs_err`` of
 its main output against the plain version at 8 x 1080 x 1920 (the Gram,
 u_raw, the correlation formed from the detect sums, or the standalone op's
@@ -124,8 +134,10 @@ larger of the bytes the function must move over 3.35 TB/s and the flops it
 needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
 700 W; see ``kernel_bound``), and ``bound_by``; ``library_ms``: for the
 prediction error one grouped ``conv2d`` over the edge-padded frames (the
-pad included, cuDNN's TF32 off), null for the rest, which no single
-PyTorch call computes. The p=3 rows of the 3x3 Gram, the embed field and
+pad included, cuDNN's TF32 off), for the 8x8 solve the library pair
+``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` (the port never
+calls it at p=3), null for the rest, which no single PyTorch call
+computes. The p=3 rows of the 3x3 Gram, the embed field and
 the detect tail, the wide Gram's rows (its lag kernel) and the
 multi-candidate kernel's rows at ME p = 3, 5, 9 and NVF p=3 also carry
 ``halo_form``: per shard height (270, 540) the halo form's ms, plain ms,
@@ -355,6 +367,14 @@ JAX_WIDE_REFERENCE = {
 # coefficients through cond(Rx) ~1e4.
 U_RAW_RTOL, U_RAW_ATOL = 1e-5, 1e-3
 SUM_RTOL = 1e-4
+# the 8x8 solve kernel against its plain version: the same rounded
+# operations in the same order, so bit-identical is expected; a difference
+# up to this, relative to a system's largest coefficient, passes and shows
+SOLVE_RTOL = 1e-6
+# operations of one 8x8 solve: the factorisation's products and sums with
+# its 8 square roots and 8 reciprocals (248), each substitution's products,
+# sums and 8 divisions (72 each)
+SOLVE_OPS = 248 + 2 * 72
 CORR_ATOL = 5e-4
 STRENGTH_RTOL = 5e-3
 PIXEL_ATOL, PIXEL_RTOL = 1e-2, 1e-2
@@ -379,11 +399,17 @@ KERNEL_SOURCES = {
         "watermarking_gpu_tpu/ops/pallas/predict_kernel.py:56"),
     "nvf_mask": ("watermarking_gpu_tpu_torch/csrc/nvf.cu",
                  "watermarking_gpu_tpu/ops/pallas/nvf_kernel.py:24"),
+    # not a Pallas kernel: XLA code of the JAX package's jitted step
+    "spd_solve8": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
+                   "watermarking_gpu_tpu/ops/me.py:279"),
 }
+XLA_KERNELS = ("spd_solve8",)
 STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
 # the 3x3 Gram's two kernels (the me_gram row), each with its count
 GRAM_KERNELS = ("me_gram_lags", "me_gram_assemble")
-P3_KERNELS = (*GRAM_KERNELS, "embed_field", "detect_partials")
+# and the 8x8 solve of its system: every run of the 3x3 predictor
+GRAM_SOLVE_KERNELS = (*GRAM_KERNELS, "spd_solve8")
+P3_KERNELS = (*GRAM_SOLVE_KERNELS, "embed_field", "detect_partials")
 # the wide Gram's two kernels (the me_gram_wide rows), each with its count
 WIDE_GRAM_KERNELS = ("wide_lag_strips", "wide_assemble")
 
@@ -500,6 +526,40 @@ def check_gram(img: torch.Tensor, label: str) -> tuple[float, ...]:
             assemble_err)
 
 
+def check_solve(gram: torch.Tensor, label: str) -> tuple[float, float, bool]:
+    """The 8x8 solve kernel against its plain version on the same (B, 9, 9)
+    Gram: valid flags equal, coefficients within SOLVE_RTOL of each
+    system's largest, and two calls bit-identical. Returns (max abs err,
+    max rel err, bit-identical)."""
+    got = kernels.spd_solve8(gram)
+    want = kernels.spd_solve8_plain(gram)
+    check(got[1].dtype == torch.bool and torch.equal(got[1], want[1]),
+          f"spd_solve8 {label}: valid {got[1].tolist()} against "
+          f"{want[1].tolist()}")
+    abs_err = float((got[0] - want[0]).abs().max())
+    scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    rel = float(((got[0] - want[0]).abs() / scale).max())
+    check(rel <= SOLVE_RTOL, f"spd_solve8 {label}: coefficients rel err "
+          f"{rel:.3e} against the plain solve")
+    again = kernels.spd_solve8(gram)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"spd_solve8 {label}: two calls differ")
+    return abs_err, rel, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def solve_text(result: tuple[float, float, bool]) -> str:
+    return ("bit-identical" if result[2] else
+            f"abs {result[0]:.2e}, rel {result[1]:.2e}") + " (two calls too)"
+
+
+def random_spd_grams(batch: int, seed: int) -> torch.Tensor:
+    """(batch, 9, 9) Grams 3e5 A A^T + 1e4 I of N(0, 1) A: positive
+    definite, with a frame Gram's scale (~1e7 on the diagonal)."""
+    a = np.random.default_rng(seed).normal(size=(batch, 9, 9))
+    return torch.from_numpy((3e5 * (a @ a.transpose(0, 2, 1))
+                             + 1e4 * np.eye(9)).astype(np.float32)).cuda()
+
+
 def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     """Each kernel against its plain version; returns per-kernel errors at
     the main path's shape."""
@@ -514,12 +574,14 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         main_shape = img is frames_d
         before = kernels.launch_counts()
         gram_errors = check_gram(img, label)
+        solved = check_solve(kernels.me_gram(img), label)
         gram_plain = kernels.me_gram_plain(img)
         coeffs, valid = solve_coefficients_spd(gram_plain[:, :8, :8],
                                                gram_plain[:, :8, 8])
         check(bool(valid.all()), f"{label}: solve flagged a frame singular")
         if main_shape:
             errors["me_gram"] = gram_errors[:2]
+            errors["spd_solve8"] = solved[:2]
         worst_u = worst_sum = worst_corr = worst_detect = 0.0
         for mask in ("me", "nvf"):
             u_err, sums_err = check_embed_field(img, wm, coeffs, mask, 3,
@@ -547,8 +609,24 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
               f"embed_field u_raw abs {worst_u:.2e} (bit-identical, as are "
               f"two calls), sums rel "
               f"{worst_sum:.2e}; detect_partials sums rel "
-              f"{worst_detect:.2e}, corr abs {worst_corr:.2e}: ok",
+              f"{worst_detect:.2e}, corr abs {worst_corr:.2e}; spd_solve8 "
+              f"on the kernel Gram {solve_text(solved)}: ok", flush=True)
+    for batch in (1, 8, 300):
+        solved = check_solve(random_spd_grams(batch, batch), f"B={batch}")
+        print(f"[2] spd_solve8 on {batch} random SPD systems "
+              f"({-(-batch // 128)} blocks): {solve_text(solved)}: ok",
               flush=True)
+    flat = kernels.me_gram(torch.full((1, 40, 96), 77.0, device="cuda"))
+    mixed = torch.cat([kernels.me_gram(frames_d[:1]), flat,
+                       torch.zeros_like(flat)]).contiguous()
+    solved = check_solve(mixed, "singular")
+    coeffs, valid = kernels.spd_solve8(mixed)
+    check(valid.tolist() == [True, False, False] and not coeffs[1:].any(),
+          f"spd_solve8: a constant frame's and a zero system came back "
+          f"{valid.tolist()}, {coeffs[1:].tolist()}")
+    print(f"[2] spd_solve8 on a frame's, a constant frame's and a zero "
+          f"Gram: valid [True, False, False], the singular ones zeros; "
+          f"{solve_text(solved)}: ok", flush=True)
     return errors
 
 
@@ -700,7 +778,37 @@ def phase_timing(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         label = name if name.endswith("_p3") else f"{name} (ME p=3)"
         print(f"[4] {label} at 8x1080x1920: kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms", flush=True)
+    times["spd_solve8"] = solve_times(kernels.me_gram(frames_d))
     return times
+
+
+def library_solve(gram: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 8x8 systems of a (B, 9, 9) Gram by the library pair: one
+    ``cholesky_ex`` and one ``cholesky_solve`` (the yardstick of the
+    kernels line's ``library_ms``; the port does not call it at p=3)."""
+    lower, info = torch.linalg.cholesky_ex(gram[:, :8, :8])
+    return torch.cholesky_solve(gram[:, :8, 8:], lower)[:, :, 0], info == 0
+
+
+def solve_times(gram: torch.Tensor) -> tuple[float, float, float]:
+    """(kernel, plain unrolled solve, library pair) ms a call on the
+    frames' (8, 9, 9) Gram, CUDA events, in turns kernel, plain, library,
+    library, plain, kernel (the least of each pair)."""
+    fns = {"kernel": lambda: kernels.spd_solve8(gram),
+           "plain": lambda: kernels.spd_solve8_plain(gram),
+           "library": lambda: library_solve(gram)}
+    runs: dict[str, list[float]] = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
+        runs[name].append(cuda_ms(fns[name], iters=50))
+    coeffs, _ = library_solve(gram)
+    lib_err = float((coeffs - kernels.spd_solve8(gram)[0]).abs().max())
+    ms = tuple(min(runs[name]) for name in fns)
+    print(f"[4] spd_solve8 (8x8 solve, B={gram.shape[0]}): kernel "
+          f"{ms[0]:.4f} ms (runs {runs['kernel'][0]:.4f}, "
+          f"{runs['kernel'][1]:.4f}), plain unrolled solve {ms[1]:.4f} ms, "
+          f"library cholesky_ex + cholesky_solve {ms[2]:.4f} ms (its "
+          f"coefficients abs {lib_err:.1e} from the kernel's)", flush=True)
+    return ms
 
 
 def predictor_coefficients(img: torch.Tensor) -> dict[int, torch.Tensor]:
@@ -827,7 +935,7 @@ def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
     total = kernels.launch_counts()
 
     check(all(counts["me"][n] > 0 for n in WIDE_GRAM_KERNELS)
-          and all(counts["nvf"][n] > 0 for n in GRAM_KERNELS)
+          and all(counts["nvf"][n] > 0 for n in GRAM_SOLVE_KERNELS)
           and total["embed_field"] > 0 and total["detect_partials"] > 0,
           f"p={p}: a kernel was never launched on the main path: {counts}")
     for mask, (marked, strength, corr, clean) in results.items():
@@ -983,6 +1091,7 @@ def row_name(kernel: str, mask: str, p: int) -> str:
 def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     """Device ms a call of the 3x3 Gram's two kernels (keyed
     "me_gram_lags", "me_gram_assemble", and their sum "me_gram"), of the
+    8x8 solve kernel on the frames' Gram ("spd_solve8"), of the
     wide Gram's two kernels at p = 5, 7, 9 (keyed "wide_lag_strips_p5",
     ...) and of the embed field and the detect tail at ME and NVF p = 3, 5,
     7, 9 (keyed by kernel row name), from one ``device_ms`` session; each
@@ -992,8 +1101,11 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     holds that wait and the sum counts the overlap twice; CUDA events
     around ``me_gram`` (phase 4) time the pair as it runs."""
     coeffs = predictor_coefficients(frames_d)
-    fns = [lambda: kernels.me_gram(frames_d)]
-    patterns = {name: f"{name}_kernel" for name in GRAM_KERNELS}
+    gram = kernels.me_gram(frames_d)
+    fns = [lambda: kernels.me_gram(frames_d),
+           lambda: kernels.spd_solve8(gram)]
+    patterns = {name: f"{name}_kernel" for name in (*GRAM_KERNELS,
+                                                     "spd_solve8")}
     for p in WIDE_P:
         fns.append(lambda p=p: kernels.me_gram_wide(frames_d, p))
         for kernel in WIDE_GRAM_KERNELS:
@@ -1447,7 +1559,7 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
             service.close()
         label = f"P={p} {mask}"
         grams = (WIDE_GRAM_KERNELS if mask == "me" and p > 3
-                 else GRAM_KERNELS)
+                 else GRAM_SOLVE_KERNELS)
         check(counts[(mask, p)]["detect_many"] > 0
               and all(counts[(mask, p)][n] > 0 for n in grams),
               f"{label}: a kernel was never launched: {counts[(mask, p)]}")
@@ -1844,7 +1956,7 @@ def phase_video() -> None:
             counts = kernels.launch_counts()
             name = f"embed interval {interval}"
             check(frames == VIDEO_FRAMES, f"{name}: {frames} frames")
-            check(all(counts[k] > 0 for k in (*GRAM_KERNELS,
+            check(all(counts[k] > 0 for k in (*GRAM_SOLVE_KERNELS,
                                                      "embed_field")),
                   f"{name}: a kernel was never launched: {counts}")
             check_marked_clip(np.fromfile(out_path, np.uint8).reshape(
@@ -1869,7 +1981,7 @@ def phase_video() -> None:
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
             label = f"detect {name}"
-            check(all(counts[k] > 0 for k in (*GRAM_KERNELS,
+            check(all(counts[k] > 0 for k in (*GRAM_SOLVE_KERNELS,
                                                       "detect_partials")),
                   f"{label}: a kernel was never launched: {counts}")
             ref = JAX_ENTRY_REFERENCE["video"][name]
@@ -2391,6 +2503,8 @@ def add_counts(total: dict, counts: dict, mask: str, p: int) -> None:
             continue
         if kernel in GRAM_KERNELS:
             name = "me_gram"
+        elif kernel == "spd_solve8":
+            name = kernel
         elif kernel in WIDE_GRAM_KERNELS:
             name = f"me_gram_wide_p{p}"
         elif kernel == "detect_many":
@@ -2466,12 +2580,14 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         (marked, strength, corr), counts, ms = run_counted(step)
         # per data row, one launch a space shard of the embed field and the
         # detect tail, and of the Gram's lag kernel (ME embed and detect,
-        # NVF detect); the wide Gram's assembly once a space row
+        # NVF detect); the wide Gram's assembly and the 8x8 solve once a
+        # space row
         if mask == "me" and p != 3:
             want = {"wide_lag_strips": 8, "wide_assemble": 4}
         else:
             grams = 8 if mask == "me" else 4
-            want = {"me_gram_lags": grams, "me_gram_assemble": grams}
+            want = {"me_gram_lags": grams, "me_gram_assemble": grams,
+                    "spd_solve8": grams // 2}
         want.update(embed_field=4, detect_partials=4)
         check({k: n for k, n in counts.items() if n} == want,
               f"{label}: launches {launched(counts)}, expected {want}")
@@ -2501,7 +2617,8 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         detect = make_spatial_detect(spatial, "me", p=p, impl=impl)
         corr, counts, ms = run_counted(lambda: detect(marked0[0], wm_d))
         if impl == "cuda":
-            want = ({"me_gram_lags": 4, "me_gram_assemble": 4} if p == 3
+            want = ({"me_gram_lags": 4, "me_gram_assemble": 4,
+                     "spd_solve8": 1} if p == 3
                     else {"wide_lag_strips": 4, "wide_assemble": 1})
             want["detect_partials"] = 4
             check({k: n for k, n in counts.items() if n} == want,
@@ -2569,7 +2686,8 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             rows = mesh.shape["data"]
             want = ({"wide_lag_strips": 4, "wide_assemble": rows}
                     if mask == "me" and p != 3 else
-                    {"me_gram_lags": 4, "me_gram_assemble": 4})
+                    {"me_gram_lags": 4, "me_gram_assemble": 4,
+                     "spd_solve8": rows})
         if impl == "cuda":
             want["detect_many"] = 4
         check({k: n for k, n in counts.items() if n} == want,
@@ -2747,7 +2865,8 @@ def phase_tools_calibrate(png: str, power: str, launches: dict) -> None:
               f"{ref['threshold']}")
         check(res["nulls"].shape == (8, 256), f"{label}: nulls "
               f"{res['nulls'].shape}")
-        grams = WIDE_GRAM_KERNELS if mask == "me" and p > 3 else GRAM_KERNELS
+        grams = (WIDE_GRAM_KERNELS if mask == "me" and p > 3
+                 else GRAM_SOLVE_KERNELS)
         check_ran(label, counts, (*grams, "embed_field", "detect_partials",
                                   "detect_many"))
         check(counts["detect_many"] == 1, f"{label}: the null matrix took "
@@ -2827,7 +2946,7 @@ def phase_tools_robustness(png: str, launches: dict) -> None:
               f"{jax_lead})")
         check(res["batch"] == (13 if jpeg else 9), f"{label}: batch of "
               f"{res['batch']}")
-        check_ran(label, counts, (*GRAM_KERNELS, "embed_field",
+        check_ran(label, counts, (*GRAM_SOLVE_KERNELS, "embed_field",
                                   "detect_partials"))
         check(counts["embed_field"] == counts["detect_partials"] == 1,
               f"{label}: not one embed and one batched detect: {counts}")
@@ -2868,7 +2987,7 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
         check(read_png(got[mask]["path"]).shape == (ROWS, COLS),
               f"image example: {got[mask]['path']} not written")
         check_ran(f"image example {mask}", run, (
-            *GRAM_KERNELS, "embed_field", "detect_partials"))
+            *GRAM_SOLVE_KERNELS, "embed_field", "detect_partials"))
         add_counts(launches, run, mask.lower(), 3)
     print(f"[7] image_watermark example (1080x1920 PNG): {seconds:.2f} s; "
           + "; ".join(f"{mask} strength {got[mask]['strength']:.5f} "
@@ -2886,8 +3005,8 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
     check(got["best"] == IDENTIFY_N // 2 and err <= TOOLS_ATOL
           and _close(got["strength"], ref["strength"], rtol=STRENGTH_RTOL),
           f"identify example: {got} vs JAX {ref}")
-    check_ran("identify example", counts, (*GRAM_KERNELS, "embed_field",
-                                           "detect_many"))
+    check_ran("identify example", counts, (*GRAM_SOLVE_KERNELS,
+                                           "embed_field", "detect_many"))
     add_counts(launches, counts, "me", 3)
     print(f"[7] identify_watermark example (1080x1920 PNG, "
           f"{IDENTIFY_N} candidates): {seconds:.2f} s; identified "
@@ -2904,8 +3023,8 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
     jax_margin = min(ref["marked"]) - max(abs(c) for c in ref["clean"])
     check(err <= CORR_ATOL and margin >= jax_margin - 2 * CORR_ATOL,
           f"video example: {corrs} vs JAX {ref}")
-    check_ran("video example", counts, (*GRAM_KERNELS, "embed_field",
-                                        "detect_partials"))
+    check_ran("video example", counts, (*GRAM_SOLVE_KERNELS,
+                                        "embed_field", "detect_partials"))
     add_counts(launches, counts, "me", 3)
     print(f"[7] video_watermark example (640x360, 60 frames, interval 10):"
           f" {seconds:.2f} s; marked min {corrs['marked'].min():.6f}, clean "
@@ -2921,8 +3040,9 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
     check(err <= CORR_ATOL and score_err <= TOOLS_ATOL
           and got["identified"] == 0,
           f"serving example: {got} vs JAX {ref}")
-    check_ran("serving example", counts, (*GRAM_KERNELS, "embed_field",
-                                          "detect_partials", "detect_many"))
+    check_ran("serving example", counts, (*GRAM_SOLVE_KERNELS,
+                                          "embed_field", "detect_partials",
+                                          "detect_many"))
     add_counts(launches, counts, "me", 3)
     print(f"[7] serving_demo example (32 frames of 360x640): {seconds:.2f} s"
           f" ({len(got['corrs']) / got['seconds']:.1f} fps embed+detect "
@@ -2980,7 +3100,9 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
       bank once each and writes two sums per frame and candidate; per
       frame, candidate and pixel u = mask * W_c, e_u and the two sums
       (2k + 5 flops, k taps), and per frame and pixel e_z, the mask and
-      e_z^2.
+      e_z^2;
+    * the 8x8 solve: it reads each frame's 9 x 9 Gram and writes 8
+      coefficients and a valid byte; SOLVE_OPS operations a system.
     """
     pixels = BATCH * rows * COLS
     frame_bytes = 4 * BATCH * (rows + 2 * halo) * COLS   # read
@@ -2990,6 +3112,8 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
     nvf_flops = 4 * (p - 1) + 1 + 6
     if kernel == "me_gram":
         return bound(frame_bytes + 4 * BATCH * 81, 2 * 13 * pixels)
+    if kernel == "spd_solve8":
+        return bound(BATCH * (4 * 81 + 4 * 8 + 1), BATCH * SOLVE_OPS)
     if kernel == "me_gram_wide":
         h = p // 2
         lags = ((4 * h + 1) ** 2 + 1) // 2
@@ -3028,7 +3152,9 @@ def kernel_row(name: str, kernel: str, mask: str, p: int, launches: int,
     source, replaces = KERNEL_SOURCES[kernel]
     bound_ms, bound_by = kernel_bound(kernel, mask, p)
     row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, "launches": launches,
+           "replaces": replaces,
+           "replaces_kind": "xla" if kernel in XLA_KERNELS else "pallas",
+           "launches": launches,
            "max_abs_err": errors[0], "max_rel_err": errors[1],
            "ms": times[0], "plain_ms": times[1], "bound_ms": bound_ms,
            "bound_by": bound_by,
@@ -3084,6 +3210,11 @@ def main() -> int:
           f"{times['me_gram'][0]:.4f} ms; launches on the p=3 main path "
           f"{counts['all']['me_gram_lags']} + "
           f"{counts['all']['me_gram_assemble']})", flush=True)
+    print(f"[4] spd_solve8 (device time a call, torch.profiler): "
+          f"{split['spd_solve8']:.4f} ms (CUDA events with the wrapper "
+          f"{times['spd_solve8'][0]:.4f} ms; launches on the p=3 main path "
+          f"{counts['all']['spd_solve8']}, in identification at ME p=3 "
+          f"{identify_counts[('me', 3)]['spd_solve8']})", flush=True)
     for p in WIDE_P:
         print(f"[4] p={p} wide Gram split (device time a call, "
               f"torch.profiler): lag kernel "
@@ -3107,6 +3238,13 @@ def main() -> int:
     rows = [kernel_row("me_gram", "me_gram", "me", 3,
                        sum(counts["all"][n] for n in GRAM_KERNELS),
                        errors["me_gram"], times["me_gram"], split)]
+    # the 8x8 solve: every phase-3 run that solves a 3x3-predictor system
+    solve_runs = [counts["all"], *(wide_counts[p]["nvf"] for p in WIDE_P),
+                  *identify_counts.values()]
+    rows.append(kernel_row("spd_solve8", "spd_solve8", "me", 3,
+                           sum(run["spd_solve8"] for run in solve_runs),
+                           errors["spd_solve8"], times["spd_solve8"],
+                           split))
     for kernel in ("embed_field", "detect_partials"):
         nvf_launches = counts["nvf"][kernel]
         rows.append(kernel_row(kernel, kernel, "me", 3,

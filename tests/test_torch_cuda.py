@@ -12,7 +12,9 @@ only; a detect kernel's dot relative to sqrt(||e_u||^2 ||e_z||^2), see
 (the same rounded operations in the same order); the prediction error and
 the NVF mask rtol 1e-5 + atol 1e-3 (their terms round identically); between
 the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
-its fused NVF kernels) and strengths rel 2e-4. The video pipeline's
+its fused NVF kernels) and strengths rel 2e-4. The 8x8 solve kernel's
+coefficients and valid flags equal its plain version's, bit for bit (the
+same rounded operations in the same order). The video pipeline's
 pinned-buffer staging: its marked lumas equal a synchronous embed of the
 same frames byte for byte.
 """
@@ -100,6 +102,22 @@ def check_detect_tail(frames, wm, coeffs, mask_type, p):
     torch.testing.assert_close(got[2], many[2], rtol=1e-5, atol=1e-6)
 
 
+def check_solve(gram):
+    """The 8x8 solve kernel on a (B, 9, 9) Gram against its plain version:
+    coefficients and valid bit-identical, one launch, two calls
+    bit-identical. Returns the coefficients."""
+    before = kernels.spd_solve8.launches
+    got = kernels.spd_solve8(gram)
+    assert kernels.spd_solve8.launches == before + 1
+    want = kernels.spd_solve8_plain(gram)
+    assert got[1].dtype == torch.bool and got[1].shape == want[1].shape
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0]), float((got[0] - want[0]).abs().max())
+    again = kernels.spd_solve8(gram)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    return got[0]
+
+
 def check_gram(frames):
     """The 3x3 Gram against the direct per-pair sums (rtol 1e-4), one launch
     of each of its two kernels a Gram, two calls bit-identical, and each
@@ -144,17 +162,48 @@ def test_kernels_match_plain_on_card(device, shape):
     frames, wm, coeffs = make_inputs(shape, device)
     before = kernels.launch_counts()
     check_gram(frames)
+    check_solve(kernels.me_gram(frames))
     for mask_type in ("me", "nvf"):
         check_embed_field(frames, wm, coeffs, mask_type, 3)
         check_detect_tail(frames, wm, coeffs, mask_type, 3)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after == {**before,
-                     "me_gram_lags": before["me_gram_lags"] + 3,
-                     "me_gram_assemble": before["me_gram_assemble"] + 3,
+                     "me_gram_lags": before["me_gram_lags"] + 4,
+                     "me_gram_assemble": before["me_gram_assemble"] + 4,
                      "embed_field": before["embed_field"] + 4,
                      "detect_partials": before["detect_partials"] + 4,
-                     "detect_many": before["detect_many"] + 2}
+                     "detect_many": before["detect_many"] + 2,
+                     "spd_solve8": before["spd_solve8"] + 2}
+
+
+def random_spd_grams(batch: int, seed: int) -> torch.Tensor:
+    """(batch, 9, 9) Grams A A^T of N(0, 1) A, scaled to a frame Gram's
+    size (~1e7 on the diagonal) plus a ridge, all positive definite."""
+    a = np.random.default_rng(seed).normal(size=(batch, 9, 9))
+    gram = 3e5 * (a @ a.transpose(0, 2, 1)) + 1e4 * np.eye(9)
+    return torch.from_numpy(gram.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["8x1080x1920", 1, 8, 300])
+def test_spd_solve8_matches_plain_on_card(device, case):
+    """The 8x8 solve kernel against its plain version, bit for bit: on the
+    Grams of 8 frames of 1080 x 1920, and on random SPD batches of 1, 8
+    and 300 (three blocks of 128 systems); a constant frame's Gram and a
+    zero system in a batch come back invalid with zero coefficients, as
+    the plain version gives them."""
+    if case == "8x1080x1920":
+        frames, _, _ = make_inputs((8, 1080, 1920), device)
+        gram = kernels.me_gram(frames)
+    else:
+        gram = random_spd_grams(case, case).to(device)
+    coefficients = check_solve(gram)
+    assert kernels.spd_solve8(gram)[1].all() and coefficients.abs().sum() > 0
+    flat = kernels.me_gram(torch.full((1, 40, 96), 77.0, device=device))
+    mixed = torch.cat([gram[:1], flat, torch.zeros_like(gram[:1])])
+    got = check_solve(mixed.contiguous())
+    assert kernels.spd_solve8(mixed)[1].tolist() == [True, False, False]
+    assert not got[1:].any()
 
 
 @pytest.mark.parametrize("shape", [(3, 40, 96), (3, 1080, 1920)])
@@ -390,6 +439,9 @@ def test_engine_runs_on_card(device, p):
     counts = kernels.launch_counts()
     assert counts.pop("wide_lag_strips") == counts.pop("wide_assemble") == (
         3 if p > 3 else 0)
+    # ME embed, detect and detect_many, NVF detect at p=3; NVF detect alone
+    # at p=5 (its 3x3 predictor)
+    assert counts["spd_solve8"] == (4 if p == 3 else 1)
     assert counts.pop("prediction_error") == counts.pop("nvf_mask") == 0
     assert all(n > 0 for n in counts.values())
 
@@ -589,6 +641,8 @@ def test_hybrid_matches_single_device_on_card(device, mask_type, p):
     grams = 8 if mask_type == "me" else 4
     assert after["me_gram_lags"] - before["me_gram_lags"] == grams
     assert after["me_gram_assemble"] - before["me_gram_assemble"] == grams
+    # one solve a space row, of the embed (ME) and of the detect
+    assert after["spd_solve8"] - before["spd_solve8"] == grams // 2
 
 
 @pytest.mark.parametrize("p", [5, 9])
@@ -640,7 +694,8 @@ def test_wide_and_identify_routes_match_single_device_on_card(device, p):
             want_marked[0], bank).gather()
         counts = {k: n for k, n in kernels.launch_counts().items() if n}
         gram = ({"wide_lag_strips": 4, "wide_assemble": 2} if mask_type == "me"
-                else {"me_gram_lags": 4, "me_gram_assemble": 4})
+                else {"me_gram_lags": 4, "me_gram_assemble": 4,
+                      "spd_solve8": 2})
         assert counts == {**gram, "detect_many": 4}
         want = pipelines.detect_many_pipeline(want_marked[0], bank,
                                               mask_type, p=pm)

@@ -179,7 +179,8 @@ def test_cpu_tensors_launch_no_kernel():
                                        "detect_partials": 0,
                                        "detect_many": 0,
                                        "prediction_error": 0,
-                                       "nvf_mask": 0}
+                                       "nvf_mask": 0,
+                                       "spd_solve8": 0}
 
 
 def test_wrappers_raise_on_other_devices():

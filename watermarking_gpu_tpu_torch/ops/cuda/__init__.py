@@ -6,7 +6,8 @@ counts its launches in a plain integer attribute, ``wrapper.launches``, where
 it launches its kernel; ``me_gram`` launches the 3x3 Gram's two kernels
 through their wrappers, ``me_gram_lags`` and ``me_gram_assemble``, and
 ``me_gram_wide`` the wide Gram's, ``wide_lag_strips`` and
-``wide_assemble``, so each of those counts one a Gram.
+``wide_assemble``, so each of those counts one a Gram. ``spd_solve8``
+solves the 3x3 predictor's system from that Gram, one launch a solve.
 ``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
 calls (their modules say why); the rest carry the embed, detect and
 identification paths.
@@ -23,6 +24,7 @@ from .me_kernel import (me_gram, me_gram_assemble, me_gram_lags,
                         me_gram_plain)
 from .nvf import nvf_mask, nvf_mask_plain
 from .predict import prediction_error, prediction_error_plain
+from .solve import spd_solve8, spd_solve8_plain
 
 KERNELS = {"me_gram_lags": me_gram_lags,
            "me_gram_assemble": me_gram_assemble,
@@ -30,7 +32,8 @@ KERNELS = {"me_gram_lags": me_gram_lags,
            "wide_assemble": wide_assemble,
            "embed_field": embed_field, "detect_partials": detect_partials,
            "detect_many": detect_many_partials,
-           "prediction_error": prediction_error, "nvf_mask": nvf_mask}
+           "prediction_error": prediction_error, "nvf_mask": nvf_mask,
+           "spd_solve8": spd_solve8}
 
 
 def reset_launch_counts() -> None:
@@ -51,5 +54,5 @@ __all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
            "me_gram_lags", "me_gram_plain", "me_gram_wide",
            "me_gram_wide_plain", "nvf_mask", "nvf_mask_plain",
            "prediction_error", "prediction_error_plain",
-           "reset_launch_counts", "stencil_reach", "wide_assemble",
-           "wide_lag_strips"]
+           "reset_launch_counts", "spd_solve8", "spd_solve8_plain",
+           "stencil_reach", "wide_assemble", "wide_lag_strips"]

@@ -44,12 +44,12 @@ import math
 import torch
 
 from ..ops.cuda import (detect_many_partials, detect_partials, embed_field,
-                        me_gram, wide_assemble, wide_lag_strips)
+                        me_gram, spd_solve8, wide_assemble, wide_lag_strips)
 from ..ops.cuda.fused import predictor_p, stencil_reach
 from ..ops.me import (assemble_banks, edge_windows, gram_direct,
                       lag_partials_plain, prediction_error,
-                      solve_coefficients, solve_coefficients_spd,
-                      solve_coefficients_spd_wide, wide_lag_geometry)
+                      solve_coefficients, solve_coefficients_spd_wide,
+                      wide_lag_geometry)
 from ..ops.nvf import nvf_mask
 from ..ops.pipelines import (_check_args, _fused_analysis, _gate, _to_f32,
                              detect_many_pipeline)
@@ -172,10 +172,17 @@ def _gram_wide_sharded(imgs: Shards, p: int) -> torch.Tensor:
 
 
 def _solve_once(gram: torch.Tensor, solve, devices: list[torch.device]):
-    """Solve the frame's system from its Gram once, on the Gram's device:
-    the (coefficients, valid) pair on each of ``devices``."""
+    """Solve the frame's system from its Gram once, on the Gram's device,
+    by ``solve(Rx, rx)``: the (coefficients, valid) pair on each of
+    ``devices``."""
     k = gram.shape[-1] - 1
-    coefficients, valid = solve(gram[..., :k, :k], gram[..., :k, k])
+    return _on_devices(solve(gram[..., :k, :k], gram[..., :k, k]), devices)
+
+
+def _on_devices(solved: tuple[torch.Tensor, torch.Tensor],
+                devices: list[torch.device]):
+    """A (coefficients, valid) pair solved once, on each of ``devices``."""
+    coefficients, valid = solved
     return list(zip(broadcast(coefficients, devices),
                     broadcast(valid, devices)))
 
@@ -219,18 +226,18 @@ def _solve_cuda(imgs: Shards, ext: Shards, halo: int, pred_p: int):
     kernels, ``ext`` holding each shard with ``halo`` rows each side (>= 1
     at p = 3, >= 2h above): the Gram's halo form over each shard's owned
     rows, folded onto the first shard, and one solve there. At p = 3 the
-    3x3 Gram and the unrolled Cholesky; above, the wide Gram's lag kernel
-    (its sums reduced over strips before the fold), one assembly with the
-    frame's banks and the library Cholesky, or, for a frame below the lag
-    form's 6h geometry, the direct per-pair sums, as a single device takes
-    them."""
+    3x3 Gram and the 8x8 solve kernel on the folded Gram; above, the wide
+    Gram's lag kernel (its sums reduced over strips before the fold), one
+    assembly with the frame's banks and the library Cholesky, or, for a
+    frame below the lag form's 6h geometry, the direct per-pair sums, as a
+    single device takes them."""
     h_local, cols = imgs[0].shape[-2:]
     total_rows = len(imgs) * h_local
     devices = [x.device for x in imgs]
     if pred_p == 3:
         gram = fold([me_gram(e, halo, halo, i * h_local, total_rows)
                      for i, e in enumerate(ext)])
-        return _solve_once(gram, solve_coefficients_spd, devices)
+        return _on_devices(spd_solve8(gram), devices)
     if not wide_lag_geometry(total_rows, cols, pred_p):
         gram = fold([gram_direct(e, pred_p, halo, halo) for e in ext])
     else:
