@@ -25,7 +25,12 @@ prints no result:
    NVF mask. The 8x8 solve kernel (``spd_solve8``) on the kernel Gram of
    each shape, against its plain version, the unrolled (B,)-vector
    Cholesky: coefficients and valid flags bit-identical, as are two calls
-   (a difference up to 1e-6 relative would be reported and pass).
+   (a difference up to 1e-6 relative would be reported and pass). The
+   wide solve kernel (``spd_solve_wide``) at p = 5, 7, 9 on the kernel's
+   wide Gram of each shape, on 1, 8 and 300 random SPD systems a k and on
+   a batch of a frame's, a constant frame's and a zero Gram, against its
+   plain version, the blocked Cholesky (TF32 off): coefficients within
+   1e-4, valid flags identical, two calls bit-identical.
 3. The main paths, through ``BatchedWatermark(1080, 1920, 28390211, p=P,
    psnr=40, device="cuda")``. P=3: ME and NVF embed then detect of 8
    frames, ``embed_luma_u8`` and one single-frame ``Watermark`` round trip.
@@ -35,19 +40,22 @@ prints no result:
    64-candidate bank. Each is held to numbers the JAX package computed on
    the CPU from the same frames (identification at ME and NVF P = 3, 5,
    7, 9), and its kernels' launch counters are zeroed just before it and
-   read just after.
+   read just after; the wide solve kernel must run once an analysis at ME
+   P = 5, 7, 9 (embed, detect, identification) and never at P=3 or in an
+   NVF detect.
 4. Timing with CUDA events: the chained 8-frame ME embed+detect step at
    each P through the kernels and through the plain path
    (``impl="torch"``), each kernel beside its plain version (the wide Gram
    as its two kernels together; the prediction error also beside one
    ``conv2d``; the 8x8 solve at B = 8 beside the plain unrolled solve and
-   the library pair ``cholesky_ex`` + ``cholesky_solve``), and the
-   identification of 8 frames against 64 candidates
+   the library pair ``cholesky_ex`` + ``cholesky_solve``; the wide solve at
+   B = 8 and each P beside the plain blocked solve and the same library
+   pair), and the identification of 8 frames against 64 candidates
    (ME) at each P through the kernel, through the plain route and as 64
    looped detects. Last, after every timing, the device time a call of the
-   3x3 and the wide Gram's two kernels, of the 8x8 solve kernel, and of
-   the embed field and the detect tail at each mask and P, from one
-   ``torch.profiler`` session.
+   3x3 and the wide Gram's two kernels, of the 8x8 and the wide solve
+   kernels, and of the embed field and the detect tail at each mask and P,
+   from one ``torch.profiler`` session.
 5. The entry points a user runs, at 1080 x 1920 (run before phase 4's
    profiler timings, since it times them too). The CLI: a PNG of
    ``make_cli_image()`` and a ``.dat`` of the engines' watermark in a
@@ -92,7 +100,8 @@ prints no result:
    ``impl="cuda"``), where the embedded candidate must win, within 1e-4 of
    single-device identification and 3e-4 of the JAX numbers; each kernel
    route's launches counted exactly (a halo-form kernel once a shard, the
-   wide Gram's assembly once a space row); and the services with
+   wide Gram's assembly and the wide solve once a space row); and the
+   services with
    ``mesh=`` (the detector and embedder on data=2 x space=2, the
    identifier on data=2 and on data=2 x space=2, a p=5 detector on data=2
    x space=2), their answers equal to the mesh functions'.
@@ -112,14 +121,16 @@ prints no result:
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks), and ``replaces_kind``
-("pallas", or "xla" for the 8x8 solve, which replaces XLA code of the JAX
-package's jitted step, not a Pallas kernel): launches in its part of
+("pallas", or "xla" for the 8x8 and the wide solves, which replace XLA
+code of the JAX package's jitted step, not a Pallas kernel): launches in
+its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
 path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
 Gram; for the 8x8 solve, one a solve of a 3x3-predictor system, those of
 every phase-3 run: the p=3 path, the NVF detects at p = 5, 7, 9 and the
-identification at p=3 and NVF), plus the launches of phase 6's and phase
-7's runs at that kernel, mask and p;
+identification at p=3 and NVF; for the wide solve, one a solve at ME p,
+the main path's and identification's), plus the launches of phase 6's
+and phase 7's runs at that kernel, mask and p;
 ``max_abs_err`` of
 its main output against the plain version at 8 x 1080 x 1920 (the Gram,
 u_raw, the correlation formed from the detect sums, or the standalone op's
@@ -135,8 +146,9 @@ needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
 700 W; see ``kernel_bound``), and ``bound_by``; ``library_ms``: for the
 prediction error one grouped ``conv2d`` over the edge-padded frames (the
 pad included, cuDNN's TF32 off), for the 8x8 solve the library pair
-``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` (the port never
-calls it at p=3), null for the rest, which no single PyTorch call
+``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` (the port's
+kernel route never calls it; its plain route does at p > 3) and the same
+pair for the wide solves, null for the rest, which no single PyTorch call
 computes. The p=3 rows of the 3x3 Gram, the embed field and
 the detect tail, the wide Gram's rows (its lag kernel) and the
 multi-candidate kernel's rows at ME p = 3, 5, 9 and NVF p=3 also carry
@@ -153,6 +165,7 @@ import importlib.metadata
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -374,7 +387,11 @@ SOLVE_RTOL = 1e-6
 # operations of one 8x8 solve: the factorisation's products and sums with
 # its 8 square roots and 8 reciprocals (248), each substitution's products,
 # sums and 8 divisions (72 each)
-SOLVE_OPS = 248 + 2 * 72
+SOLVE_OPS = 248 + 2 * 72    # cholesky_ops(8)
+# the wide solve kernel against its plain version (the blocked Cholesky):
+# the wide solves' bound, their 8-term sums in another order than the
+# plain version's matmuls
+WIDE_SOLVE_ATOL = 1e-4
 CORR_ATOL = 5e-4
 STRENGTH_RTOL = 5e-3
 PIXEL_ATOL, PIXEL_RTOL = 1e-2, 1e-2
@@ -402,8 +419,10 @@ KERNEL_SOURCES = {
     # not a Pallas kernel: XLA code of the JAX package's jitted step
     "spd_solve8": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
                    "watermarking_gpu_tpu/ops/me.py:279"),
+    "spd_solve_wide": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
+                       "watermarking_gpu_tpu/ops/me.py:420"),
 }
-XLA_KERNELS = ("spd_solve8",)
+XLA_KERNELS = ("spd_solve8", "spd_solve_wide")
 STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
 # the 3x3 Gram's two kernels (the me_gram row), each with its count
 GRAM_KERNELS = ("me_gram_lags", "me_gram_assemble")
@@ -412,6 +431,8 @@ GRAM_SOLVE_KERNELS = (*GRAM_KERNELS, "spd_solve8")
 P3_KERNELS = (*GRAM_SOLVE_KERNELS, "embed_field", "detect_partials")
 # the wide Gram's two kernels (the me_gram_wide rows), each with its count
 WIDE_GRAM_KERNELS = ("wide_lag_strips", "wide_assemble")
+# and the wide solve of its system: every ME analysis at p > 3
+WIDE_GRAM_SOLVE_KERNELS = (*WIDE_GRAM_KERNELS, "spd_solve_wide")
 
 
 class SmokeFailure(RuntimeError):
@@ -457,8 +478,9 @@ def phase_card_and_build() -> str:
         capture_output=True, text=True, timeout=60, check=True)
     power = smi.stdout.strip().splitlines()[0]
     print(power, flush=True)
-    # the port uses no matmul or convolution; the one convolution timed as
-    # a yardstick (conv_prediction_error) must run in full f32 too
+    # the plain blocked solve's matmuls (the wide solve kernel's oracle)
+    # and the one convolution timed as a yardstick (conv_prediction_error)
+    # must run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     start = time.perf_counter()
@@ -552,12 +574,40 @@ def solve_text(result: tuple[float, float, bool]) -> str:
             f"abs {result[0]:.2e}, rel {result[1]:.2e}") + " (two calls too)"
 
 
-def random_spd_grams(batch: int, seed: int) -> torch.Tensor:
-    """(batch, 9, 9) Grams 3e5 A A^T + 1e4 I of N(0, 1) A: positive
-    definite, with a frame Gram's scale (~1e7 on the diagonal)."""
-    a = np.random.default_rng(seed).normal(size=(batch, 9, 9))
+def random_spd_grams(batch: int, seed: int, k: int = 8,
+                     ridge: float = 1e4) -> torch.Tensor:
+    """(batch, k+1, k+1) Grams 3e5 A A^T + ridge I of N(0, 1) A: positive
+    definite, with a frame Gram's scale (~1e7 on the diagonal). The wide
+    solves take ridge 1e5, a frame Gram's conditioning at p = 5-9 (cond(Rx)
+    ~2e2 at k = 24 to ~1e3 at k = 80; ~7e3 at k = 80 without it, where f32
+    solves in any order differ by ~1e-4)."""
+    a = np.random.default_rng(seed).normal(size=(batch, k + 1, k + 1))
     return torch.from_numpy((3e5 * (a @ a.transpose(0, 2, 1))
-                             + 1e4 * np.eye(9)).astype(np.float32)).cuda()
+                             + ridge * np.eye(k + 1)).astype(np.float32)
+                            ).cuda()
+
+
+def check_solve_wide(gram: torch.Tensor, label: str
+                     ) -> tuple[float, float, bool]:
+    """The wide solve kernel against its plain version (the blocked
+    Cholesky) on the same (B, k+1, k+1) Gram: valid flags equal,
+    coefficients within WIDE_SOLVE_ATOL, and two calls bit-identical.
+    Returns (max abs err, max err relative to each system's largest
+    coefficient, bit-identical)."""
+    got = kernels.spd_solve_wide(gram)
+    want = kernels.spd_solve_wide_plain(gram)
+    check(got[1].dtype == torch.bool and torch.equal(got[1], want[1]),
+          f"spd_solve_wide {label}: valid {got[1].tolist()} against "
+          f"{want[1].tolist()}")
+    abs_err = float((got[0] - want[0]).abs().max())
+    check(abs_err <= WIDE_SOLVE_ATOL, f"spd_solve_wide {label}: "
+          f"coefficients abs err {abs_err:.3e} against the plain solve")
+    scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    rel = float(((got[0] - want[0]).abs() / scale).max())
+    again = kernels.spd_solve_wide(gram)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"spd_solve_wide {label}: two calls differ")
+    return abs_err, rel, all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
@@ -662,6 +712,8 @@ def phase_main_path(frames: np.ndarray) -> dict[str, dict]:
 
     check(all(part[mask][k] > 0 for mask in part for k in P3_KERNELS),
           f"a kernel was never launched on the main path: {part}")
+    check(counts["spd_solve_wide"] == 0,
+          f"the wide solve ran at p=3: {counts}")
     for mask, (marked, strength, corr, clean) in results.items():
         ref = JAX_REFERENCE[mask]
         check(marked.shape == frames_d.shape and marked.dtype == torch.float32
@@ -783,29 +835,40 @@ def phase_timing(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
 
 
 def library_solve(gram: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The 8x8 systems of a (B, 9, 9) Gram by the library pair: one
-    ``cholesky_ex`` and one ``cholesky_solve`` (the yardstick of the
-    kernels line's ``library_ms``; the port does not call it at p=3)."""
-    lower, info = torch.linalg.cholesky_ex(gram[:, :8, :8])
-    return torch.cholesky_solve(gram[:, :8, 8:], lower)[:, :, 0], info == 0
+    """The k-unknown systems of a (B, k+1, k+1) Gram by the library pair:
+    one ``cholesky_ex`` and one ``cholesky_solve`` (the yardstick of the
+    kernels line's ``library_ms``; the kernel route never calls it)."""
+    k = gram.shape[-1] - 1
+    lower, info = torch.linalg.cholesky_ex(gram[:, :k, :k])
+    return torch.cholesky_solve(gram[:, :k, k:], lower)[:, :, 0], info == 0
 
 
-def solve_times(gram: torch.Tensor) -> tuple[float, float, float]:
-    """(kernel, plain unrolled solve, library pair) ms a call on the
-    frames' (8, 9, 9) Gram, CUDA events, in turns kernel, plain, library,
-    library, plain, kernel (the least of each pair)."""
-    fns = {"kernel": lambda: kernels.spd_solve8(gram),
-           "plain": lambda: kernels.spd_solve8_plain(gram),
+def solve_times(gram: torch.Tensor, wide: bool = False
+                ) -> tuple[float, float, float]:
+    """(kernel, plain solve, library pair) ms a call of the 8x8 solve
+    kernel, or with ``wide`` the wide one, on the frames' (8, k+1, k+1)
+    Gram, CUDA events, in turns kernel, plain, library, library, plain,
+    kernel (the least of each pair)."""
+    kernel, plain = ((kernels.spd_solve_wide, kernels.spd_solve_wide_plain)
+                     if wide else (kernels.spd_solve8,
+                                   kernels.spd_solve8_plain))
+    fns = {"kernel": lambda: kernel(gram), "plain": lambda: plain(gram),
            "library": lambda: library_solve(gram)}
+    # the plain blocked solve is thousands of launches a call
+    iters = {"kernel": 50, "plain": 10 if wide else 50, "library": 50}
     runs: dict[str, list[float]] = {name: [] for name in fns}
     for name in (*fns, *reversed(fns)):
-        runs[name].append(cuda_ms(fns[name], iters=50))
+        runs[name].append(cuda_ms(fns[name], iters=iters[name]))
     coeffs, _ = library_solve(gram)
-    lib_err = float((coeffs - kernels.spd_solve8(gram)[0]).abs().max())
+    lib_err = float((coeffs - kernel(gram)[0]).abs().max())
     ms = tuple(min(runs[name]) for name in fns)
-    print(f"[4] spd_solve8 (8x8 solve, B={gram.shape[0]}): kernel "
+    k = gram.shape[-1] - 1
+    label = (f"spd_solve_wide p={math.isqrt(k + 1)} ({k} unknowns"
+             if wide else "spd_solve8 (8x8 solve")
+    print(f"[4] {label}, B={gram.shape[0]}): kernel "
           f"{ms[0]:.4f} ms (runs {runs['kernel'][0]:.4f}, "
-          f"{runs['kernel'][1]:.4f}), plain unrolled solve {ms[1]:.4f} ms, "
+          f"{runs['kernel'][1]:.4f}), plain "
+          f"{'blocked' if wide else 'unrolled'} solve {ms[1]:.4f} ms, "
           f"library cholesky_ex + cholesky_solve {ms[2]:.4f} ms (its "
           f"coefficients abs {lib_err:.1e} from the kernel's)", flush=True)
     return ms
@@ -878,6 +941,9 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             else:
                 errors[f"me_gram_wide_p{p}"] = (
                     float((gram - plain).abs().max()), worst["gram"])
+            solved = check_solve_wide(gram, label)
+            if main_shape:
+                errors[f"spd_solve_wide_p{p}"] = solved[:2]
             coeffs = predictor_coefficients(img)
             for mask in ("me", "nvf"):
                 c = coeffs[p if mask == "me" else 3]
@@ -895,7 +961,7 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                                                               detect_err)
             after = kernels.launch_counts()
             check(all(after[n] > before[n] for n in
-                      (*WIDE_GRAM_KERNELS, "embed_field",
+                      (*WIDE_GRAM_SOLVE_KERNELS, "embed_field",
                        "detect_partials")),
                   f"{label}: a launch counter did not rise: {before} -> "
                   f"{after}")
@@ -910,7 +976,28 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             print(f"[2] {label}: me_gram_wide lag kernel rel {lag_err:.2e}, "
                   f"assembly kernel rel {assemble_err:.2e}, Gram rel against "
                   f"the plain lag form {worst['gram']:.2e}{direct_note}, two "
-                  f"calls bit-identical; {masks}: ok", flush=True)
+                  f"calls bit-identical; spd_solve_wide on the kernel Gram "
+                  f"{solve_text(solved)}; {masks}: ok", flush=True)
+        k = p * p - 1
+        for batch in (1, 8, 300):
+            solved = check_solve_wide(
+                random_spd_grams(batch, batch + p, k, ridge=1e5),
+                f"p={p} B={batch}")
+            print(f"[2] spd_solve_wide on {batch} random SPD systems of {k} "
+                  f"unknowns ({batch} blocks): {solve_text(solved)}: ok",
+                  flush=True)
+        flat = kernels.me_gram_wide(torch.full((1, 40, 96), 77.0,
+                                               device="cuda"), p)
+        mixed = torch.cat([kernels.me_gram_wide(frames_d[:1], p), flat,
+                           torch.zeros_like(flat)]).contiguous()
+        solved = check_solve_wide(mixed, f"p={p} singular")
+        coeffs, valid = kernels.spd_solve_wide(mixed)
+        check(valid.tolist() == [True, False, False] and not coeffs[1:].any(),
+              f"spd_solve_wide p={p}: a constant frame's and a zero system "
+              f"came back {valid.tolist()}")
+        print(f"[2] spd_solve_wide p={p} on a frame's, a constant frame's and "
+              f"a zero wide Gram: valid [True, False, False], the singular "
+              f"ones zeros; {solve_text(solved)}: ok", flush=True)
     return errors
 
 
@@ -938,6 +1025,12 @@ def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
           and all(counts["nvf"][n] > 0 for n in GRAM_SOLVE_KERNELS)
           and total["embed_field"] > 0 and total["detect_partials"] > 0,
           f"p={p}: a kernel was never launched on the main path: {counts}")
+    # one wide solve an ME analysis (the embed and two detects), none in
+    # the NVF part (its 3x3 predictor)
+    check(counts["me"]["spd_solve_wide"] == counts["me"]["wide_assemble"] == 3
+          and counts["nvf"]["spd_solve_wide"] == 0,
+          f"p={p}: wide solves {counts['me']['spd_solve_wide']} (ME), "
+          f"{counts['nvf']['spd_solve_wide']} (NVF), expected 3 and 0")
     for mask, (marked, strength, corr, clean) in results.items():
         ref = JAX_WIDE_REFERENCE[p][mask]
         check(marked.shape == frames_d.shape and marked.dtype == torch.float32
@@ -1023,6 +1116,8 @@ def phase_wide_timing(frames_d: torch.Tensor, wm_d: torch.Tensor,
         times[name] = (cuda_ms(kernel_fn), cuda_ms(plain_fn))
         print(f"[4] {name} at 8x1080x1920: kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms", flush=True)
+    times[f"spd_solve_wide_p{p}"] = solve_times(
+        kernels.me_gram_wide(frames_d, p), wide=True)
     return times
 
 
@@ -1092,9 +1187,10 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     """Device ms a call of the 3x3 Gram's two kernels (keyed
     "me_gram_lags", "me_gram_assemble", and their sum "me_gram"), of the
     8x8 solve kernel on the frames' Gram ("spd_solve8"), of the
-    wide Gram's two kernels at p = 5, 7, 9 (keyed "wide_lag_strips_p5",
-    ...) and of the embed field and the detect tail at ME and NVF p = 3, 5,
-    7, 9 (keyed by kernel row name), from one ``device_ms`` session; each
+    wide Gram's two kernels and the wide solve kernel at p = 5, 7, 9 (keyed
+    "wide_lag_strips_p5", ..., "spd_solve_wide_p5", ...) and of the embed
+    field and the detect tail at ME and NVF p = 3, 5, 7, 9 (keyed by
+    kernel row name), from one ``device_ms`` session; each
     kernel is told apart by its name and template arguments. The 3x3
     assembly kernel is a programmatic dependent launch: it may start
     beside the lag kernel's last wave and wait there, so its device time
@@ -1110,6 +1206,10 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         fns.append(lambda p=p: kernels.me_gram_wide(frames_d, p))
         for kernel in WIDE_GRAM_KERNELS:
             patterns[f"{kernel}_p{p}"] = f"{kernel}_kernel<{p // 2}>"
+        wide_gram = kernels.me_gram_wide(frames_d, p)
+        fns.append(lambda g=wide_gram: kernels.spd_solve_wide(g))
+        patterns[f"spd_solve_wide_p{p}"] = (
+            f"spd_solve_wide_kernel<{p * p - 1}>")
     for p in ALL_P:
         for mask in ("me", "nvf"):
             c = coeffs[p if mask == "me" else 3]
@@ -1558,11 +1658,16 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
         finally:
             service.close()
         label = f"P={p} {mask}"
-        grams = (WIDE_GRAM_KERNELS if mask == "me" and p > 3
-                 else GRAM_SOLVE_KERNELS)
+        wide = mask == "me" and p > 3
+        grams = WIDE_GRAM_SOLVE_KERNELS if wide else GRAM_SOLVE_KERNELS
         check(counts[(mask, p)]["detect_many"] > 0
               and all(counts[(mask, p)][n] > 0 for n in grams),
               f"{label}: a kernel was never launched: {counts[(mask, p)]}")
+        # one wide solve an analysis (a batch), at ME p > 3 only
+        check(counts[(mask, p)]["spd_solve_wide"]
+              == (counts[(mask, p)]["wide_assemble"] if wide else 0),
+              f"{label}: wide solves {counts[(mask, p)]['spd_solve_wide']} "
+              f"against {counts[(mask, p)]['wide_assemble']} wide Grams")
         check(scores.shape == (2 * BATCH, N_CANDIDATES)
               and bool(np.isfinite(scores).all()),
               f"{label}: bad scores {scores.shape}")
@@ -1837,7 +1942,7 @@ def phase_cli() -> None:
             check(rc == 0, f"CLI p={p} exited {rc}:\n{out}")
             got = parse_cli(out)
             numbers = check_cli_numbers(got, p, f"CLI p={p}")
-            ran = (*P3_KERNELS, *(WIDE_GRAM_KERNELS if p > 3 else ()))
+            ran = (*P3_KERNELS, *(WIDE_GRAM_SOLVE_KERNELS if p > 3 else ()))
             check(all(counts[name] > 0 for name in ran),
                   f"CLI p={p}: a kernel was never launched: {counts}")
             check((p != 3) == ("generalized" in out),
@@ -2505,6 +2610,8 @@ def add_counts(total: dict, counts: dict, mask: str, p: int) -> None:
             name = "me_gram"
         elif kernel == "spd_solve8":
             name = kernel
+        elif kernel == "spd_solve_wide":
+            name = f"spd_solve_wide_p{p}"
         elif kernel in WIDE_GRAM_KERNELS:
             name = f"me_gram_wide_p{p}"
         elif kernel == "detect_many":
@@ -2580,10 +2687,10 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         (marked, strength, corr), counts, ms = run_counted(step)
         # per data row, one launch a space shard of the embed field and the
         # detect tail, and of the Gram's lag kernel (ME embed and detect,
-        # NVF detect); the wide Gram's assembly and the 8x8 solve once a
-        # space row
+        # NVF detect); the Gram's assembly and its solve once a space row
         if mask == "me" and p != 3:
-            want = {"wide_lag_strips": 8, "wide_assemble": 4}
+            want = {"wide_lag_strips": 8, "wide_assemble": 4,
+                    "spd_solve_wide": 4}
         else:
             grams = 8 if mask == "me" else 4
             want = {"me_gram_lags": grams, "me_gram_assemble": grams,
@@ -2619,7 +2726,8 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         if impl == "cuda":
             want = ({"me_gram_lags": 4, "me_gram_assemble": 4,
                      "spd_solve8": 1} if p == 3
-                    else {"wide_lag_strips": 4, "wide_assemble": 1})
+                    else {"wide_lag_strips": 4, "wide_assemble": 1,
+                          "spd_solve_wide": 1})
             want["detect_partials"] = 4
             check({k: n for k, n in counts.items() if n} == want,
                   f"{label}: launches {launched(counts)}, expected {want}")
@@ -2645,7 +2753,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             frames_d, frames_d, wm_d)
         return marked, strength, make_dp_detect(dp, "me", p=5)(marked, wm_d)
     (marked, strength, corr), counts, ms = run_counted(dp_step)
-    check(all(counts[k] > 0 for k in (*WIDE_GRAM_KERNELS, "embed_field",
+    check(all(counts[k] > 0 for k in (*WIDE_GRAM_SOLVE_KERNELS, "embed_field",
                                       "detect_partials")),
           f"{label}: a kernel was never launched: {counts}")
     add_counts(launches, counts, "me", 5)
@@ -2681,10 +2789,12 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         if impl == "torch":
             want = {}
         elif mesh is dp:       # the single-device kernels on each shard
-            want = {"wide_lag_strips": 4, "wide_assemble": 4}
-        else:                  # the halo forms; the Gram once a space row
+            want = {"wide_lag_strips": 4, "wide_assemble": 4,
+                    "spd_solve_wide": 4}
+        else:   # the halo forms; the Gram and its solve once a space row
             rows = mesh.shape["data"]
-            want = ({"wide_lag_strips": 4, "wide_assemble": rows}
+            want = ({"wide_lag_strips": 4, "wide_assemble": rows,
+                     "spd_solve_wide": rows}
                     if mask == "me" and p != 3 else
                     {"me_gram_lags": 4, "me_gram_assemble": 4,
                      "spd_solve8": rows})
@@ -2865,7 +2975,7 @@ def phase_tools_calibrate(png: str, power: str, launches: dict) -> None:
               f"{ref['threshold']}")
         check(res["nulls"].shape == (8, 256), f"{label}: nulls "
               f"{res['nulls'].shape}")
-        grams = (WIDE_GRAM_KERNELS if mask == "me" and p > 3
+        grams = (WIDE_GRAM_SOLVE_KERNELS if mask == "me" and p > 3
                  else GRAM_SOLVE_KERNELS)
         check_ran(label, counts, (*grams, "embed_field", "detect_partials",
                                   "detect_many"))
@@ -3079,6 +3189,16 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
                                                            "operations")
 
 
+def cholesky_ops(n: int) -> int:
+    """Operations of an n-unknown Cholesky solve, as SOLVE_OPS counts them
+    at n = 8: per column j of the factor j products and sums, a
+    subtraction, a square root and a reciprocal, and per entry below it j
+    products and sums, a subtraction and a product; per row of each
+    substitution i products and sums, a subtraction and a division."""
+    factor = sum(2 * j + 3 + (n - 1 - j) * (2 * j + 2) for j in range(n))
+    return factor + 2 * sum(2 * i + 2 for i in range(n))
+
+
 def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
                  halo: int = 0) -> tuple[float, str]:
     """The bound of one kernel call at 8 x 1080 x 1920 (or, in its halo
@@ -3101,8 +3221,12 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
       frame, candidate and pixel u = mask * W_c, e_u and the two sums
       (2k + 5 flops, k taps), and per frame and pixel e_z, the mask and
       e_z^2;
-    * the 8x8 solve: it reads each frame's 9 x 9 Gram and writes 8
-      coefficients and a valid byte; SOLVE_OPS operations a system.
+    * the 8x8 solve: it reads what a Cholesky solve of each frame's system
+      needs, Rx's lower triangle (36) and rx (8), and writes 8
+      coefficients and a valid byte; SOLVE_OPS operations a system;
+    * the wide solve: likewise Rx's lower triangle (k(k + 1)/2) and rx (k)
+      read, k coefficients and a valid byte written; ``cholesky_ops(k)``
+      operations a system.
     """
     pixels = BATCH * rows * COLS
     frame_bytes = 4 * BATCH * (rows + 2 * halo) * COLS   # read
@@ -3113,7 +3237,10 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
     if kernel == "me_gram":
         return bound(frame_bytes + 4 * BATCH * 81, 2 * 13 * pixels)
     if kernel == "spd_solve8":
-        return bound(BATCH * (4 * 81 + 4 * 8 + 1), BATCH * SOLVE_OPS)
+        return bound(BATCH * (4 * (36 + 8) + 4 * 8 + 1), BATCH * SOLVE_OPS)
+    if kernel == "spd_solve_wide":
+        return bound(BATCH * (4 * (k * (k + 1) // 2 + k) + 4 * k + 1),
+                     BATCH * cholesky_ops(k))
     if kernel == "me_gram_wide":
         h = p // 2
         lags = ((4 * h + 1) ** 2 + 1) // 2
@@ -3216,6 +3343,14 @@ def main() -> int:
           f"{counts['all']['spd_solve8']}, in identification at ME p=3 "
           f"{identify_counts[('me', 3)]['spd_solve8']})", flush=True)
     for p in WIDE_P:
+        name = f"spd_solve_wide_p{p}"
+        print(f"[4] spd_solve_wide p={p} ({p * p - 1} unknowns, B={BATCH}; "
+              f"device time a call, torch.profiler): {split[name]:.4f} ms "
+              f"(CUDA events with the wrapper {times[name][0]:.4f} ms; "
+              f"launches on the main path "
+              f"{wide_counts[p]['me']['spd_solve_wide']}, in identification "
+              f"{identify_counts[('me', p)]['spd_solve_wide']})", flush=True)
+    for p in WIDE_P:
         print(f"[4] p={p} wide Gram split (device time a call, "
               f"torch.profiler): lag kernel "
               f"{split[f'wide_lag_strips_p{p}']:.4f} ms, assembly kernel "
@@ -3260,6 +3395,13 @@ def main() -> int:
                                    for n in WIDE_GRAM_KERNELS),
                                errors[f"me_gram_wide_p{p}"],
                                times[f"me_gram_wide_p{p}"]))
+        # the wide solve: once an ME analysis (phase 3's ME part, and
+        # identification at ME p)
+        name = f"spd_solve_wide_p{p}"
+        rows.append(kernel_row(name, "spd_solve_wide", "me", p,
+                               me["spd_solve_wide"]
+                               + identify_counts[("me", p)]["spd_solve_wide"],
+                               errors[name], times[name], split))
         for kernel in ("embed_field", "detect_partials"):
             for mask, launched in (("me", me), ("nvf", nvf)):
                 name = f"{kernel}_{mask}_p{p}"

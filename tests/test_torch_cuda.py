@@ -14,7 +14,10 @@ the NVF mask rtol 1e-5 + atol 1e-3 (their terms round identically); between
 the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
 its fused NVF kernels) and strengths rel 2e-4. The 8x8 solve kernel's
 coefficients and valid flags equal its plain version's, bit for bit (the
-same rounded operations in the same order). The video pipeline's
+same rounded operations in the same order); the wide solve kernel's
+coefficients are within 1e-4 of its plain version's (the wide solves'
+bound: its 8-term sums stand for the plain version's matmuls, another
+order) and its valid flags equal. The video pipeline's
 pinned-buffer staging: its marked lumas equal a synchronous embed of the
 same frames byte for byte.
 """
@@ -118,6 +121,22 @@ def check_solve(gram):
     return got[0]
 
 
+def check_solve_wide(gram):
+    """The wide solve kernel on a (B, k+1, k+1) Gram against its plain
+    version: valid equal, coefficients within 1e-4, one launch, two calls
+    bit-identical. Returns (coefficients, valid)."""
+    before = kernels.spd_solve_wide.launches
+    got = kernels.spd_solve_wide(gram)
+    assert kernels.spd_solve_wide.launches == before + 1
+    want = kernels.spd_solve_wide_plain(gram)
+    assert got[1].dtype == torch.bool and got[1].shape == want[1].shape
+    assert torch.equal(got[1], want[1]), (got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    again = kernels.spd_solve_wide(gram)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    return got
+
+
 def check_gram(frames):
     """The 3x3 Gram against the direct per-pair sums (rtol 1e-4), one launch
     of each of its two kernels a Gram, two calls bit-identical, and each
@@ -177,11 +196,14 @@ def test_kernels_match_plain_on_card(device, shape):
                      "spd_solve8": before["spd_solve8"] + 2}
 
 
-def random_spd_grams(batch: int, seed: int) -> torch.Tensor:
-    """(batch, 9, 9) Grams A A^T of N(0, 1) A, scaled to a frame Gram's
-    size (~1e7 on the diagonal) plus a ridge, all positive definite."""
-    a = np.random.default_rng(seed).normal(size=(batch, 9, 9))
-    gram = 3e5 * (a @ a.transpose(0, 2, 1)) + 1e4 * np.eye(9)
+def random_spd_grams(batch: int, seed: int, k: int = 8,
+                     ridge: float = 1e4) -> torch.Tensor:
+    """(batch, k+1, k+1) Grams A A^T of N(0, 1) A, scaled to a frame Gram's
+    size (~1e7 on the diagonal) plus a ridge, all positive definite. The
+    wide solves take ridge 1e5, a frame Gram's conditioning at p = 5-9
+    (cond(Rx) ~2e2-1e3; see tests/test_torch_solve_wide.py)."""
+    a = np.random.default_rng(seed).normal(size=(batch, k + 1, k + 1))
+    gram = 3e5 * (a @ a.transpose(0, 2, 1)) + ridge * np.eye(k + 1)
     return torch.from_numpy(gram.astype(np.float32))
 
 
@@ -206,24 +228,58 @@ def test_spd_solve8_matches_plain_on_card(device, case):
     assert not got[1:].any()
 
 
+@pytest.mark.parametrize("case", ["8x1080x1920", 1, 8, 300])
+@pytest.mark.parametrize("p", [5, 7, 9])
+def test_spd_solve_wide_matches_plain_on_card(device, p, case):
+    """The wide solve kernel against its plain version (the blocked
+    Cholesky of ``solve_coefficients_spd_blocked``), TF32 off for the plain
+    version's matmuls: on the wide Grams of 8 frames of 1080 x 1920, and on
+    random SPD batches of 1, 8 and 300 (one block a system); a constant
+    frame's wide Gram and a zero system in a batch come back invalid with
+    zero coefficients, as the plain version gives them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = p * p - 1
+    if case == "8x1080x1920":
+        frames, _, _ = make_inputs((8, 1080, 1920), device)
+        gram = kernels.me_gram_wide(frames, p)
+    else:
+        gram = random_spd_grams(case, case + p, k, ridge=1e5).to(device)
+    coefficients, valid = check_solve_wide(gram)
+    assert valid.all() and coefficients.abs().sum() > 0
+    flat = kernels.me_gram_wide(torch.full((1, 40, 96), 77.0,
+                                           device=device), p)
+    mixed = torch.cat([gram[:1], flat, torch.zeros_like(gram[:1])])
+    coefficients, valid = check_solve_wide(mixed.contiguous())
+    assert valid.tolist() == [True, False, False]
+    assert not coefficients[1:].any()
+
+
 @pytest.mark.parametrize("shape", [(3, 40, 96), (3, 1080, 1920)])
-def test_singular_frame_soft_fails_on_card(device, shape):
-    """A constant frame in a batch of three on the kernel route at ME p=3:
-    its Gram's 81 entries are the same bits (exactly singular), and only
-    that frame soft-fails (strength 0, pixels passed through, correlation
-    0), as tests/test_torch_pipeline.py::test_singular_frame_soft_fails
-    holds on the CPU route."""
+@pytest.mark.parametrize("p", [3, 5, 7, 9])
+def test_singular_frame_soft_fails_on_card(device, p, shape):
+    """A constant frame in a batch of three on the kernel route at ME p: at
+    p=3 its Gram's 81 entries are the same bits (exactly singular); at p =
+    5, 7, 9 the wide Gram and the blocked solve kernel flag it through IEEE
+    arithmetic alone. Only that frame soft-fails (strength 0, pixels passed
+    through, correlation 0), as
+    tests/test_torch_pipeline.py::test_singular_frame_soft_fails holds on
+    the CPU route."""
     frames, wm, _ = make_inputs((1, *shape[1:]), device)
     good = frames[0]
     flat = torch.full_like(good, 77.0)
     frames = torch.stack([good, flat, (good + 1.0).clamp(0, 255)])
-    gram = kernels.me_gram(frames)
-    assert gram[1].unique().numel() == 1
-    assert gram[0].unique().numel() > 1
+    if p == 3:
+        gram = kernels.me_gram(frames)
+        assert gram[1].unique().numel() == 1
+        assert gram[0].unique().numel() > 1
+    else:
+        _, valid = kernels.spd_solve_wide(kernels.me_gram_wide(frames, p))
+        assert valid.tolist() == [True, False, True]
     marked, strength = pipelines.embed_pipeline(frames, frames, wm, 2.55,
-                                                "me", impl="cuda")
-    corr = pipelines.detect_pipeline(frames, wm, "me", impl="cuda")
-    marked_corr = pipelines.detect_pipeline(marked, wm, "me", impl="cuda")
+                                                "me", p=p, impl="cuda")
+    corr = pipelines.detect_pipeline(frames, wm, "me", p=p, impl="cuda")
+    marked_corr = pipelines.detect_pipeline(marked, wm, "me", p=p,
+                                            impl="cuda")
     assert strength[1] == 0.0 and (strength[[0, 2]] > 0).all()
     assert torch.equal(marked[1], flat)
     assert corr[1] == 0.0 and marked_corr[1] == 0.0
@@ -439,6 +495,8 @@ def test_engine_runs_on_card(device, p):
     counts = kernels.launch_counts()
     assert counts.pop("wide_lag_strips") == counts.pop("wide_assemble") == (
         3 if p > 3 else 0)
+    # ME embed, detect and detect_many at p=5 (the wide solve)
+    assert counts.pop("spd_solve_wide") == (3 if p > 3 else 0)
     # ME embed, detect and detect_many, NVF detect at p=3; NVF detect alone
     # at p=5 (its 3x3 predictor)
     assert counts["spd_solve8"] == (4 if p == 3 else 1)
@@ -653,7 +711,8 @@ def test_wide_and_identify_routes_match_single_device_on_card(device, p):
     and mesh identification (data=2 x space=2) at ME p and NVF p=3,
     against the single-device kernel route (correlations 1e-4, strengths
     1e-4 relative, pixels 1e-2); each halo-form kernel launched once a
-    shard, the wide Gram's assembly once a space row."""
+    shard, the wide Gram's assembly and the wide solve once a space
+    row."""
     from watermarking_gpu_tpu_torch.parallel import (make_hybrid_detect,
                                                      make_hybrid_embed,
                                                      make_mesh,
@@ -667,7 +726,8 @@ def test_wide_and_identify_routes_match_single_device_on_card(device, p):
     corr = make_hybrid_detect(mesh, "me", p=p)(marked.gather(), wm)
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
     assert counts == {"wide_lag_strips": 8, "wide_assemble": 4,
-                      "embed_field": 4, "detect_partials": 4}
+                      "spd_solve_wide": 4, "embed_field": 4,
+                      "detect_partials": 4}
     want_marked, want_s = pipelines.embed_pipeline(frames, frames, wm, 2.55,
                                                    "me", p=p)
     want_corr = pipelines.detect_pipeline(want_marked, wm, "me", p=p)
@@ -681,7 +741,7 @@ def test_wide_and_identify_routes_match_single_device_on_card(device, p):
                                   "me", p=p)(want_marked[0], wm)
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
     assert counts == {"wide_lag_strips": 12, "wide_assemble": 1,
-                      "detect_partials": 12}
+                      "spd_solve_wide": 1, "detect_partials": 12}
     assert abs(float(spatial) - float(want_corr[0])) <= 1e-4
 
     rng = np.random.default_rng(p)
@@ -693,7 +753,8 @@ def test_wide_and_identify_routes_match_single_device_on_card(device, p):
         scores = make_mesh_detect_many(mesh, mask_type, p=pm)(
             want_marked[0], bank).gather()
         counts = {k: n for k, n in kernels.launch_counts().items() if n}
-        gram = ({"wide_lag_strips": 4, "wide_assemble": 2} if mask_type == "me"
+        gram = ({"wide_lag_strips": 4, "wide_assemble": 2,
+                 "spd_solve_wide": 2} if mask_type == "me"
                 else {"me_gram_lags": 4, "me_gram_assemble": 4,
                       "spd_solve8": 2})
         assert counts == {**gram, "detect_many": 4}

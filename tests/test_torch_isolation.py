@@ -180,7 +180,8 @@ def test_cpu_tensors_launch_no_kernel():
                                        "detect_many": 0,
                                        "prediction_error": 0,
                                        "nvf_mask": 0,
-                                       "spd_solve8": 0}
+                                       "spd_solve8": 0,
+                                       "spd_solve_wide": 0}
 
 
 def test_wrappers_raise_on_other_devices():

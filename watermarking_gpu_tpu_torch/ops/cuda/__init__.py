@@ -7,7 +7,9 @@ it launches its kernel; ``me_gram`` launches the 3x3 Gram's two kernels
 through their wrappers, ``me_gram_lags`` and ``me_gram_assemble``, and
 ``me_gram_wide`` the wide Gram's, ``wide_lag_strips`` and
 ``wide_assemble``, so each of those counts one a Gram. ``spd_solve8``
-solves the 3x3 predictor's system from that Gram, one launch a solve.
+solves the 3x3 predictor's system from the 3x3 Gram and
+``spd_solve_wide`` the wide predictor's from the wide Gram, one launch a
+solve.
 ``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
 calls (their modules say why); the rest carry the embed, detect and
 identification paths.
@@ -24,7 +26,8 @@ from .me_kernel import (me_gram, me_gram_assemble, me_gram_lags,
                         me_gram_plain)
 from .nvf import nvf_mask, nvf_mask_plain
 from .predict import prediction_error, prediction_error_plain
-from .solve import spd_solve8, spd_solve8_plain
+from .solve import (spd_solve8, spd_solve8_plain, spd_solve_wide,
+                    spd_solve_wide_plain)
 
 KERNELS = {"me_gram_lags": me_gram_lags,
            "me_gram_assemble": me_gram_assemble,
@@ -33,7 +36,7 @@ KERNELS = {"me_gram_lags": me_gram_lags,
            "embed_field": embed_field, "detect_partials": detect_partials,
            "detect_many": detect_many_partials,
            "prediction_error": prediction_error, "nvf_mask": nvf_mask,
-           "spd_solve8": spd_solve8}
+           "spd_solve8": spd_solve8, "spd_solve_wide": spd_solve_wide}
 
 
 def reset_launch_counts() -> None:
@@ -55,4 +58,4 @@ __all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
            "me_gram_wide_plain", "nvf_mask", "nvf_mask_plain",
            "prediction_error", "prediction_error_plain",
            "reset_launch_counts", "spd_solve8", "spd_solve8_plain",
-           "stencil_reach", "wide_assemble", "wide_lag_strips"]
+           "spd_solve_wide", "spd_solve_wide_plain", "stencil_reach", "wide_assemble", "wide_lag_strips"]

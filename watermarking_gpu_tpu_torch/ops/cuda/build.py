@@ -64,6 +64,7 @@ SIGNATURES = {
     "wm_prediction_error": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "wm_nvf_mask": (_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "wm_spd_solve8": (_PTR, _PTR, _PTR, _INT, _PTR),
+    "wm_spd_solve_wide": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
 }
 
 

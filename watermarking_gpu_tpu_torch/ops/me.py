@@ -492,14 +492,12 @@ def solve_coefficients(rx_matrix: torch.Tensor, rx_vector: torch.Tensor
     return _gate_finite(solution[..., 0], (info == 0) & well_posed)
 
 
-def solve_coefficients_spd(rx_matrix: torch.Tensor, rx_vector: torch.Tensor
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Unrolled batched Cholesky solve for the SPD Gram system.
-
-    The same scalar recurrence as the JAX package's solver, in (B,)-vector
-    arithmetic. A zero or negative pivot gives Inf/NaN, which becomes
-    ``valid=False`` (the reference's solve-failure contract).
-    """
+def _chol8_factor(rx_matrix: torch.Tensor) -> list[list]:
+    """Lower Cholesky factor of the SPD blocks (..., n, n) by the unrolled
+    scalar recurrence, as an n x n list of (...,) tensors (None above the
+    diagonal): each sum starts at 0 and adds the products in increasing k,
+    then the pivot's reciprocal is taken once and multiplied. A zero or
+    negative pivot gives Inf/NaN."""
     n = rx_matrix.shape[-1]
     a = [[rx_matrix[..., i, j] for j in range(n)] for i in range(n)]
     lower: list[list] = [[None] * n for _ in range(n)]
@@ -512,6 +510,19 @@ def solve_coefficients_spd(rx_matrix: torch.Tensor, rx_vector: torch.Tensor
             off = a[i][j] - sum((lower[i][k] * lower[j][k] for k in range(j)),
                                 start=torch.zeros_like(a[i][j]))
             lower[i][j] = off * inv_diag
+    return lower
+
+
+def solve_coefficients_spd(rx_matrix: torch.Tensor, rx_vector: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unrolled batched Cholesky solve for the SPD Gram system.
+
+    The same scalar recurrence as the JAX package's solver, in (B,)-vector
+    arithmetic. A zero or negative pivot gives Inf/NaN, which becomes
+    ``valid=False`` (the reference's solve-failure contract).
+    """
+    n = rx_matrix.shape[-1]
+    lower = _chol8_factor(rx_matrix)
     # forward substitution L y = rx
     y = []
     for i in range(n):
@@ -529,6 +540,103 @@ def solve_coefficients_spd(rx_matrix: torch.Tensor, rx_vector: torch.Tensor
                                                       dtype=torch.bool))
 
 
+# the blocked solve's panel width: the 8x8 diagonal factor of
+# ``_chol8_factor``, which the kernel (``csrc/spd_solve.cu``) hard-codes too
+SOLVE_BLOCK = 8
+
+
+def _trisolve_block_right(s: torch.Tensor, l11: torch.Tensor
+                          ) -> torch.Tensor:
+    """Solve X @ L11^T = S for X, batched: (..., r, 8) x (..., 8, 8) lower,
+    column by column, each column's products subtracted in turn, then
+    divided by the pivot."""
+    cols: list = []
+    for c in range(l11.shape[-1]):
+        acc = s[..., c]
+        for k2 in range(c):
+            acc = acc - cols[k2] * l11[..., c, k2, None]
+        cols.append(acc / l11[..., c, c, None])
+    return torch.stack(cols, dim=-1)
+
+
+def solve_coefficients_spd_blocked(rx_matrix: torch.Tensor,
+                                   rx_vector: torch.Tensor
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked batched Cholesky solve for the wide (k = 24/48/80) systems:
+    the JAX package's ``solve_coefficients_spd_blocked``, step for step.
+
+    Column panels of ``SOLVE_BLOCK`` columns, left to right: each panel's rows at
+    and below its diagonal take the earlier panels' products subtracted one
+    panel at a time (f32 matmuls; on the card TF32 must be off), its 8x8
+    diagonal block is factored by ``_chol8_factor`` and the rows below by
+    ``_trisolve_block_right``. Then forward and back substitution block by
+    block: the solved prefix's product subtracted a block at a time, then 8
+    scalar steps. ``valid`` is "all coefficients finite" (a zero or
+    negative pivot gives Inf/NaN) and invalid rows are zeros. The plain
+    version of ``ops/cuda/solve.py::spd_solve_wide``.
+    """
+    n = rx_matrix.shape[-1]
+    block = SOLVE_BLOCK
+    if n % block:
+        raise ValueError(f"the blocked solve takes a multiple of {block} "
+                         f"unknowns, got {n}")
+    lead = rx_matrix.shape[:-2]
+    blocks = n // block
+    panels: list[torch.Tensor] = []    # (..., n, block) column panels of L
+    for b in range(blocks):
+        j0 = b * block
+        s = rx_matrix[..., j0:, j0:j0 + block]
+        for prev in panels:
+            s = s - prev[..., j0:, :] @ prev[..., j0:j0 + block, :].mT
+        lower = _chol8_factor(s[..., :block, :])
+        zero = torch.zeros_like(lower[0][0])
+        l11 = torch.stack([torch.stack([lower[i][j] if j <= i else zero
+                                        for j in range(block)], dim=-1)
+                           for i in range(block)], dim=-2)
+        parts = [rx_matrix.new_zeros(*lead, j0, block), l11]
+        if j0 + block < n:
+            parts.append(_trisolve_block_right(s[..., block:, :], l11))
+        panels.append(torch.cat(parts, dim=-2))
+
+    # forward substitution L y = rx, block by block
+    y: list[torch.Tensor] = []
+    for b in range(blocks):
+        j0 = b * block
+        rhs = rx_vector[..., j0:j0 + block]
+        for pb in range(b):
+            rhs = rhs - (panels[pb][..., j0:j0 + block, :]
+                         @ y[pb][..., None])[..., 0]
+        l11 = panels[b][..., j0:j0 + block, :]
+        yb: list = []
+        for i in range(block):
+            acc = rhs[..., i]
+            for k2 in range(i):
+                acc = acc - l11[..., i, k2] * yb[k2]
+            yb.append(acc / l11[..., i, i])
+        y.append(torch.stack(yb, dim=-1))
+
+    # back substitution L^T x = y, block by block from the last
+    x: list = [None] * blocks
+    for b in reversed(range(blocks)):
+        j0 = b * block
+        rhs = y[b]
+        for pb in range(b + 1, blocks):
+            pj = pb * block
+            rhs = rhs - (panels[b][..., pj:pj + block, :].mT
+                         @ x[pb][..., None])[..., 0]
+        l11 = panels[b][..., j0:j0 + block, :]
+        xb: list = [None] * block
+        for i in reversed(range(block)):
+            acc = rhs[..., i]
+            for k2 in range(i + 1, block):
+                acc = acc - l11[..., k2, i] * xb[k2]
+            xb[i] = acc / l11[..., i, i]
+        x[b] = torch.stack(xb, dim=-1)
+    coefficients = torch.cat(x, dim=-1)
+    return _gate_finite(coefficients, torch.ones_like(coefficients[..., 0],
+                                                      dtype=torch.bool))
+
+
 def solve_coefficients_spd_wide(rx_matrix: torch.Tensor,
                                 rx_vector: torch.Tensor
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -536,11 +644,12 @@ def solve_coefficients_spd_wide(rx_matrix: torch.Tensor,
 
     ``torch.linalg.cholesky_ex`` reports a non-positive pivot in ``info``
     instead of raising; ``valid`` is ``info == 0`` and a finite solution,
-    and invalid rows are zeroed. The JAX package's wide solves
-    (``solve_coefficients_spd_vec`` / ``_blocked``) are XLA code, not
-    kernels; unrolled in eager torch their scalar recurrences would launch
-    thousands of tiny ops per solve, so the library factorization takes
-    their place.
+    and invalid rows are zeroed. The plain route's (``impl="torch"``)
+    solve, where the JAX package's ``impl="xla"`` takes
+    ``solve_coefficients_spd_vec`` (the same factorisation, another order);
+    the kernel route runs the JAX package's blocked Cholesky
+    (``solve_coefficients_spd_blocked``) through the hand-written kernel
+    ``ops/cuda/solve.py::spd_solve_wide``.
     """
     lower, info = torch.linalg.cholesky_ex(rx_matrix)
     solution = torch.cholesky_solve(rx_vector[..., None], lower)[..., 0]

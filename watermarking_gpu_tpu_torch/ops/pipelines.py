@@ -16,7 +16,8 @@ Implementations:
   solve, normalized mask, reference embed/correlation formulas. The port's
   oracle, counterpart of the JAX package's ``impl="xla"``.
 * ``impl="cuda"``: the fused algebra of the JAX package's ``impl="pallas"``
-  — Gram kernel, solve (the 8x8 Cholesky kernel at p=3), then one
+  — Gram kernel, solve kernel (the 8x8 Cholesky at a 3x3 predictor, the
+  blocked Cholesky above it), then one
   embed-field, detect-tail or multi-candidate detect kernel, with the
   AXPY/clamp and the final divisions in torch. On CUDA tensors the kernels
   run; on CPU tensors their plain versions do.
@@ -31,7 +32,7 @@ import torch
 
 from .correlation import correlation
 from .cuda import (detect_many_partials, detect_partials, embed_field,
-                   me_gram, me_gram_wide, spd_solve8)
+                   me_gram, me_gram_wide, spd_solve8, spd_solve_wide)
 from .cuda.fused import predictor_p
 from .embed import embed_watermark
 from .me import (me_mask_from_error, me_normal_equations, prediction_error,
@@ -76,14 +77,12 @@ def _analysis(image: torch.Tensor, p: int
 
 def _fused_analysis(img3: torch.Tensor, pred_p: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gram kernel + Cholesky -> (coefficients (B, k), valid (B,)),
+    """Gram kernel + Cholesky kernel -> (coefficients (B, k), valid (B,)),
     k = pred_p**2 - 1: the 3x3 Gram and the 8x8 solve kernel at pred_p=3,
-    the wide lag Gram and the library Cholesky above it."""
+    the wide lag Gram and the blocked solve kernel above it."""
     if pred_p == 3:
         return spd_solve8(me_gram(img3))
-    k = pred_p * pred_p - 1
-    gram = me_gram_wide(img3, pred_p)
-    return solve_coefficients_spd_wide(gram[:, :k, :k], gram[:, :k, k])
+    return spd_solve_wide(me_gram_wide(img3, pred_p))
 
 
 def _embed_fused(image, output, watermark, strength_factor_value, mask_type,

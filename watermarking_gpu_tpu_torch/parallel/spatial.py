@@ -44,7 +44,8 @@ import math
 import torch
 
 from ..ops.cuda import (detect_many_partials, detect_partials, embed_field,
-                        me_gram, spd_solve8, wide_assemble, wide_lag_strips)
+                        me_gram, spd_solve8, spd_solve_wide, wide_assemble,
+                        wide_lag_strips)
 from ..ops.cuda.fused import predictor_p, stencil_reach
 from ..ops.me import (assemble_banks, edge_windows, gram_direct,
                       lag_partials_plain, prediction_error,
@@ -227,10 +228,10 @@ def _solve_cuda(imgs: Shards, ext: Shards, halo: int, pred_p: int):
     at p = 3, >= 2h above): the Gram's halo form over each shard's owned
     rows, folded onto the first shard, and one solve there. At p = 3 the
     3x3 Gram and the 8x8 solve kernel on the folded Gram; above, the wide
-    Gram's lag kernel (its sums reduced over strips before the fold), one
-    assembly with the frame's banks and the library Cholesky, or, for a
-    frame below the lag form's 6h geometry, the direct per-pair sums, as a
-    single device takes them."""
+    Gram's lag kernel (its sums reduced over strips before the fold) and
+    one assembly with the frame's banks or, for a frame below the lag
+    form's 6h geometry, the direct per-pair sums, as a single device takes
+    them, then the blocked solve kernel on the folded Gram."""
     h_local, cols = imgs[0].shape[-2:]
     total_rows = len(imgs) * h_local
     devices = [x.device for x in imgs]
@@ -247,7 +248,7 @@ def _solve_cuda(imgs: Shards, ext: Shards, halo: int, pred_p: int):
         edges = fold([e.sum(dim=2, keepdim=True) for _, e in parts])
         gram = wide_assemble(sums, edges, *_wide_banks(imgs, pred_p),
                              pred_p, total_rows)
-    return _solve_once(gram, solve_coefficients_spd_wide, devices)
+    return _on_devices(spd_solve_wide(gram), devices)
 
 
 def _detect_shard_cuda(imgs: Shards, wms: Shards, mask_type: str,
