@@ -30,7 +30,12 @@ prints no result:
    wide Gram of each shape, on 1, 8 and 300 random SPD systems a k and on
    a batch of a frame's, a constant frame's and a zero Gram, against its
    plain version, the blocked Cholesky (TF32 off): coefficients within
-   1e-4, valid flags identical, two calls bit-identical.
+   1e-4, valid flags identical, two calls bit-identical. The embed finish
+   (``embed_finish``) at each shape on the embed field at ME and NVF,
+   frame 1's solve forced to fail, into the f32 frames, an RGB output and
+   the frames as u8, and on an NVF constant frame (NaN pixels), f32 and
+   u8: pixels and strengths bit-identical to its plain version, the eager
+   tail (NaN equal to NaN), as are two calls.
 3. The main paths, through ``BatchedWatermark(1080, 1920, 28390211, p=P,
    psnr=40, device="cuda")``. P=3: ME and NVF embed then detect of 8
    frames, ``embed_luma_u8`` and one single-frame ``Watermark`` round trip.
@@ -42,7 +47,7 @@ prints no result:
    7, 9), and its kernels' launch counters are zeroed just before it and
    read just after; the wide solve kernel must run once an analysis at ME
    P = 5, 7, 9 (embed, detect, identification) and never at P=3 or in an
-   NVF detect.
+   NVF detect, and the embed finish once an embed.
 4. Timing with CUDA events: the chained 8-frame ME embed+detect step at
    each P through the kernels and through the plain path
    (``impl="torch"``), each kernel beside its plain version (the wide Gram
@@ -50,12 +55,14 @@ prints no result:
    ``conv2d``; the 8x8 solve at B = 8 beside the plain unrolled solve and
    the library pair ``cholesky_ex`` + ``cholesky_solve``; the wide solve at
    B = 8 and each P beside the plain blocked solve and the same library
-   pair), and the identification of 8 frames against 64 candidates
+   pair; the embed finish into the f32 frames and into u8 lumas beside its
+   plain version), and the identification of 8 frames against 64
+   candidates
    (ME) at each P through the kernel, through the plain route and as 64
    looped detects. Last, after every timing, the device time a call of the
    3x3 and the wide Gram's two kernels, of the 8x8 and the wide solve
-   kernels, and of the embed field and the detect tail at each mask and P,
-   from one ``torch.profiler`` session.
+   kernels, of the embed field and the detect tail at each mask and P, and
+   of the embed finish in both forms, from one ``torch.profiler`` session.
 5. The entry points a user runs, at 1080 x 1920 (run before phase 4's
    profiler timings, since it times them too). The CLI: a PNG of
    ``make_cli_image()`` and a ``.dat`` of the engines' watermark in a
@@ -88,7 +95,9 @@ prints no result:
    sums added up against the frame's. Then each one's ms on an interior
    shard (and, after phase 4's profiler timings, its device ms). Then,
    each run's launch counters zeroed just before it and read just after,
-   with its ms from CUDA events: hybrid embed then detect on data=2 x
+   with its ms from CUDA events (each hybrid route run four times, the
+   first run's time printed as cold, the others' as warm): hybrid embed then
+   detect on data=2 x
    space=2 (ME p = 3, 5, 9, NVF p=3 and 5, ``impl="cuda"``) held to the
    single-device kernel route (correlations 1e-4, strengths 1e-4
    relative, pixels 1e-2) and to the JAX numbers; spatial detect on data=1
@@ -121,15 +130,17 @@ prints no result:
 
 The line before the last is ``{"kernels": [...]}``, one row per kernel,
 window and mask (the 3x3 Gram serves both masks), and ``replaces_kind``
-("pallas", or "xla" for the 8x8 and the wide solves, which replace XLA
-code of the JAX package's jitted step, not a Pallas kernel): launches in
-its part of
+("pallas", or "xla" for the 8x8 and the wide solves and the embed finish,
+which replace XLA code of the JAX package's jitted step, not a Pallas
+kernel): launches in its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
 path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
 Gram; for the 8x8 solve, one a solve of a 3x3-predictor system, those of
 every phase-3 run: the p=3 path, the NVF detects at p = 5, 7, 9 and the
 identification at p=3 and NVF; for the wide solve, one a solve at ME p,
-the main path's and identification's), plus the launches of phase 6's
+the main path's and identification's; for the embed finish, one a fused
+embed of any mask, p and form, every phase-3 run's), plus the launches of
+phase 6's
 and phase 7's runs at that kernel, mask and p;
 ``max_abs_err`` of
 its main output against the plain version at 8 x 1080 x 1920 (the Gram,
@@ -137,9 +148,10 @@ u_raw, the correlation formed from the detect sums, or the standalone op's
 output) and ``max_rel_err`` of
 its reductions (of the output, relative to its largest value, for the
 standalone ops); ``ms`` and ``plain_ms`` per call from phase 4 (CUDA
-events around the wrapper); for the 3x3 Gram, the embed field and the
-detect tail ``device_ms``, its kernels' device time a call from the
-profiler;
+events around the wrapper; the embed finish's into the f32 frames at ME,
+its u8 form in ``u8_form``); for the 3x3 Gram, the embed field, the
+detect tail and the embed finish ``device_ms``, its kernels' device time a
+call from the profiler;
 ``bound_ms``, the least time an H100 could take for the same work (the
 larger of the bytes the function must move over 3.35 TB/s and the flops it
 needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
@@ -421,14 +433,19 @@ KERNEL_SOURCES = {
                    "watermarking_gpu_tpu/ops/me.py:279"),
     "spd_solve_wide": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
                        "watermarking_gpu_tpu/ops/me.py:420"),
+    "embed_finish": ("watermarking_gpu_tpu_torch/csrc/embed_finish.cu",
+                     "watermarking_gpu_tpu/ops/pipelines.py:293"),
 }
-XLA_KERNELS = ("spd_solve8", "spd_solve_wide")
+XLA_KERNELS = ("spd_solve8", "spd_solve_wide", "embed_finish")
 STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
 # the 3x3 Gram's two kernels (the me_gram row), each with its count
 GRAM_KERNELS = ("me_gram_lags", "me_gram_assemble")
 # and the 8x8 solve of its system: every run of the 3x3 predictor
 GRAM_SOLVE_KERNELS = (*GRAM_KERNELS, "spd_solve8")
-P3_KERNELS = (*GRAM_SOLVE_KERNELS, "embed_field", "detect_partials")
+# the embed field and the finish that scales it into the output: every
+# fused embed
+EMBED_KERNELS = ("embed_field", "embed_finish")
+P3_KERNELS = (*GRAM_SOLVE_KERNELS, *EMBED_KERNELS, "detect_partials")
 # the wide Gram's two kernels (the me_gram_wide rows), each with its count
 WIDE_GRAM_KERNELS = ("wide_lag_strips", "wide_assemble")
 # and the wide solve of its system: every ME analysis at p > 3
@@ -518,6 +535,81 @@ def check_embed_field(img: torch.Tensor, wm: torch.Tensor,
     check(all(torch.equal(g, a) for g, a in zip(got, again)),
           f"embed_field {mask} {label}: two calls differ")
     return u_err, sums_err
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal dtypes, shapes and bits, NaN equal to NaN."""
+    nan = got.isnan()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(nan, want.isnan())
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def finish_numerator(u_raw: torch.Tensor) -> float:
+    """sf * sqrt(n) of the fused embed at PSNR, n a frame's pixels."""
+    return strength_factor(PSNR) * math.sqrt(u_raw.shape[-2]
+                                             * u_raw.shape[-1])
+
+
+def check_embed_finish(u_raw, output, sum_u2, max_e, valid, mask: str,
+                       label: str) -> tuple[tuple, tuple[float, float]]:
+    """The embed finish against its plain version on the same inputs:
+    pixels and strengths bit-identical, NaN equal to NaN, as are two
+    calls. Returns (the kernel's (pixels, strengths), (max abs err of the
+    pixels, max rel err of the strengths), NaN left out)."""
+    args = (u_raw, output, sum_u2, max_e, valid, finish_numerator(u_raw),
+            mask)
+    got = kernels.embed_finish(*args)
+    want = kernels.embed_finish_plain(*args)
+    px_err = float((got[0].double() - want[0].double()).nan_to_num().abs()
+                   .max())
+    finite = want[1].isfinite() & (want[1] != 0)
+    s_err = rel_err(got[1][finite], want[1][finite]) if finite.any() else 0.0
+    check(same_bits(got[0], want[0]), f"embed_finish {label}: pixels not "
+          f"bit-identical to the plain version, max abs err {px_err:.3e}")
+    check(same_bits(got[1], want[1]), f"embed_finish {label}: strengths "
+          f"{got[1].tolist()} against {want[1].tolist()}")
+    again = kernels.embed_finish(*args)
+    check(all(same_bits(a, g) for a, g in zip(again, got)),
+          f"embed_finish {label}: two calls differ")
+    return got, (px_err, s_err)
+
+
+def check_finish_cases(img: torch.Tensor, wm: torch.Tensor,
+                       coeffs: torch.Tensor, label: str
+                       ) -> tuple[float, float]:
+    """The embed finish on the embed field of ``img`` at ME (its frames'
+    coefficients) and NVF p=3, frame 1's solve forced to fail: into the
+    f32 frames, into an RGB output and into the frames as u8 (the video's
+    form); then an NVF constant frame (sum u_raw^2 = 0: NaN pixels), f32
+    and u8. Returns the worst (pixel, strength) errors."""
+    worst = (0.0, 0.0)
+    valid = torch.ones(img.shape[0], dtype=torch.bool, device=img.device)
+    valid[1] = False
+    outputs = {"f32": img, "rgb": torch.stack([img, img * 0.5, 255 - img],
+                                              dim=-1),
+               "u8": img.to(torch.uint8)}
+    for mask in ("me", "nvf"):
+        field = kernels.embed_field(img, wm, coeffs if mask == "me" else None,
+                                    mask)
+        for form, output in outputs.items():
+            _, errs = check_embed_finish(field[0], output, *field[1:], valid,
+                                         mask, f"{mask} {form} {label}")
+            worst = tuple(map(max, worst, errs))
+    del outputs
+    flat = img.clone()
+    flat[-1] = 77.0
+    field = kernels.embed_field(flat, wm, None, "nvf")
+    check(float(field[1][-1]) == 0.0, f"embed_finish {label}: a constant "
+          f"frame's sum u_raw^2 is {float(field[1][-1])}")
+    for output in (flat, flat.to(torch.uint8)):
+        (marked, _), errs = check_embed_finish(
+            field[0], output, *field[1:], torch.ones_like(valid), "nvf",
+            f"nvf constant frame {output.dtype} {label}")
+        check(output.dtype == torch.uint8 or bool(marked[-1].isnan().all()),
+              f"embed_finish {label}: the NVF constant frame is not NaN")
+        worst = tuple(map(max, worst, errs))
+    return worst
 
 
 def check_gram(img: torch.Tensor, label: str) -> tuple[float, ...]:
@@ -649,6 +741,9 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                 suffix = "" if mask == "me" else "_nvf_p3"
                 errors["embed_field" + suffix] = (u_err, sums_err)
                 errors["detect_partials" + suffix] = (corr_err, detect_err)
+        finish_errors = check_finish_cases(img, wm, coeffs, label)
+        if main_shape:
+            errors["embed_finish"] = finish_errors
         after = kernels.launch_counts()
         check(all(after[k] > before[k] for k in P3_KERNELS),
               f"{label}: a launch counter did not rise: {before} -> {after}")
@@ -660,7 +755,10 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
               f"two calls), sums rel "
               f"{worst_sum:.2e}; detect_partials sums rel "
               f"{worst_detect:.2e}, corr abs {worst_corr:.2e}; spd_solve8 "
-              f"on the kernel Gram {solve_text(solved)}: ok", flush=True)
+              f"on the kernel Gram {solve_text(solved)}; embed_finish at ME "
+              f"and NVF, frame 1 invalid, into f32, RGB and u8 outputs, and "
+              f"an NVF constant frame's NaN: bit-identical (two calls too): "
+              f"ok", flush=True)
     for batch in (1, 8, 300):
         solved = check_solve(random_spd_grams(batch, batch), f"B={batch}")
         print(f"[2] spd_solve8 on {batch} random SPD systems "
@@ -824,6 +922,16 @@ def phase_timing(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             lambda m=mask: kernels.detect_partials(frames_d, wm_d, coeffs, m),
             lambda m=mask: kernels.detect_partials_plain(frames_d, wm_d,
                                                          coeffs, m))
+    # the embed finish on the ME field: into the f32 frames (the step's
+    # form) and into u8 lumas (the video's)
+    field = kernels.embed_field(frames_d, wm_d, coeffs, "me")
+    valid = torch.ones(BATCH, dtype=torch.bool, device=frames_d.device)
+    for name, output in (("embed_finish", frames_d),
+                         ("embed_finish_u8", frames_d.to(torch.uint8))):
+        args = (field[0], output, *field[1:], valid,
+                finish_numerator(field[0]), "me")
+        pairs[name] = (lambda a=args: kernels.embed_finish(*a),
+                       lambda a=args: kernels.embed_finish_plain(*a))
     times = {}
     for name, (kernel_fn, plain_fn) in pairs.items():
         times[name] = (cuda_ms(kernel_fn), cuda_ms(plain_fn))
@@ -1023,8 +1131,11 @@ def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
 
     check(all(counts["me"][n] > 0 for n in WIDE_GRAM_KERNELS)
           and all(counts["nvf"][n] > 0 for n in GRAM_SOLVE_KERNELS)
-          and total["embed_field"] > 0 and total["detect_partials"] > 0,
-          f"p={p}: a kernel was never launched on the main path: {counts}")
+          and total["embed_field"] > 0 and total["detect_partials"] > 0
+          and counts["me"]["embed_finish"] == counts["nvf"]["embed_finish"]
+          == 1,
+          f"p={p}: a kernel was never launched on the main path (or the "
+          f"embed finish not once an embed): {counts}")
     # one wide solve an ME analysis (the embed and two detects), none in
     # the NVF part (its 3x3 predictor)
     check(counts["me"]["spd_solve_wide"] == counts["me"]["wide_assemble"] == 3
@@ -1190,7 +1301,9 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     wide Gram's two kernels and the wide solve kernel at p = 5, 7, 9 (keyed
     "wide_lag_strips_p5", ..., "spd_solve_wide_p5", ...) and of the embed
     field and the detect tail at ME and NVF p = 3, 5, 7, 9 (keyed by
-    kernel row name), from one ``device_ms`` session; each
+    kernel row name) and of the embed finish into f32 frames and u8 lumas
+    ("embed_finish", "embed_finish_u8"), from one ``device_ms`` session;
+    each
     kernel is told apart by its name and template arguments. The 3x3
     assembly kernel is a programmatic dependent launch: it may start
     beside the lag kernel's last wave and wait there, so its device time
@@ -1223,6 +1336,15 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             patterns[row_name("detect_partials", mask, p)] = (
                 f"detect_tail_kernel<{MASK_CODES[mask]}, {half[0]}, "
                 f"{half[1]}>")
+    field = kernels.embed_field(frames_d, wm_d, coeffs[3], "me")
+    valid = torch.ones(BATCH, dtype=torch.bool, device=frames_d.device)
+    for name, output, dtype in (
+            ("embed_finish", frames_d, "float"),
+            ("embed_finish_u8", frames_d.to(torch.uint8), "unsigned char")):
+        fns.append(lambda o=output: kernels.embed_finish(
+            field[0], o, *field[1:], valid, finish_numerator(field[0]),
+            "me"))
+        patterns[name] = f"embed_finish_kernel<{dtype}"
     split = device_ms(fns, patterns)
     split["me_gram"] = sum(split[name] for name in GRAM_KERNELS)
     return split
@@ -2062,7 +2184,7 @@ def phase_video() -> None:
             name = f"embed interval {interval}"
             check(frames == VIDEO_FRAMES, f"{name}: {frames} frames")
             check(all(counts[k] > 0 for k in (*GRAM_SOLVE_KERNELS,
-                                                     "embed_field")),
+                                                     *EMBED_KERNELS)),
                   f"{name}: a kernel was never launched: {counts}")
             check_marked_clip(np.fromfile(out_path, np.uint8).reshape(
                 original.shape), original, interval, engine)
@@ -2295,6 +2417,8 @@ HALO_SPACES = (4, 2)                               # 270- and 540-row shards
 # card: the same kernels' sums over other row splits and in another order
 # (__graft_entry__.py:78-80)
 MESH_CORR_ATOL, MESH_STRENGTH_RTOL, MESH_PIXEL_ATOL = 1e-4, 1e-4, 1e-2
+# timed runs of each hybrid route after its first, cold one
+HYBRID_WARM_RUNS = 3
 # identification over the mesh against JAX_IDENTIFY_REFERENCE
 MESH_IDENTIFY_ATOL = 3e-4
 
@@ -2608,7 +2732,7 @@ def add_counts(total: dict, counts: dict, mask: str, p: int) -> None:
             continue
         if kernel in GRAM_KERNELS:
             name = "me_gram"
-        elif kernel == "spd_solve8":
+        elif kernel in ("spd_solve8", "embed_finish"):
             name = kernel
         elif kernel == "spd_solve_wide":
             name = f"spd_solve_wide_p{p}"
@@ -2684,10 +2808,15 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
                 frames_d, frames_d, wm_d)
             return marked, strength, make_hybrid_detect(hybrid, mask, p=p)(
                 marked, wm_d)
-        (marked, strength, corr), counts, ms = run_counted(step)
-        # per data row, one launch a space shard of the embed field and the
-        # detect tail, and of the Gram's lag kernel (ME embed and detect,
-        # NVF detect); the Gram's assembly and its solve once a space row
+        # the first run warms the route up (its time printed as "cold"),
+        # then HYBRID_WARM_RUNS timed ones
+        runs = [run_counted(step) for _ in range(1 + HYBRID_WARM_RUNS)]
+        (marked, strength, corr), counts, _ = runs[-1]
+        cold_ms, warm_ms = runs[0][2], [ms for _, _, ms in runs[1:]]
+        # per data row, one launch a space shard of the embed field, the
+        # embed finish and the detect tail, and of the Gram's lag kernel (ME
+        # embed and detect, NVF detect); the Gram's assembly and its solve
+        # once a space row
         if mask == "me" and p != 3:
             want = {"wide_lag_strips": 8, "wide_assemble": 4,
                     "spd_solve_wide": 4}
@@ -2695,10 +2824,11 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             grams = 8 if mask == "me" else 4
             want = {"me_gram_lags": grams, "me_gram_assemble": grams,
                     "spd_solve8": grams // 2}
-        want.update(embed_field=4, detect_partials=4)
-        check({k: n for k, n in counts.items() if n} == want,
-              f"{label}: launches {launched(counts)}, expected {want}")
-        add_counts(launches, counts, mask, p)
+        want.update(embed_field=4, embed_finish=4, detect_partials=4)
+        for _, run, _ in runs:
+            check({k: n for k, n in run.items() if n} == want,
+                  f"{label}: launches {launched(run)}, expected {want}")
+            add_counts(launches, run, mask, p)
         marked, strength, corr = (t.gather() for t in (marked, strength,
                                                        corr))
         ref_marked, ref_strength = batch_embed(frames_d, frames_d, wm_d, sf,
@@ -2710,8 +2840,9 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
                                  strength.cpu().numpy(), jax_numbers(mask, p))
         print(f"[6] {label}: corr {float(corr.mean()):.6f}, strength "
               f"{float(strength.mean()):.5f}; vs single device {text}; "
-              f"embed+detect {ms:.2f} ms ({power}); launches "
-              f"{launched(counts)}: ok", flush=True)
+              f"embed+detect {min(warm_ms):.2f}–{max(warm_ms):.2f} ms warm "
+              f"({len(warm_ms)} runs), {cold_ms:.2f} ms cold ({power}); "
+              f"launches {launched(counts)} a run: ok", flush=True)
     del marked, ref_marked
 
     # spatial detect, data=1 x space=4 (270-row shards)
@@ -2753,8 +2884,8 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             frames_d, frames_d, wm_d)
         return marked, strength, make_dp_detect(dp, "me", p=5)(marked, wm_d)
     (marked, strength, corr), counts, ms = run_counted(dp_step)
-    check(all(counts[k] > 0 for k in (*WIDE_GRAM_SOLVE_KERNELS, "embed_field",
-                                      "detect_partials")),
+    check(all(counts[k] > 0 for k in (*WIDE_GRAM_SOLVE_KERNELS,
+                                      *EMBED_KERNELS, "detect_partials")),
           f"{label}: a kernel was never launched: {counts}")
     add_counts(launches, counts, "me", 5)
     marked, strength, corr = (t.gather() for t in (marked, strength, corr))
@@ -2977,7 +3108,7 @@ def phase_tools_calibrate(png: str, power: str, launches: dict) -> None:
               f"{res['nulls'].shape}")
         grams = (WIDE_GRAM_SOLVE_KERNELS if mask == "me" and p > 3
                  else GRAM_SOLVE_KERNELS)
-        check_ran(label, counts, (*grams, "embed_field", "detect_partials",
+        check_ran(label, counts, (*grams, *EMBED_KERNELS, "detect_partials",
                                   "detect_many"))
         check(counts["detect_many"] == 1, f"{label}: the null matrix took "
               f"{counts['detect_many']} dispatches")
@@ -3056,9 +3187,10 @@ def phase_tools_robustness(png: str, launches: dict) -> None:
               f"{jax_lead})")
         check(res["batch"] == (13 if jpeg else 9), f"{label}: batch of "
               f"{res['batch']}")
-        check_ran(label, counts, (*GRAM_SOLVE_KERNELS, "embed_field",
+        check_ran(label, counts, (*GRAM_SOLVE_KERNELS, *EMBED_KERNELS,
                                   "detect_partials"))
-        check(counts["embed_field"] == counts["detect_partials"] == 1,
+        check(counts["embed_field"] == counts["embed_finish"]
+              == counts["detect_partials"] == 1,
               f"{label}: not one embed and one batched detect: {counts}")
         add_counts(launches, counts, mask, 3)
         note = ""
@@ -3097,7 +3229,7 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
         check(read_png(got[mask]["path"]).shape == (ROWS, COLS),
               f"image example: {got[mask]['path']} not written")
         check_ran(f"image example {mask}", run, (
-            *GRAM_SOLVE_KERNELS, "embed_field", "detect_partials"))
+            *GRAM_SOLVE_KERNELS, *EMBED_KERNELS, "detect_partials"))
         add_counts(launches, run, mask.lower(), 3)
     print(f"[7] image_watermark example (1080x1920 PNG): {seconds:.2f} s; "
           + "; ".join(f"{mask} strength {got[mask]['strength']:.5f} "
@@ -3116,7 +3248,7 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
           and _close(got["strength"], ref["strength"], rtol=STRENGTH_RTOL),
           f"identify example: {got} vs JAX {ref}")
     check_ran("identify example", counts, (*GRAM_SOLVE_KERNELS,
-                                           "embed_field", "detect_many"))
+                                           *EMBED_KERNELS, "detect_many"))
     add_counts(launches, counts, "me", 3)
     print(f"[7] identify_watermark example (1080x1920 PNG, "
           f"{IDENTIFY_N} candidates): {seconds:.2f} s; identified "
@@ -3134,7 +3266,7 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
     check(err <= CORR_ATOL and margin >= jax_margin - 2 * CORR_ATOL,
           f"video example: {corrs} vs JAX {ref}")
     check_ran("video example", counts, (*GRAM_SOLVE_KERNELS,
-                                        "embed_field", "detect_partials"))
+                                        *EMBED_KERNELS, "detect_partials"))
     add_counts(launches, counts, "me", 3)
     print(f"[7] video_watermark example (640x360, 60 frames, interval 10):"
           f" {seconds:.2f} s; marked min {corrs['marked'].min():.6f}, clean "
@@ -3151,7 +3283,7 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
           and got["identified"] == 0,
           f"serving example: {got} vs JAX {ref}")
     check_ran("serving example", counts, (*GRAM_SOLVE_KERNELS,
-                                          "embed_field", "detect_partials",
+                                          *EMBED_KERNELS, "detect_partials",
                                           "detect_many"))
     add_counts(launches, counts, "me", 3)
     print(f"[7] serving_demo example (32 frames of 360x640): {seconds:.2f} s"
@@ -3200,7 +3332,8 @@ def cholesky_ops(n: int) -> int:
 
 
 def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
-                 halo: int = 0) -> tuple[float, str]:
+                 halo: int = 0, channels: int = 1,
+                 itemsize: int = 4) -> tuple[float, str]:
     """The bound of one kernel call at 8 x 1080 x 1920 (or, in its halo
     form, on a shard of 8 x ``rows`` x 1920 extended by ``halo`` rows each
     side: the extended frames, and the detect tail's extended watermark
@@ -3226,7 +3359,11 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
       coefficients and a valid byte; SOLVE_OPS operations a system;
     * the wide solve: likewise Rx's lower triangle (k(k + 1)/2) and rx (k)
       read, k coefficients and a valid byte written; ``cholesky_ops(k)``
-      operations a system.
+      operations a system;
+    * the embed finish: u_raw (4 bytes a pixel) read, the output (``channels``
+      elements a pixel of ``itemsize`` bytes) read and the marked frames
+      written, sum u_raw^2, max |e| and valid read and the strength written
+      a frame; a product, a sum and the clamp's two comparisons an element.
     """
     pixels = BATCH * rows * COLS
     frame_bytes = 4 * BATCH * (rows + 2 * halo) * COLS   # read
@@ -3236,6 +3373,10 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
     nvf_flops = 4 * (p - 1) + 1 + 6
     if kernel == "me_gram":
         return bound(frame_bytes + 4 * BATCH * 81, 2 * 13 * pixels)
+    if kernel == "embed_finish":
+        elems = pixels * channels
+        return bound(4 * pixels + 2 * itemsize * elems + 13 * BATCH,
+                     4 * elems)
     if kernel == "spd_solve8":
         return bound(BATCH * (4 * (36 + 8) + 4 * 8 + 1), BATCH * SOLVE_OPS)
     if kernel == "spd_solve_wide":
@@ -3359,6 +3500,21 @@ def main() -> int:
               f"{times[f'me_gram_wide_p{p}'][0]:.4f} ms; launches on the "
               f"main path {wide_counts[p]['me']['wide_lag_strips']} + "
               f"{wide_counts[p]['me']['wide_assemble']})", flush=True)
+    finish_runs = [counts["all"], *(wide_counts[p][mask] for p in WIDE_P
+                                    for mask in ("me", "nvf")),
+                   *identify_counts.values()]
+    finish_launches = sum(run["embed_finish"] for run in finish_runs)
+    for name, form, itemsize in (("embed_finish", "f32 frames", 4),
+                                 ("embed_finish_u8", "u8 lumas", 1)):
+        bound_ms = kernel_bound("embed_finish", "me", 3,
+                                itemsize=itemsize)[0]
+        print(f"[4] embed finish into {form} (8x1080x1920, device time a "
+              f"call, torch.profiler): {split[name]:.4f} ms, "
+              f"{split[name] / bound_ms:.2f}x its bytes bound "
+              f"{bound_ms:.4f} ms (CUDA events with the wrapper "
+              f"{times[name][0]:.4f} ms, the plain tail {times[name][1]:.4f}"
+              f" ms; {power}; launches on the main paths of phase 3 "
+              f"{finish_launches}, either form)", flush=True)
     for p in ALL_P:
         for kernel, label in (("embed_field", "embed field"),
                               ("detect_partials", "detect tail")):
@@ -3388,6 +3544,17 @@ def main() -> int:
         name = f"{kernel}_nvf_p3"
         rows.append(kernel_row(name, kernel, "nvf", 3, nvf_launches,
                                errors[name], times[name], split))
+    # the embed finish: one row for every mask, p and form, timed at the
+    # step's (ME, f32 frames), its u8 form beside it
+    finish = kernel_row("embed_finish", "embed_finish", "me", 3,
+                        finish_launches, errors["embed_finish"],
+                        times["embed_finish"], split)
+    u8_bound = kernel_bound("embed_finish", "me", 3, itemsize=1)
+    finish["u8_form"] = {"ms": times["embed_finish_u8"][0],
+                         "plain_ms": times["embed_finish_u8"][1],
+                         "bound_ms": u8_bound[0], "bound_by": u8_bound[1],
+                         "device_ms": split["embed_finish_u8"]}
+    rows.append(finish)
     for p in WIDE_P:
         me, nvf = wide_counts[p]["me"], wide_counts[p]["nvf"]
         rows.append(kernel_row(f"me_gram_wide_p{p}", "me_gram_wide", "me", p,

@@ -17,12 +17,15 @@ coefficients and valid flags equal its plain version's, bit for bit (the
 same rounded operations in the same order); the wide solve kernel's
 coefficients are within 1e-4 of its plain version's (the wide solves'
 bound: its 8-term sums stand for the plain version's matmuls, another
-order) and its valid flags equal. The video pipeline's
+order) and its valid flags equal. The embed finish's pixels and
+strengths equal its plain version's, bit for bit, NaN equal to NaN (the
+same rounded operations in the same order). The video pipeline's
 pinned-buffer staging: its marked lumas equal a synchronous embed of the
 same frames byte for byte.
 """
 
 import io
+import math
 
 import numpy as np
 import pytest
@@ -429,6 +432,75 @@ def test_standalone_ops_match_plain_on_card(device, p, shape):
                      "nvf_mask": before["nvf_mask"] + 1}
 
 
+def check_embed_finish(u_raw, output, sum_u2, max_e, valid, mask_type):
+    """The embed finish against its plain version on the same inputs: the
+    same bits and dtypes, NaN equal to NaN; one launch counted."""
+    numerator = 2.55 * math.sqrt(u_raw.shape[-2] * u_raw.shape[-1])
+    before = kernels.embed_finish.launches
+    got = kernels.embed_finish(u_raw, output, sum_u2, max_e, valid,
+                               numerator, mask_type)
+    assert kernels.embed_finish.launches == before + 1
+    want = kernels.embed_finish_plain(u_raw, output, sum_u2, max_e, valid,
+                                      numerator, mask_type)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    return got
+
+
+def finish_inputs(frames, wm, coeffs, mask_type, dtype, channels):
+    """(u_raw, output, sum_u2, max_e, valid) from the embed field of the
+    frames, frame 1's solve failed where there is one, the output the
+    frames (whole values for uint8) or three channels of them."""
+    u_raw, sum_u2, max_e = kernels.embed_field(
+        frames, wm, coeffs if mask_type == "me" else None, mask_type)
+    valid = torch.ones(frames.shape[0], dtype=torch.bool,
+                       device=frames.device)
+    valid[1:2] = False
+    output = torch.floor(frames)
+    if channels:
+        output = torch.stack([output, 255 - output, output // 2], dim=-1)
+    return u_raw, output.to(dtype).contiguous(), sum_u2, max_e, valid
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 96), (2, 37, 83), (2, 1, 5),
+                                   (1, 45, 4), (3, 64, 1920)])
+@pytest.mark.parametrize("channels", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("mask_type", ["me", "nvf"])
+def test_embed_finish_matches_plain_on_card(device, mask_type, dtype,
+                                            channels, shape):
+    """At small and odd shapes (the kernel's scalar path) and at rows of
+    1920 (its 16-byte path), f32 and uint8 outputs, one or three channels,
+    a frame whose solve failed passed through with strength 0."""
+    frames, wm, coeffs = make_inputs(shape, device)
+    inputs = finish_inputs(frames, wm, coeffs, mask_type, dtype, channels)
+    marked, strength = check_embed_finish(*inputs, mask_type)
+    assert marked.dtype == dtype and marked.shape == inputs[1].shape
+    if shape[0] > 1:
+        assert strength[1] == 0.0 and torch.equal(marked[1], inputs[1][1])
+    # a 2-D frame
+    check_embed_finish(*(x[0] for x in inputs), mask_type)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(2, 37, 83), (2, 64, 1920)])
+def test_embed_finish_passes_nan_through_on_card(device, shape, dtype):
+    """An NVF constant frame: u_raw and sum u_raw^2 are 0, the scale inf,
+    the pixels NaN (uint8: the cast of NaN), as in the plain version."""
+    frames, wm, coeffs = make_inputs(shape, device)
+    frames[1] = 77.0
+    u_raw, output, sum_u2, max_e, valid = finish_inputs(
+        frames, wm, coeffs, "nvf", dtype, None)
+    valid[:] = True
+    assert float(sum_u2[1]) == 0.0
+    marked, strength = check_embed_finish(u_raw, output, sum_u2, max_e,
+                                          valid, "nvf")
+    assert math.isinf(float(strength[1]))
+    if dtype == torch.float32:
+        assert bool(marked[1].isnan().all())
+        assert bool(marked[0].isfinite().all())
+
+
 def test_wrappers_reject_bad_inputs_on_card(device):
     frames = torch.zeros(2, 16, 16, device=device)
     wm = torch.zeros(16, 16, device=device)
@@ -455,6 +527,13 @@ def test_wrappers_reject_bad_inputs_on_card(device):
         kernels.prediction_error(frames, torch.zeros(2, 8, device=device), 5)
     with pytest.raises(ValueError, match="p must be one of"):
         kernels.nvf_mask(frames, 11)
+    vec = torch.ones(2, device=device)
+    valid = torch.ones(2, dtype=torch.bool, device=device)
+    with pytest.raises(ValueError, match="output"):
+        kernels.embed_finish(frames, frames.double(), vec, vec, valid, 1.0,
+                             "me")
+    with pytest.raises(ValueError, match="valid"):
+        kernels.embed_finish(frames, frames, vec, vec, vec, 1.0, "me")
 
 
 @pytest.mark.parametrize("p", [3, 5, 7, 9])
@@ -701,6 +780,8 @@ def test_hybrid_matches_single_device_on_card(device, mask_type, p):
     assert after["me_gram_assemble"] - before["me_gram_assemble"] == grams
     # one solve a space row, of the embed (ME) and of the detect
     assert after["spd_solve8"] - before["spd_solve8"] == grams // 2
+    # the embed finish once a shard
+    assert after["embed_finish"] - before["embed_finish"] == 4
 
 
 @pytest.mark.parametrize("p", [5, 9])
@@ -727,7 +808,7 @@ def test_wide_and_identify_routes_match_single_device_on_card(device, p):
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
     assert counts == {"wide_lag_strips": 8, "wide_assemble": 4,
                       "spd_solve_wide": 4, "embed_field": 4,
-                      "detect_partials": 4}
+                      "embed_finish": 4, "detect_partials": 4}
     want_marked, want_s = pipelines.embed_pipeline(frames, frames, wm, 2.55,
                                                    "me", p=p)
     want_corr = pipelines.detect_pipeline(want_marked, wm, "me", p=p)

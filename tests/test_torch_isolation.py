@@ -181,7 +181,8 @@ def test_cpu_tensors_launch_no_kernel():
                                        "prediction_error": 0,
                                        "nvf_mask": 0,
                                        "spd_solve8": 0,
-                                       "spd_solve_wide": 0}
+                                       "spd_solve_wide": 0,
+                                       "embed_finish": 0}
 
 
 def test_wrappers_raise_on_other_devices():
@@ -242,11 +243,14 @@ def test_engines_default_to_the_card():
 
 
 def test_kernel_sources_ship_with_the_package():
-    sources = ("me_gram.cu", "me_gram_wide.cu", "fused.cu", "detect_many.cu",
-               "predict.cu", "nvf.cu")
+    # source -> what its Replaces: header names in the JAX package
+    sources = {name: "ops/pallas/" for name in (
+        "me_gram.cu", "me_gram_wide.cu", "fused.cu", "detect_many.cu",
+        "predict.cu", "nvf.cu")}
+    sources["embed_finish.cu"] = "ops/pipelines.py::_embed_pipeline_fused"
     names = {p.name for p in (PACKAGE / "csrc").iterdir()}
     assert {*sources, "common.cuh"} <= names
-    for name in sources:
+    for name, replaced in sources.items():
         head = (PACKAGE / "csrc" / name).read_text()[:1500]
-        assert "Replaces:" in head and "ops/pallas/" in head
+        assert "Replaces:" in head and replaced in head
     assert os.fspath(build.CSRC_DIR) == os.fspath(PACKAGE / "csrc")

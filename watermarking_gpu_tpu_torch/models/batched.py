@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.pipelines import detect_pipeline, embed_pipeline
+from ..ops.pipelines import _embed_u8_fused, detect_pipeline, embed_pipeline
 from .masks import MaskType
 from .watermark import Watermark, as_device_input
 
@@ -52,7 +52,12 @@ def batch_embed_luma_u8(lumas: torch.Tensor, watermark: torch.Tensor,
     The u8->f32 widening and the f32->u8 cast both happen on the device, so
     frames cross the host link at one byte a pixel each way. The cast
     truncates, as the reference's ``.as(u8)`` does (``main.cpp:355,379``).
+    On ``impl="cuda"`` the lumas widen once, for the analysis, and the
+    embed finish reads and writes the uint8 frames.
     """
+    if impl == "cuda":
+        return _embed_u8_fused(lumas, watermark, strength_factor_value,
+                               mask_type, p)
     marked, strength = embed_pipeline(lumas, lumas, watermark,
                                       strength_factor_value,
                                       mask_type=mask_type, p=p, impl=impl)

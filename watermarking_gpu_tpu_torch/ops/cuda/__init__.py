@@ -9,7 +9,8 @@ through their wrappers, ``me_gram_lags`` and ``me_gram_assemble``, and
 ``wide_assemble``, so each of those counts one a Gram. ``spd_solve8``
 solves the 3x3 predictor's system from the 3x3 Gram and
 ``spd_solve_wide`` the wide predictor's from the wide Gram, one launch a
-solve.
+solve. ``embed_finish`` scales the embed field to each frame's strength and
+adds it to the output, one launch a fused embed.
 ``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
 calls (their modules say why); the rest carry the embed, detect and
 identification paths.
@@ -19,6 +20,7 @@ from ..me import (assemble_lags_plain, assemble_strips_plain, frame_banks,
                   gram_lags_plain, lag_partials_plain, lag_strips_plain,
                   me_gram_wide_plain)
 from .detect_many import detect_many_partials, detect_many_partials_plain
+from .finish import embed_finish, embed_finish_plain
 from .fused import (detect_partials, detect_partials_plain, embed_field,
                     embed_field_plain, stencil_reach)
 from .me_gram_wide import me_gram_wide, wide_assemble, wide_lag_strips
@@ -36,7 +38,8 @@ KERNELS = {"me_gram_lags": me_gram_lags,
            "embed_field": embed_field, "detect_partials": detect_partials,
            "detect_many": detect_many_partials,
            "prediction_error": prediction_error, "nvf_mask": nvf_mask,
-           "spd_solve8": spd_solve8, "spd_solve_wide": spd_solve_wide}
+           "spd_solve8": spd_solve8, "spd_solve_wide": spd_solve_wide,
+           "embed_finish": embed_finish}
 
 
 def reset_launch_counts() -> None:
@@ -52,10 +55,12 @@ __all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
            "detect_many_partials",
            "detect_many_partials_plain", "detect_partials",
            "detect_partials_plain", "embed_field", "embed_field_plain",
+           "embed_finish", "embed_finish_plain",
            "frame_banks", "gram_lags_plain", "lag_partials_plain",
            "lag_strips_plain", "launch_counts", "me_gram", "me_gram_assemble",
            "me_gram_lags", "me_gram_plain", "me_gram_wide",
            "me_gram_wide_plain", "nvf_mask", "nvf_mask_plain",
            "prediction_error", "prediction_error_plain",
            "reset_launch_counts", "spd_solve8", "spd_solve8_plain",
-           "spd_solve_wide", "spd_solve_wide_plain", "stencil_reach", "wide_assemble", "wide_lag_strips"]
+           "spd_solve_wide", "spd_solve_wide_plain", "stencil_reach",
+           "wide_assemble", "wide_lag_strips"]

@@ -39,8 +39,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p, so
-# ctypes does not cut 64-bit addresses to int)
+# ctypes does not cut 64-bit addresses to int; a float as c_float)
 SIGNATURES = {
     "wm_me_gram_lags": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                         _INT, _INT, _PTR),
@@ -65,6 +66,8 @@ SIGNATURES = {
     "wm_nvf_mask": (_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "wm_spd_solve8": (_PTR, _PTR, _PTR, _INT, _PTR),
     "wm_spd_solve_wide": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "wm_embed_finish": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                        _INT, _FLOAT, _INT, _INT, _PTR),
 }
 
 

@@ -18,8 +18,9 @@ Implementations:
 * ``impl="cuda"``: the fused algebra of the JAX package's ``impl="pallas"``
   — Gram kernel, solve kernel (the 8x8 Cholesky at a 3x3 predictor, the
   blocked Cholesky above it), then one
-  embed-field, detect-tail or multi-candidate detect kernel, with the
-  AXPY/clamp and the final divisions in torch. On CUDA tensors the kernels
+  embed-field, detect-tail or multi-candidate detect kernel; the embed ends
+  in the embed-finish kernel (the strength and the AXPY/clamp/gate), the
+  detect with its final divisions in torch. On CUDA tensors the kernels
   run; on CPU tensors their plain versions do.
 """
 
@@ -32,7 +33,8 @@ import torch
 
 from .correlation import correlation
 from .cuda import (detect_many_partials, detect_partials, embed_field,
-                   me_gram, me_gram_wide, spd_solve8, spd_solve_wide)
+                   embed_finish, me_gram, me_gram_wide, spd_solve8,
+                   spd_solve_wide)
 from .cuda.fused import predictor_p
 from .embed import embed_watermark
 from .me import (me_mask_from_error, me_normal_equations, prediction_error,
@@ -100,14 +102,20 @@ def _embed_fused(image, output, watermark, strength_factor_value, mask_type,
     if squeeze:
         u_raw, sum_u2, max_e, valid = u_raw[0], sum_u2[0], max_e[0], valid[0]
     n = image.shape[-2] * image.shape[-1]
-    scale = strength_factor_value * math.sqrt(n) / torch.sqrt(sum_u2)
-    strength = scale * max_e if mask_type == "me" else scale
-    addend = u_raw * scale[..., None, None]
-    if output.ndim == image.ndim + 1:
-        addend = addend[..., None]
-    watermarked = torch.clamp(output + addend, 0.0, 255.0)
-    return (_gate(watermarked, valid, output),
-            torch.where(valid, strength, 0.0))
+    return embed_finish(u_raw, output.contiguous(), sum_u2, max_e, valid,
+                        strength_factor_value * math.sqrt(n), mask_type)
+
+
+def _embed_u8_fused(lumas: torch.Tensor, watermark: torch.Tensor,
+                    strength_factor_value: float, mask_type: MaskTypeName,
+                    p: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """``embed_pipeline(lumas, lumas, ..., impl="cuda")`` of uint8 lumas,
+    cast back to uint8 (truncating): the lumas widen once, as the image,
+    and the embed finish reads them as the output and writes the uint8
+    frames itself."""
+    _check_args(mask_type, p, "cuda")
+    return _embed_fused(_to_f32(lumas), lumas, _to_f32(watermark),
+                        strength_factor_value, mask_type, p)
 
 
 def embed_pipeline(image: torch.Tensor, output: torch.Tensor,

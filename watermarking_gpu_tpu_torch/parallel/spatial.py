@@ -44,8 +44,8 @@ import math
 import torch
 
 from ..ops.cuda import (detect_many_partials, detect_partials, embed_field,
-                        me_gram, spd_solve8, spd_solve_wide, wide_assemble,
-                        wide_lag_strips)
+                        embed_finish, me_gram, spd_solve8, spd_solve_wide,
+                        wide_assemble, wide_lag_strips)
 from ..ops.cuda.fused import predictor_p, stencil_reach
 from ..ops.me import (assemble_banks, edge_windows, gram_direct,
                       lag_partials_plain, prediction_error,
@@ -364,7 +364,8 @@ def _embed_shard_cuda(imgs: Shards, outputs: Shards, wms: Shards,
     the frame extended by max(1, p // 2) rows (the field's reach, and the
     3x3 Gram's); sum u^2 psum'd and max |e| pmax'd. At ME p > 3 the frame
     is extended once by the wide Gram's 2h rows, of which the field reads
-    the inner h."""
+    the inner h. Then the embed finish once a shard, with the whole
+    frame's pixel count in the scale."""
     h_local, cols = imgs[0].shape[-2:]
     batch_shape = imgs[0].shape[:-2]
     halo = 2 * (p // 2) if mask_type == "me" and p != 3 else max(1, p // 2)
@@ -378,16 +379,16 @@ def _embed_shard_cuda(imgs: Shards, outputs: Shards, wms: Shards,
               for e, w, (c, _) in zip(ext, wms, solved)]
     sum_u2 = psum([f[1] for f in fields])
     max_e = pmax([f[2] for f in fields])
-    total = len(imgs) * h_local * cols
+    numerator = strength_factor_value * math.sqrt(
+        len(imgs) * h_local * cols)
     results = []
     for (u_raw, _, _), (_, valid), s, m, out in zip(fields, solved, sum_u2,
                                                      max_e, outputs):
-        scale = strength_factor_value * math.sqrt(total) / torch.sqrt(s)
-        strength = scale * m if mask_type == "me" else scale
-        results.append(_finish_embed(
-            u_raw.reshape(batch_shape + (h_local, cols)),
-            scale.reshape(batch_shape), strength.reshape(batch_shape),
-            valid.reshape(batch_shape), out))
+        flat_out = out.reshape((-1,) + out.shape[len(batch_shape):])
+        watermarked, strength = embed_finish(
+            u_raw, flat_out.contiguous(), s, m, valid, numerator, mask_type)
+        results.append((watermarked.reshape(out.shape),
+                        strength.reshape(batch_shape)))
     return results
 
 
