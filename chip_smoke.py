@@ -30,7 +30,10 @@ prints no result:
    wide Gram of each shape, on 1, 8 and 300 random SPD systems a k and on
    a batch of a frame's, a constant frame's and a zero Gram, against its
    plain version, the blocked Cholesky (TF32 off): coefficients within
-   1e-4, valid flags identical, two calls bit-identical. The embed finish
+   1e-4, valid flags identical, two calls bit-identical; and against a
+   float64 ``torch.linalg.solve`` of the same systems, where its error on
+   the frames' wide Grams may be at most WIDE_SOLVE_ACCURACY times the
+   plain blocked solve's (printed on the random systems too). The embed finish
    (``embed_finish``) at each shape on the embed field at ME and NVF,
    frame 1's solve forced to fail, into the f32 frames, an RGB output and
    the frames as u8, and on an NVF constant frame (NaN pixels), f32 and
@@ -404,6 +407,10 @@ SOLVE_OPS = 248 + 2 * 72    # cholesky_ops(8)
 # the wide solves' bound, their 8-term sums in another order than the
 # plain version's matmuls
 WIDE_SOLVE_ATOL = 1e-4
+# the wide solve kernel's error against a float64 solve of the frames'
+# systems, at most this times the plain blocked f32 solve's: a schedule of
+# its own may not trade accuracy for speed
+WIDE_SOLVE_ACCURACY = 2.0
 CORR_ATOL = 5e-4
 STRENGTH_RTOL = 5e-3
 PIXEL_ATOL, PIXEL_RTOL = 1e-2, 1e-2
@@ -700,6 +707,23 @@ def check_solve_wide(gram: torch.Tensor, label: str
     check(all(torch.equal(g, a) for g, a in zip(got, again)),
           f"spd_solve_wide {label}: two calls differ")
     return abs_err, rel, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def solve_accuracy(gram: torch.Tensor) -> tuple[float, float]:
+    """(kernel, plain blocked solve) largest error against a float64
+    ``torch.linalg.solve`` of the valid systems of a (B, k+1, k+1) Gram."""
+    k = gram.shape[-1] - 1
+    plain, valid = kernels.spd_solve_wide_plain(gram)
+    exact = torch.linalg.solve(gram[valid, :k, :k].double(),
+                               gram[valid, :k, k].double())
+    kernel = kernels.spd_solve_wide(gram)[0][valid]
+    return (float((kernel.double() - exact).abs().max()),
+            float((plain[valid].double() - exact).abs().max()))
+
+
+def accuracy_text(errors: tuple[float, float]) -> str:
+    return (f"against float64 {errors[0]:.2e} (the plain blocked solve "
+            f"{errors[1]:.2e}, {errors[0] / errors[1]:.2f}x)")
 
 
 def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
@@ -1050,8 +1074,13 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                 errors[f"me_gram_wide_p{p}"] = (
                     float((gram - plain).abs().max()), worst["gram"])
             solved = check_solve_wide(gram, label)
+            accuracy = solve_accuracy(gram)
             if main_shape:
                 errors[f"spd_solve_wide_p{p}"] = solved[:2]
+                check(accuracy[0] <= WIDE_SOLVE_ACCURACY * accuracy[1],
+                      f"spd_solve_wide {label}: error against float64 "
+                      f"{accuracy[0]:.3e}, over {WIDE_SOLVE_ACCURACY}x the "
+                      f"plain blocked solve's {accuracy[1]:.3e}")
             coeffs = predictor_coefficients(img)
             for mask in ("me", "nvf"):
                 c = coeffs[p if mask == "me" else 3]
@@ -1085,14 +1114,15 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                   f"assembly kernel rel {assemble_err:.2e}, Gram rel against "
                   f"the plain lag form {worst['gram']:.2e}{direct_note}, two "
                   f"calls bit-identical; spd_solve_wide on the kernel Gram "
-                  f"{solve_text(solved)}; {masks}: ok", flush=True)
+                  f"{solve_text(solved)}, {accuracy_text(accuracy)}; "
+                  f"{masks}: ok", flush=True)
         k = p * p - 1
         for batch in (1, 8, 300):
-            solved = check_solve_wide(
-                random_spd_grams(batch, batch + p, k, ridge=1e5),
-                f"p={p} B={batch}")
+            systems = random_spd_grams(batch, batch + p, k, ridge=1e5)
+            solved = check_solve_wide(systems, f"p={p} B={batch}")
             print(f"[2] spd_solve_wide on {batch} random SPD systems of {k} "
-                  f"unknowns ({batch} blocks): {solve_text(solved)}: ok",
+                  f"unknowns ({batch} blocks): {solve_text(solved)}, "
+                  f"{accuracy_text(solve_accuracy(systems))}: ok",
                   flush=True)
         flat = kernels.me_gram_wide(torch.full((1, 40, 96), 77.0,
                                                device="cuda"), p)
@@ -3485,8 +3515,11 @@ def main() -> int:
           f"{identify_counts[('me', 3)]['spd_solve8']})", flush=True)
     for p in WIDE_P:
         name = f"spd_solve_wide_p{p}"
+        bound_ms, bound_by = kernel_bound("spd_solve_wide", "me", p)
         print(f"[4] spd_solve_wide p={p} ({p * p - 1} unknowns, B={BATCH}; "
-              f"device time a call, torch.profiler): {split[name]:.4f} ms "
+              f"device time a call, torch.profiler): {split[name]:.4f} ms, "
+              f"its bound {bound_ms:.7f} ms ({bound_by}), the library pair "
+              f"{times[name][2]:.4f} ms "
               f"(CUDA events with the wrapper {times[name][0]:.4f} ms; "
               f"launches on the main path "
               f"{wide_counts[p]['me']['spd_solve_wide']}, in identification "

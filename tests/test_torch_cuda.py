@@ -17,9 +17,10 @@ coefficients and valid flags equal its plain version's, bit for bit (the
 same rounded operations in the same order); the wide solve kernel's
 coefficients are within 1e-4 of its plain version's (the wide solves'
 bound: its 8-term sums stand for the plain version's matmuls, another
-order) and its valid flags equal. The embed finish's pixels and
-strengths equal its plain version's, bit for bit, NaN equal to NaN (the
-same rounded operations in the same order). The video pipeline's
+order) and its valid flags equal, its error against a float64 solve of
+the frames' systems at most twice the plain blocked solve's. The embed
+finish's pixels and strengths equal its plain version's, bit for bit, NaN
+equal to NaN (the same rounded operations in the same order). The video pipeline's
 pinned-buffer staging: its marked lumas equal a synchronous embed of the
 same frames byte for byte.
 """
@@ -255,6 +256,37 @@ def test_spd_solve_wide_matches_plain_on_card(device, p, case):
     coefficients, valid = check_solve_wide(mixed.contiguous())
     assert valid.tolist() == [True, False, False]
     assert not coefficients[1:].any()
+
+
+@pytest.mark.parametrize("p", [5, 7, 9])
+def test_spd_solve_wide_accuracy_on_card(device, p):
+    """The wide solve kernel on the wide Grams of 8 frames of 1080 x 1920,
+    against a float64 ``torch.linalg.solve`` of the same systems: its
+    largest error at most twice the plain blocked f32 solve's (TF32 off).
+    A schedule of its own may not trade accuracy for speed; this check
+    does not depend on the order of the sums."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = p * p - 1
+    frames, _, _ = make_inputs((8, 1080, 1920), device)
+    gram = kernels.me_gram_wide(frames, p)
+    exact = torch.linalg.solve(gram[:, :k, :k].double(),
+                               gram[:, :k, k].double())
+    got, valid = kernels.spd_solve_wide(gram)
+    plain, _ = kernels.spd_solve_wide_plain(gram)
+    assert valid.all()
+    kernel_err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert kernel_err <= 2 * plain_err, (kernel_err, plain_err)
+
+
+@pytest.mark.parametrize("shape", [(8, 1080, 1920), (3, 37, 83),
+                                   (2, 64, 96)])
+def test_spd_solve8_keeps_its_bits_on_card(device, shape):
+    """``spd_solve8`` shares ``csrc/spd_solve.cu`` with the wide solve:
+    on the 3x3 Grams of seeded frames it stays bit-identical to its plain
+    version, the unrolled (B,)-vector Cholesky, as do two calls."""
+    frames, _, _ = make_inputs(shape, device)
+    check_solve(kernels.me_gram(frames))
 
 
 @pytest.mark.parametrize("shape", [(3, 40, 96), (3, 1080, 1920)])

@@ -71,8 +71,8 @@ def jax_solve(gram: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 def grams(case: str, p: int) -> np.ndarray:
     """A batch of (k+1, k+1) Grams: the JAX Grams of seeded frames of
     40 x 96 or of the lag form's least geometry (6h x 6h), seeded random
-    SPD systems (B = 1, 8), or a good frame, a constant frame and another
-    frame."""
+    SPD systems (B = 1, 8, and 300, more systems than an H100 has SMs), or
+    a good frame, a constant frame and another frame."""
     h, k = p // 2, p * p - 1
     if case == "40x96":
         return jax_gram(make_frames((2, 40, 96), seed=p), p)
@@ -87,7 +87,8 @@ def grams(case: str, p: int) -> np.ndarray:
     return jax_gram(stack, p)
 
 
-CASES = ("40x96", "6h", "random B=1", "random B=8", "constant frame")
+CASES = ("40x96", "6h", "random B=1", "random B=8", "random B=300",
+         "constant frame")
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -12,8 +12,8 @@ step that ``chip_smoke.py`` phase 4 times: 20 warm-up steps, then
 warm-up steps. Prints per step: wall ms (host clock around the
 synchronised window), device busy ms (the sum of the kernels' device time;
 one stream, so they do not overlap), the busy share, the number of device
-kernels, and the kernels that take the most device time. Needs a GPU;
-imports nothing of JAX.
+kernels, and the kernels that take the most device time, each with its
+share of the busy time. Needs a GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -83,7 +83,8 @@ def profile(p: int, impl: str, step, warmup: int, top: int) -> None:
         by_name.setdefault(event.name, []).append(event.device_time_total)
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
     for name, times in ranked:
-        print(f"    {sum(times) / 1e3 / STEPS:8.4f} ms/step "
+        ms = sum(times) / 1e3 / STEPS
+        print(f"    {ms:8.4f} ms/step ({100 * ms / busy_ms:4.1f}% of busy) "
               f"{len(times) / STEPS:5.0f} launches/step  {name[:100]}",
               flush=True)
 
