@@ -26,6 +26,13 @@ prints no result:
    each shape, against its plain version, the unrolled (B,)-vector
    Cholesky: coefficients and valid flags bit-identical, as are two calls
    (a difference up to 1e-6 relative would be reported and pass). The
+   3x3 Gram with that solve in its assembly kernel (``me_gram_solve8``)
+   at each shape, at B = 1 (1080 x 1920), 7 and 300, and on a constant
+   frame between two real ones: Gram, coefficients and valid flags
+   bit-identical to the two calls ``spd_solve8(me_gram(x))`` and to the
+   plain solve of its Gram, two calls too, and within 1e-4 of its plain
+   version ``spd_solve8_plain(me_gram_plain(x))`` (the plain Gram sums in
+   another order); the constant frame invalid with zero coefficients. The
    wide solve kernel (``spd_solve_wide``) at p = 5, 7, 9 on the kernel's
    wide Gram of each shape, on 1, 8 and 300 random SPD systems a k and on
    a batch of a frame's, a constant frame's and a zero Gram, against its
@@ -50,7 +57,9 @@ prints no result:
    7, 9), and its kernels' launch counters are zeroed just before it and
    read just after; the wide solve kernel must run once an analysis at ME
    P = 5, 7, 9 (embed, detect, identification) and never at P=3 or in an
-   NVF detect, and the embed finish once an embed.
+   NVF detect, every 3x3 Gram must solve in its assembly kernel
+   (``me_gram_solve8``, one count a Gram) and ``spd_solve8`` never run
+   alone on a single device, and the embed finish once an embed.
 4. Timing with CUDA events: the chained 8-frame ME embed+detect step at
    each P through the kernels and through the plain path
    (``impl="torch"``), each kernel beside its plain version (the wide Gram
@@ -65,7 +74,10 @@ prints no result:
    looped detects. Last, after every timing, the device time a call of the
    3x3 and the wide Gram's two kernels, of the 8x8 and the wide solve
    kernels, of the embed field and the detect tail at each mask and P, and
-   of the embed finish in both forms, from one ``torch.profiler`` session.
+   of the embed finish in both forms, from one ``torch.profiler`` session;
+   the 3x3 Gram with the solve in its assembly beside the two calls it
+   replaces, by CUDA events and device time; then each P's step's device
+   kernels and busy time, from a ``torch.profiler`` session of 5 steps.
 5. The entry points a user runs, at 1080 x 1920 (run before phase 4's
    profiler timings, since it times them too). The CLI: a PNG of
    ``make_cli_image()`` and a ``.dat`` of the engines' watermark in a
@@ -138,8 +150,10 @@ which replace XLA code of the JAX package's jitted step, not a Pallas
 kernel): launches in its part of
 phase 3 (0 for the standalone prediction error and NVF mask, which no main
 path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
-Gram; for the 8x8 solve, one a solve of a 3x3-predictor system, those of
-every phase-3 run: the p=3 path, the NVF detects at p = 5, 7, 9 and the
+Gram; for the 8x8 solve kernel alone, one a solve of a folded 3x3 Gram,
+phase 6's only; for its fused variant ``me_gram_solve8`` (the solve in the
+3x3 Gram's assembly kernel), one a single-device 3x3 Gram, those of every
+phase-3 run: the p=3 path, the NVF parts at p = 5, 7, 9 and the
 identification at p=3 and NVF; for the wide solve, one a solve at ME p,
 the main path's and identification's; for the embed finish, one a fused
 embed of any mask, p and form, every phase-3 run's), plus the launches of
@@ -147,14 +161,17 @@ phase 6's
 and phase 7's runs at that kernel, mask and p;
 ``max_abs_err`` of
 its main output against the plain version at 8 x 1080 x 1920 (the Gram,
-u_raw, the correlation formed from the detect sums, or the standalone op's
-output) and ``max_rel_err`` of
+u_raw, the correlation formed from the detect sums, the coefficients, or
+the standalone op's output) and ``max_rel_err`` of
 its reductions (of the output, relative to its largest value, for the
 standalone ops); ``ms`` and ``plain_ms`` per call from phase 4 (CUDA
 events around the wrapper; the embed finish's into the f32 frames at ME,
 its u8 form in ``u8_form``); for the 3x3 Gram, the embed field, the
-detect tail and the embed finish ``device_ms``, its kernels' device time a
-call from the profiler;
+detect tail, the embed finish and the fused solve ``device_ms``, its
+kernels' device time a call from the profiler (the fused solve's row also
+carries ``two_calls``, the ms and device ms of ``spd_solve8(me_gram(x))``,
+and ``solve_tail_device_ms``, what the solve adds to the assembly
+kernel);
 ``bound_ms``, the least time an H100 could take for the same work (the
 larger of the bytes the function must move over 3.35 TB/s and the flops it
 needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
@@ -438,17 +455,25 @@ KERNEL_SOURCES = {
     # not a Pallas kernel: XLA code of the JAX package's jitted step
     "spd_solve8": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
                    "watermarking_gpu_tpu/ops/me.py:279"),
+    # the same solve, in the 3x3 Gram's assembly kernel (row 13's fused
+    # variant)
+    "me_gram_solve8": ("watermarking_gpu_tpu_torch/csrc/me_gram.cu",
+                       "watermarking_gpu_tpu/ops/me.py:279"),
     "spd_solve_wide": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
                        "watermarking_gpu_tpu/ops/me.py:420"),
     "embed_finish": ("watermarking_gpu_tpu_torch/csrc/embed_finish.cu",
                      "watermarking_gpu_tpu/ops/pipelines.py:293"),
 }
-XLA_KERNELS = ("spd_solve8", "spd_solve_wide", "embed_finish")
+XLA_KERNELS = ("spd_solve8", "me_gram_solve8", "spd_solve_wide",
+               "embed_finish")
 STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
 # the 3x3 Gram's two kernels (the me_gram row), each with its count
 GRAM_KERNELS = ("me_gram_lags", "me_gram_assemble")
-# and the 8x8 solve of its system: every run of the 3x3 predictor
-GRAM_SOLVE_KERNELS = (*GRAM_KERNELS, "spd_solve8")
+# and the 8x8 solve of its system in the assembly kernel
+# (``me_gram_solve8``, its own count a call): every single-device run of
+# the 3x3 predictor; ``spd_solve8`` alone solves only the Gram that the
+# spatial routes fold (phase 6)
+GRAM_SOLVE_KERNELS = (*GRAM_KERNELS, "me_gram_solve8")
 # the embed field and the finish that scales it into the output: every
 # fused embed
 EMBED_KERNELS = ("embed_field", "embed_finish")
@@ -668,6 +693,43 @@ def check_solve(gram: torch.Tensor, label: str) -> tuple[float, float, bool]:
     return abs_err, rel, all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def check_gram_solve(img: torch.Tensor, label: str
+                     ) -> tuple[float, float, bool]:
+    """The 3x3 Gram with the solve in its assembly kernel
+    (``me_gram_solve8``): its Gram, coefficients and valid flags
+    bit-identical to the two-call form ``spd_solve8(me_gram(x))`` and to
+    the plain solve of its Gram, and two calls bit-identical; against its
+    plain version, ``spd_solve8_plain(me_gram_plain(x))`` (the Gram's sums
+    in another order, so not bit for bit), valid flags equal and
+    coefficients within WIDE_SOLVE_ATOL, the solves' bound for a frame's
+    Gram summed in another order. Returns (max abs err, max rel err)
+    against the plain version and whether it matched it bit for bit."""
+    gram, coeffs, valid = kernels.me_gram_solve8(img)
+    two_calls = kernels.me_gram(img)
+    check(torch.equal(gram, two_calls), f"me_gram_solve8 {label}: its Gram "
+          f"differs from me_gram's")
+    for name, want in (("spd_solve8(me_gram(x))", kernels.spd_solve8(
+            two_calls)), ("the plain solve of its Gram",
+                          kernels.spd_solve8_plain(gram))):
+        check(torch.equal(valid, want[1]) and torch.equal(coeffs, want[0]),
+              f"me_gram_solve8 {label}: not bit-identical to {name}: valid "
+              f"{valid.tolist()} vs {want[1].tolist()}, coefficients abs "
+              f"{float((coeffs - want[0]).abs().max()):.3e}")
+    again = kernels.me_gram_solve8(img)
+    check(all(torch.equal(g, a) for g, a in zip((gram, coeffs, valid),
+                                                again)),
+          f"me_gram_solve8 {label}: two calls differ")
+    plain_coeffs, plain_valid = kernels.spd_solve8_plain(
+        kernels.me_gram_plain(img))
+    abs_err = float((coeffs - plain_coeffs).abs().max())
+    scale = plain_coeffs.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    rel = float(((coeffs - plain_coeffs).abs() / scale).max())
+    check(torch.equal(valid, plain_valid) and abs_err <= WIDE_SOLVE_ATOL,
+          f"me_gram_solve8 {label}: against the plain Gram's solve valid "
+          f"{valid.tolist()} vs {plain_valid.tolist()}, abs {abs_err:.3e}")
+    return abs_err, rel, bool(torch.equal(coeffs, plain_coeffs))
+
+
 def solve_text(result: tuple[float, float, bool]) -> str:
     return ("bit-identical" if result[2] else
             f"abs {result[0]:.2e}, rel {result[1]:.2e}") + " (two calls too)"
@@ -741,6 +803,7 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         before = kernels.launch_counts()
         gram_errors = check_gram(img, label)
         solved = check_solve(kernels.me_gram(img), label)
+        fused = check_gram_solve(img, label)
         gram_plain = kernels.me_gram_plain(img)
         coeffs, valid = solve_coefficients_spd(gram_plain[:, :8, :8],
                                                gram_plain[:, :8, 8])
@@ -748,6 +811,7 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         if main_shape:
             errors["me_gram"] = gram_errors[:2]
             errors["spd_solve8"] = solved[:2]
+            errors["me_gram_solve8"] = fused[:2]
         worst_u = worst_sum = worst_corr = worst_detect = 0.0
         for mask in ("me", "nvf"):
             u_err, sums_err = check_embed_field(img, wm, coeffs, mask, 3,
@@ -779,7 +843,11 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
               f"two calls), sums rel "
               f"{worst_sum:.2e}; detect_partials sums rel "
               f"{worst_detect:.2e}, corr abs {worst_corr:.2e}; spd_solve8 "
-              f"on the kernel Gram {solve_text(solved)}; embed_finish at ME "
+              f"on the kernel Gram {solve_text(solved)}; me_gram_solve8 "
+              f"(the solve in the assembly kernel) bit-identical to "
+              f"spd_solve8(me_gram(x)) and to the plain solve of its Gram "
+              f"(two calls too), against the plain Gram's solve abs "
+              f"{fused[0]:.2e}, rel {fused[1]:.2e}; embed_finish at ME "
               f"and NVF, frame 1 invalid, into f32, RGB and u8 outputs, and "
               f"an NVF constant frame's NaN: bit-identical (two calls too): "
               f"ok", flush=True)
@@ -799,6 +867,27 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     print(f"[2] spd_solve8 on a frame's, a constant frame's and a zero "
           f"Gram: valid [True, False, False], the singular ones zeros; "
           f"{solve_text(solved)}: ok", flush=True)
+    # the fused form at B = 1, an odd batch and a batch of hundreds (grid
+    # (13, B)), and with a constant frame between real ones
+    gen = np.random.default_rng(7)
+    for shape in ((1, ROWS, COLS), (7, 200, 300), (300, 40, 96)):
+        img = torch.from_numpy(np.clip(gen.normal(128, 40, shape), 0, 255)
+                               .astype(np.float32)).cuda()
+        result = check_gram_solve(img, f"B={shape[0]}")
+        print(f"[2] me_gram_solve8 on {'x'.join(map(str, shape))}: "
+              f"bit-identical to spd_solve8(me_gram(x)) (two calls too), "
+              f"against the plain Gram's solve abs {result[0]:.2e}: ok",
+              flush=True)
+    mixed = frames_d[:3].clone()
+    mixed[1] = 77.0
+    check_gram_solve(mixed, "constant frame")
+    _, coeffs, valid = kernels.me_gram_solve8(mixed)
+    check(valid.tolist() == [True, False, True] and not coeffs[1].any(),
+          f"me_gram_solve8: a constant frame came back {valid.tolist()}, "
+          f"{coeffs[1].tolist()}")
+    print("[2] me_gram_solve8 on a constant frame between two real ones: "
+          "valid [True, False, True], its coefficients zeros, bit-identical "
+          "to spd_solve8(me_gram(x)): ok", flush=True)
     return errors
 
 
@@ -836,6 +925,10 @@ def phase_main_path(frames: np.ndarray) -> dict[str, dict]:
           f"a kernel was never launched on the main path: {part}")
     check(counts["spd_solve_wide"] == 0,
           f"the wide solve ran at p=3: {counts}")
+    check(counts["spd_solve8"] == 0 and counts["me_gram_solve8"]
+          == counts["me_gram_assemble"] == counts["me_gram_lags"],
+          f"a single-device 3x3 Gram without its solve, or the solve kernel "
+          f"alone: {counts}")
     for mask, (marked, strength, corr, clean) in results.items():
         ref = JAX_REFERENCE[mask]
         check(marked.shape == frames_d.shape and marked.dtype == torch.float32
@@ -911,6 +1004,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Host milliseconds per call of ``fn``: the host clock around
+    ``iters`` calls with no synchronize between them, after one. The card
+    runs behind without pacing the host while its launch queue has room
+    (``iters`` calls of a few launches each), so this is what the host
+    spends to enqueue a call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds * 1e3 / iters
+
+
 def phase_timing(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     sf = strength_factor(PSNR)
 
@@ -963,7 +1073,44 @@ def phase_timing(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         print(f"[4] {label} at 8x1080x1920: kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms", flush=True)
     times["spd_solve8"] = solve_times(kernels.me_gram(frames_d))
+    times.update(gram_solve_times(frames_d))
     return times
+
+
+def gram_solve_times(frames_d: torch.Tensor) -> dict:
+    """ms a call of the 3x3 Gram with the solve in its assembly kernel
+    (``me_gram_solve8``) beside the two calls it replaces,
+    ``spd_solve8(me_gram(x))``, CUDA events in turns fused, two calls, two
+    calls, fused (the least of each pair), and of its plain version
+    ``spd_solve8_plain(me_gram_plain(x))``: {"me_gram_solve8": (fused,
+    plain), "me_gram_solve8_two_calls": two calls}."""
+    fns = {"fused": lambda: kernels.me_gram_solve8(frames_d),
+           "two calls": lambda: kernels.spd_solve8(kernels.me_gram(frames_d))}
+    runs: dict[str, list[float]] = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
+        runs[name].append(cuda_ms(fns[name], iters=50))
+    plain = cuda_ms(lambda: kernels.spd_solve8_plain(
+        kernels.me_gram_plain(frames_d)), iters=10)
+    fused, two = min(runs["fused"]), min(runs["two calls"])
+    gram = kernels.me_gram(frames_d)
+    host = {"fused": [], "two calls": [], "me_gram": [], "spd_solve8": []}
+    fns.update(me_gram=lambda: kernels.me_gram(frames_d),
+               spd_solve8=lambda: kernels.spd_solve8(gram))
+    for name in (*host, *reversed(host)):
+        host[name].append(host_ms(fns[name]))
+    host = {name: min(ms) for name, ms in host.items()}
+    print(f"[4] me_gram_solve8 (the 3x3 Gram with the 8x8 solve in its "
+          f"assembly, B={frames_d.shape[0]}): {fused:.4f} ms a call (runs "
+          f"{runs['fused'][0]:.4f}, {runs['fused'][1]:.4f}); the two calls "
+          f"spd_solve8(me_gram(x)) {two:.4f} ms (runs "
+          f"{runs['two calls'][0]:.4f}, {runs['two calls'][1]:.4f}); plain "
+          f"{plain:.4f} ms; host ms a call (enqueue, host_ms): fused "
+          f"{host['fused']:.4f}, two calls {host['two calls']:.4f} "
+          f"(me_gram {host['me_gram']:.4f}, spd_solve8 "
+          f"{host['spd_solve8']:.4f})", flush=True)
+    return {"me_gram_solve8": (fused, plain),
+            "me_gram_solve8_two_calls": two,
+            "me_gram_solve8_host": host}
 
 
 def library_solve(gram: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1168,6 +1315,10 @@ def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
           f"embed finish not once an embed): {counts}")
     # one wide solve an ME analysis (the embed and two detects), none in
     # the NVF part (its 3x3 predictor)
+    check(counts["nvf"]["spd_solve8"] == 0 and counts["nvf"]["me_gram_solve8"]
+          == counts["nvf"]["me_gram_assemble"],
+          f"p={p}: the NVF part's 3x3 Grams did not solve in their assembly: "
+          f"{counts['nvf']}")
     check(counts["me"]["spd_solve_wide"] == counts["me"]["wide_assemble"] == 3
           and counts["nvf"]["spd_solve_wide"] == 0,
           f"p={p}: wide solves {counts['me']['spd_solve_wide']} (ME), "
@@ -1342,9 +1493,14 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     coeffs = predictor_coefficients(frames_d)
     gram = kernels.me_gram(frames_d)
     fns = [lambda: kernels.me_gram(frames_d),
-           lambda: kernels.spd_solve8(gram)]
-    patterns = {name: f"{name}_kernel" for name in (*GRAM_KERNELS,
-                                                     "spd_solve8")}
+           lambda: kernels.spd_solve8(gram),
+           lambda: kernels.me_gram_solve8(frames_d)]
+    # the lag kernel serves both forms of the 3x3 Gram alike; the assembly
+    # kernel without the solve and with it
+    patterns = {"me_gram_lags": "me_gram_lags_kernel",
+                "me_gram_assemble": "me_gram_assemble_kernel<false>",
+                "me_gram_assemble_solve8": "me_gram_assemble_kernel<true>",
+                "spd_solve8": "spd_solve8_kernel"}
     for p in WIDE_P:
         fns.append(lambda p=p: kernels.me_gram_wide(frames_d, p))
         for kernel in WIDE_GRAM_KERNELS:
@@ -1377,7 +1533,36 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         patterns[name] = f"embed_finish_kernel<{dtype}"
     split = device_ms(fns, patterns)
     split["me_gram"] = sum(split[name] for name in GRAM_KERNELS)
+    split["me_gram_solve8"] = (split["me_gram_lags"]
+                               + split["me_gram_assemble_solve8"])
     return split
+
+
+def step_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor, p: int,
+                 steps: int = 5) -> tuple[float, float, float]:
+    """(device kernels, device busy ms, host ms) a step of phase 4's
+    chained 8-frame ME embed+detect step at window p through the kernels:
+    the first two from torch.profiler's kernel records over ``steps``
+    steps after 3 (the records it drops make a count low, never high), the
+    host's enqueue time from ``host_ms`` over 20 steps."""
+    sf = strength_factor(PSNR)
+    state = {"frames": frames_d}
+
+    def step():
+        marked, _ = batch_embed(state["frames"], state["frames"], wm_d, sf,
+                                "me", p=p, impl="cuda")
+        batch_detect(marked, wm_d, "me", p=p, impl="cuda")
+        state["frames"] = marked
+    host = host_ms(step, iters=20)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    records = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(records) / steps,
+            sum(e.device_time_total for e in records) / 1e3 / steps, host)
 
 
 def halo_device_split(frames_d: torch.Tensor, wm_d: torch.Tensor,
@@ -1815,6 +2000,11 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
         check(counts[(mask, p)]["detect_many"] > 0
               and all(counts[(mask, p)][n] > 0 for n in grams),
               f"{label}: a kernel was never launched: {counts[(mask, p)]}")
+        check(counts[(mask, p)]["spd_solve8"] == 0
+              and counts[(mask, p)]["me_gram_solve8"]
+              == counts[(mask, p)]["me_gram_assemble"],
+              f"{label}: a 3x3 Gram without its solve, or the solve kernel "
+              f"alone: {counts[(mask, p)]}")
         # one wide solve an analysis (a batch), at ME p > 3 only
         check(counts[(mask, p)]["spd_solve_wide"]
               == (counts[(mask, p)]["wide_assemble"] if wide else 0),
@@ -2762,7 +2952,7 @@ def add_counts(total: dict, counts: dict, mask: str, p: int) -> None:
             continue
         if kernel in GRAM_KERNELS:
             name = "me_gram"
-        elif kernel in ("spd_solve8", "embed_finish"):
+        elif kernel in ("spd_solve8", "me_gram_solve8", "embed_finish"):
             name = kernel
         elif kernel == "spd_solve_wide":
             name = f"spd_solve_wide_p{p}"
@@ -3387,6 +3577,9 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
     * the 8x8 solve: it reads what a Cholesky solve of each frame's system
       needs, Rx's lower triangle (36) and rx (8), and writes 8
       coefficients and a valid byte; SOLVE_OPS operations a system;
+    * the 3x3 Gram with the solve in its assembly: the Gram's frames read,
+      its Gram, 8 coefficients and a valid byte written a frame; the
+      Gram's 13 lag products a pixel and SOLVE_OPS a frame;
     * the wide solve: likewise Rx's lower triangle (k(k + 1)/2) and rx (k)
       read, k coefficients and a valid byte written; ``cholesky_ops(k)``
       operations a system;
@@ -3409,6 +3602,9 @@ def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
                      4 * elems)
     if kernel == "spd_solve8":
         return bound(BATCH * (4 * (36 + 8) + 4 * 8 + 1), BATCH * SOLVE_OPS)
+    if kernel == "me_gram_solve8":
+        return bound(frame_bytes + BATCH * (4 * 81 + 4 * 8 + 1),
+                     2 * 13 * pixels + BATCH * SOLVE_OPS)
     if kernel == "spd_solve_wide":
         return bound(BATCH * (4 * (k * (k + 1) // 2 + k) + 4 * k + 1),
                      BATCH * cholesky_ops(k))
@@ -3510,9 +3706,28 @@ def main() -> int:
           f"{counts['all']['me_gram_assemble']})", flush=True)
     print(f"[4] spd_solve8 (device time a call, torch.profiler): "
           f"{split['spd_solve8']:.4f} ms (CUDA events with the wrapper "
-          f"{times['spd_solve8'][0]:.4f} ms; launches on the p=3 main path "
-          f"{counts['all']['spd_solve8']}, in identification at ME p=3 "
-          f"{identify_counts[('me', 3)]['spd_solve8']})", flush=True)
+          f"{times['spd_solve8'][0]:.4f} ms; launches on the folded Grams "
+          f"of phase 6 {mesh_launches.get('spd_solve8', 0)}, on phase 3's "
+          f"single-device paths {counts['all']['spd_solve8']})", flush=True)
+    print(f"[4] me_gram_solve8 (device time a call, torch.profiler): lag "
+          f"kernel {split['me_gram_lags']:.4f} ms + assembly kernel with the "
+          f"solve {split['me_gram_assemble_solve8']:.4f} ms = "
+          f"{split['me_gram_solve8']:.4f} ms, against the two calls' "
+          f"{split['me_gram']:.4f} + {split['spd_solve8']:.4f} = "
+          f"{split['me_gram'] + split['spd_solve8']:.4f} ms (the assembly "
+          f"alone {split['me_gram_assemble']:.4f}); CUDA events with the "
+          f"wrapper {times['me_gram_solve8'][0]:.4f} ms against "
+          f"{times['me_gram_solve8_two_calls']:.4f} ms; launches on the p=3 "
+          f"main path {counts['all']['me_gram_solve8']} calls, in "
+          f"identification at ME p=3 "
+          f"{identify_counts[('me', 3)]['me_gram_solve8']}", flush=True)
+    for p in ALL_P:
+        n_kernels, busy, host = step_kernels(frames_d, wm_d, p)
+        print(f"[4] p={p} ME embed+detect step through the kernels: "
+              f"{n_kernels:.0f} device kernels a step, device busy "
+              f"{busy:.4f} ms a step (torch.profiler, 5 steps), host "
+              f"{host:.4f} ms a step (enqueue, host_ms; {power})",
+              flush=True)
     for p in WIDE_P:
         name = f"spd_solve_wide_p{p}"
         bound_ms, bound_by = kernel_bound("spd_solve_wide", "me", p)
@@ -3569,6 +3784,20 @@ def main() -> int:
                            sum(run["spd_solve8"] for run in solve_runs),
                            errors["spd_solve8"], times["spd_solve8"],
                            split))
+    # row 13's fused variant: the Gram with the solve in its assembly, one
+    # count a call, beside the two calls it replaces
+    fused = kernel_row("me_gram_solve8", "me_gram_solve8", "me", 3,
+                       sum(run["me_gram_solve8"] for run in solve_runs),
+                       errors["me_gram_solve8"],
+                       (*times["me_gram_solve8"], None), split)
+    fused["two_calls"] = {
+        "ms": times["me_gram_solve8_two_calls"],
+        "device_ms": split["me_gram"] + split["spd_solve8"],
+        "host_ms": times["me_gram_solve8_host"]["two calls"]}
+    fused["host_ms"] = times["me_gram_solve8_host"]["fused"]
+    fused["solve_tail_device_ms"] = (split["me_gram_assemble_solve8"]
+                                     - split["me_gram_assemble"])
+    rows.append(fused)
     for kernel in ("embed_field", "detect_partials"):
         nvf_launches = counts["nvf"][kernel]
         rows.append(kernel_row(kernel, kernel, "me", 3,

@@ -14,7 +14,9 @@ the NVF mask rtol 1e-5 + atol 1e-3 (their terms round identically); between
 the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
 its fused NVF kernels) and strengths rel 2e-4. The 8x8 solve kernel's
 coefficients and valid flags equal its plain version's, bit for bit (the
-same rounded operations in the same order); the wide solve kernel's
+same rounded operations in the same order), and so do the Gram's and the
+solve's of ``me_gram_solve8``, whose assembly kernel solves with the same
+device function, against ``spd_solve8(me_gram(x))``; the wide solve kernel's
 coefficients are within 1e-4 of its plain version's (the wide solves'
 bound: its 8-term sums stand for the plain version's matmuls, another
 order) and its valid flags equal, its error against a float64 solve of
@@ -287,6 +289,76 @@ def test_spd_solve8_keeps_its_bits_on_card(device, shape):
     version, the unrolled (B,)-vector Cholesky, as do two calls."""
     frames, _, _ = make_inputs(shape, device)
     check_solve(kernels.me_gram(frames))
+
+
+def check_gram_solve(frames):
+    """``me_gram_solve8`` on (B, H, W) frames against its two-call form
+    ``spd_solve8(me_gram(x))``, bit for bit (Gram, coefficients, valid),
+    and against the plain solve of its Gram; a lag kernel, an assembly
+    kernel and one count of its own a call, no ``spd_solve8`` launch; two
+    calls bit-identical. Returns (coefficients, valid)."""
+    before = kernels.launch_counts()
+    gram, coefficients, valid = kernels.me_gram_solve8(frames)
+    after = kernels.launch_counts()
+    assert after == {**before,
+                     "me_gram_lags": before["me_gram_lags"] + 1,
+                     "me_gram_assemble": before["me_gram_assemble"] + 1,
+                     "me_gram_solve8": before["me_gram_solve8"] + 1}
+    assert coefficients.shape == (frames.shape[0], 8)
+    assert valid.dtype == torch.bool and valid.shape == (frames.shape[0],)
+    want_gram = kernels.me_gram(frames)
+    assert torch.equal(gram, want_gram)
+    want = kernels.spd_solve8(want_gram)
+    assert torch.equal(valid, want[1])
+    assert torch.equal(coefficients, want[0]), float(
+        (coefficients - want[0]).abs().max())
+    plain = kernels.spd_solve8_plain(gram)
+    assert torch.equal(valid, plain[1]) and torch.equal(coefficients,
+                                                        plain[0])
+    again = kernels.me_gram_solve8(frames)
+    assert all(torch.equal(g, a) for g, a in
+               zip((gram, coefficients, valid), again))
+    return coefficients, valid
+
+
+# 8 frames of 1080p (the main path's), one frame, an odd batch and a batch
+# of hundreds (a service's, the calibration tool's): grid (13, B)
+@pytest.mark.parametrize("shape", [(8, 1080, 1920), (1, 1080, 1920),
+                                   (7, 200, 300), (300, 40, 96)])
+def test_me_gram_solve8_matches_two_calls_on_card(device, shape):
+    frames, _, _ = make_inputs(shape, device)
+    coefficients, valid = check_gram_solve(frames)
+    assert valid.all() and coefficients.abs().sum() > 0
+
+
+@pytest.mark.parametrize("shape", [(3, 1080, 1920), (5, 40, 96)])
+def test_me_gram_solve8_flags_a_constant_frame_on_card(device, shape):
+    """A constant frame between real ones: exactly singular, so invalid
+    with zero coefficients, as the two-call form and the plain solve give
+    it; the others solve."""
+    frames, _, _ = make_inputs(shape, device)
+    frames[1] = 77.0
+    coefficients, valid = check_gram_solve(frames)
+    assert valid.tolist() == [i != 1 for i in range(shape[0])]
+    assert not coefficients[1].any()
+
+
+def test_me_gram_solve8_on_two_streams_at_once(device):
+    """Two calls on two streams at once, each on its own batch, each with
+    its own counter: the bits of the same calls one after the other."""
+    first, _, _ = make_inputs((8, 1080, 1920), device, seed=1)
+    second, _, _ = make_inputs((5, 720, 1280), device, seed=2)
+    serial = [kernels.me_gram_solve8(x) for x in (first, second)]
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    torch.cuda.synchronize()
+    for _ in range(10):
+        results = []
+        for stream, x in zip(streams, (first, second)):
+            with torch.cuda.stream(stream):
+                results.append(kernels.me_gram_solve8(x))
+        torch.cuda.synchronize()
+        for got, want in zip(results, serial):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("shape", [(3, 40, 96), (3, 1080, 1920)])
@@ -609,8 +681,10 @@ def test_engine_runs_on_card(device, p):
     # ME embed, detect and detect_many at p=5 (the wide solve)
     assert counts.pop("spd_solve_wide") == (3 if p > 3 else 0)
     # ME embed, detect and detect_many, NVF detect at p=3; NVF detect alone
-    # at p=5 (its 3x3 predictor)
-    assert counts["spd_solve8"] == (4 if p == 3 else 1)
+    # at p=5 (its 3x3 predictor): the Gram with the solve in its assembly,
+    # never the solve kernel alone on a single device
+    assert counts["me_gram_solve8"] == (4 if p == 3 else 1)
+    assert counts.pop("spd_solve8") == 0
     assert counts.pop("prediction_error") == counts.pop("nvf_mask") == 0
     assert all(n > 0 for n in counts.values())
 

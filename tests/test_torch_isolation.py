@@ -173,6 +173,7 @@ def test_cpu_tensors_launch_no_kernel():
             kernels.nvf_mask(frames, p)
     assert kernels.launch_counts() == {"me_gram_lags": 0,
                                        "me_gram_assemble": 0,
+                                       "me_gram_solve8": 0,
                                        "wide_lag_strips": 0,
                                        "wide_assemble": 0,
                                        "embed_field": 0,
@@ -192,6 +193,8 @@ def test_wrappers_raise_on_other_devices():
         kernels.me_gram(frames)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.me_gram_lags(frames)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.me_gram_solve8(frames)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.me_gram_assemble(torch.zeros(1, 13, 1, 1, device="meta"),
                                  frames)

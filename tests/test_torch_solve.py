@@ -1,6 +1,7 @@
 """The 3x3 predictor's solve (``ops/cuda/solve.py::spd_solve8``) against the
 JAX package's ``ops/me.py::solve_coefficients_spd``, and the kernel routes
-that run it.
+that run it: alone on the spatial routes' folded Gram, inside the Gram's
+assembly (``me_gram_solve8``) on a single device.
 
 The same numpy frames, made from a seed, give the Grams. On CPU tensors the
 wrapper runs its plain version, the unrolled (B,)-vector Cholesky
@@ -131,35 +132,58 @@ class CountingSolve:
         return kernels.spd_solve8(gram)
 
 
+class CountingGramSolve:
+    """Stands in for ``me_gram_solve8`` in a module and counts its calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, image):
+        self.calls += 1
+        gram, coefficients, valid = kernels.me_gram_solve8(image)
+        assert gram.shape[1:] == (9, 9) and coefficients.shape[1:] == (8,)
+        return gram, coefficients, valid
+
+
 @pytest.fixture
 def counting(monkeypatch):
     solve = CountingSolve()
-    monkeypatch.setattr(pipelines, "spd_solve8", solve)
     monkeypatch.setattr(spatial, "spd_solve8", solve)
     return solve
 
 
+@pytest.fixture
+def counting_fused(monkeypatch):
+    solve = CountingGramSolve()
+    monkeypatch.setattr(pipelines, "me_gram_solve8", solve)
+    return solve
+
+
 @pytest.mark.parametrize("mask_type,p", [("me", 3), ("nvf", 3), ("nvf", 5)])
-def test_fused_analysis_solves_through_spd_solve8(counting, mask_type, p):
+def test_fused_analysis_solves_through_spd_solve8(counting_fused, counting,
+                                                  mask_type, p):
     """The kernel route's detect, embed and identification at a 3x3
     predictor (ME p=3; NVF detection at every p) each solve once through
-    ``spd_solve8``; the plain route never does. Correlations within 2e-4
-    of the JAX package's detect on the same frames."""
+    ``spd_solve8``'s device function inside the Gram's assembly
+    (``me_gram_solve8``), and never through the ``spd_solve8`` kernel
+    alone; the plain route never does either. Correlations within 2e-4 of
+    the JAX package's detect on the same frames."""
     frames = make_frames((2, 40, 96))
     wm = np.random.default_rng(5).normal(size=(40, 96)).astype(np.float32)
     t_frames, t_wm = torch.from_numpy(frames), torch.from_numpy(wm)
     corr = pipelines.detect_pipeline(t_frames, t_wm, mask_type, p=p,
                                      impl="cuda")
-    assert counting.calls == 1
+    assert counting_fused.calls == 1
     pipelines.embed_pipeline(t_frames, t_frames, t_wm, 2.55, mask_type, p=p,
                              impl="cuda")
-    assert counting.calls == (2 if mask_type == "me" else 1)
-    calls = counting.calls
+    assert counting_fused.calls == (2 if mask_type == "me" else 1)
+    calls = counting_fused.calls
     pipelines.detect_many_pipeline(t_frames, torch.stack([t_wm, -t_wm]),
                                    mask_type, p=p, impl="cuda")
-    assert counting.calls == calls + 1
+    assert counting_fused.calls == calls + 1
     pipelines.detect_pipeline(t_frames, t_wm, mask_type, p=p, impl="torch")
-    assert counting.calls == calls + 1
+    assert counting_fused.calls == calls + 1
+    assert counting.calls == 0
     want = np.asarray(jdetect(jnp.asarray(frames), jnp.asarray(wm),
                               mask_type, p=p, impl="xla"))
     np.testing.assert_allclose(corr.numpy(), want, atol=2e-4, rtol=0)
@@ -171,20 +195,22 @@ def test_spatial_kernel_route_solves_once_a_space_row(counting, mask_type,
     """``spatial._solve_cuda`` at a 3x3 predictor solves the folded Gram
     once a space row through ``spd_solve8``: a spatial detect on 1 x 4
     shards once, a hybrid embed then detect on 2 x 2 twice each (ME) or
-    the detect alone (NVF); the plain route never does."""
+    the detect alone (NVF); the single-device detect beside it solves in
+    its Gram's assembly instead, and the plain route never does."""
     frames = make_frames((4, 32, 96))
     wm = np.random.default_rng(6).normal(size=(32, 96)).astype(np.float32)
     t_frames, t_wm = torch.from_numpy(frames), torch.from_numpy(wm)
     single = pipelines.detect_pipeline(t_frames[0], t_wm, mask_type, p=p)
+    assert counting.calls == 0
     mesh = tp.make_mesh(1, 4, devices=["cpu"] * 4)
     corr = tp.make_spatial_detect(mesh, mask_type, p=p)(t_frames[0], t_wm)
-    assert counting.calls == 2     # the single-device detect, then one
+    assert counting.calls == 1
     assert abs(float(corr) - float(single)) <= 1e-4
     hybrid = tp.make_mesh(2, 2, devices=["cpu"] * 4)
     marked, _ = tp.make_hybrid_embed(hybrid, mask_type, 2.55, p=p)(
         t_frames, t_frames, t_wm)
     tp.make_hybrid_detect(hybrid, mask_type, p=p)(marked.gather(), t_wm)
-    assert counting.calls == 2 + (4 if mask_type == "me" else 2)
+    assert counting.calls == 1 + (4 if mask_type == "me" else 2)
     calls = counting.calls
     tp.make_spatial_detect(mesh, mask_type, p=p, impl="torch")(t_frames[0],
                                                                t_wm)

@@ -140,12 +140,12 @@ def lag_route(library, frames: torch.Tensor, strip: int):
         check(library.wm_me_gram_lags(
             frames.data_ptr(), tables["lag_index"].data_ptr(),
             sums.data_ptr(), batch, rows, cols, strip, me.GRAM_BLOCK_COLS,
-            stream()), "wm_me_gram_lags")
+            0, 0, None, stream()), "wm_me_gram_lags")
         check(library.wm_me_gram_assemble(
             frames.data_ptr(), sums.data_ptr(), tables["lags"].data_ptr(),
             tables["pair_start"].data_ptr(), tables["pairs"].data_ptr(),
-            out.data_ptr(), batch, rows, cols, n_strips * n_blocks,
-            stream()), "wm_me_gram_assemble")
+            out.data_ptr(), batch, rows, cols, n_strips * n_blocks, 0, 0,
+            None, None, None, stream()), "wm_me_gram_assemble")
         return out
     return gram
 

@@ -67,8 +67,8 @@ def build_all(sources: dict[str, str], out: Path) -> dict[str, ctypes.CDLL]:
     nvcc = build.find_nvcc()
     processes = {
         name: subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-shared", "-o",
-             str(out / f"{name}.so"), source],
+            [nvcc, *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC_DIR),
+             "-o", str(out / f"{name}.so"), source],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, source in sources.items()}
     libraries = {}

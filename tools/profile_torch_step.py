@@ -13,7 +13,10 @@ warm-up steps. Prints per step: wall ms (host clock around the
 synchronised window), device busy ms (the sum of the kernels' device time;
 one stream, so they do not overlap), the busy share, the number of device
 kernels, and the kernels that take the most device time, each with its
-share of the busy time. Needs a GPU; imports nothing of JAX.
+share of the busy time; and, before the profiler starts, the host's ms to
+enqueue a step (the host clock around 20 steps with no synchronize
+between them: the card runs behind without pacing the host while its
+launch queue has room). Needs a GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -59,10 +62,22 @@ def identify_step(p: int, impl: str, frames: torch.Tensor,
     return lambda: engine.detect_many(frames, bank)
 
 
+def host_ms(step, steps: int = 20) -> float:
+    """Host ms to enqueue a step, over ``steps`` steps after a
+    synchronize."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(steps):
+        step()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds * 1e3 / steps
+
+
 def profile(p: int, impl: str, step, warmup: int, top: int) -> None:
     for _ in range(warmup):
         step()
-    torch.cuda.synchronize()
+    host = host_ms(step)
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -77,7 +92,9 @@ def profile(p: int, impl: str, step, warmup: int, top: int) -> None:
     print(f"p={p} impl={impl}: wall {wall_ms:.3f} ms/step "
           f"({BATCH * 1e3 / wall_ms:.1f} fps), device busy {busy_ms:.3f} "
           f"ms/step ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{len(kernels) / STEPS:.0f} device kernels/step", flush=True)
+          f"{len(kernels) / STEPS:.0f} device kernels/step; host "
+          f"{host:.3f} ms/step to enqueue (20 steps, no synchronize)",
+          flush=True)
     by_name: dict[str, list[float]] = {}
     for event in kernels:
         by_name.setdefault(event.name, []).append(event.device_time_total)

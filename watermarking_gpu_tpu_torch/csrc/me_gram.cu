@@ -29,6 +29,12 @@
 //    R_d from the image at clamped indices, adds the lag kernel's sums up
 //    in a fixed order and writes every pair of its lag into both triangles
 //    of the Gram.
+// 3. On a single device the assembly also solves (me_gram_assemble_kernel
+//    <true>, ops/cuda/me_kernel.py::me_gram_solve8): the last block of each
+//    frame runs the 3x3 predictor's 8x8 solve (spd_solve8.cuh) on the
+//    finished Gram, in place of a launch of spd_solve8_kernel, as the JAX
+//    package's jitted step fuses ops/me.py::solve_coefficients_spd into
+//    the XLA code after its Gram.
 //
 // What bounds it on an H100: device memory. 13 FMAs a pixel, 0.22 G at
 // 1080p x 8 (about 6.4 us at the card's f32 rate), against 66 MB read once
@@ -66,6 +72,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "spd_solve8.cuh"
 
 namespace {
 
@@ -159,10 +166,12 @@ struct Lags {
 // with dr > 0, through a ring of kBuffers chunks of kChunk tile rows in
 // shared memory, copied kBuffers - 1 chunks ahead of the one it reads.
 // A frame holds top + rows + bottom rows, its owned row 0 at row top.
+// done, where not null, is the assembly's count of finished blocks a frame
+// (me_gram_assemble_kernel<true>): frame b's first block zeroes done[b].
 __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
     const float* __restrict__ img, const int* __restrict__ lag_index,
     float* __restrict__ sums, int rows, int cols, int strip, bool vec,
-    int top, int bottom) {
+    int top, int bottom, int* __restrict__ done) {
   __shared__ __align__(16) float tile[kBuffers][kChunk][kTileW];
   __shared__ float per_warp[kWarps][kLags];
   const int b = blockIdx.z;
@@ -182,6 +191,10 @@ __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
   // this grid before it reads the sums
   asm volatile("griddepcontrol.launch_dependents;");
 #endif
+  // the assembly reads it after griddepcontrol.wait, which makes this
+  // grid's writes visible
+  if (done != nullptr && blockIdx.x == 0 && s == 0 && threadIdx.x == 0)
+    done[b] = 0;
 
   // zeros where no copy lands (chunks past column cols + 1)
   for (int i = threadIdx.x; i < kBuffers * kChunk * kTileW; i += kThreads)
@@ -254,15 +267,41 @@ __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
   }
 }
 
+// A float from L2, as __ldcg reads it (no L1 line that another block's
+// write would leave stale), but volatile and a memory clobber, so that the
+// compiler keeps it after the __threadfence() before it.
+__device__ __forceinline__ float load_l2(const float* at) {
+  float value;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(value) : "l"(at)
+               : "memory");
+  return value;
+}
+
 // One block per (lag, image). lags holds (dr, dc) per lag; pairs, grouped by
 // lag from pair_start[l] to pair_start[l + 1], hold (row, column, ar, ai),
 // ai = ac + 1. sums is the lag kernel's output, n_parts = strips x column
 // blocks a lag. A frame holds top + rows + bottom rows, as above.
+//
+// kSolve: the tail of the 3x3 predictor's solve (whole frames only). Frame
+// b's Gram is complete when the last of its kLags blocks has written its
+// pairs, and that block solves it: the last-block pattern of a
+// threadfence reduction. The finishing warp fences its pairs device-wide
+// and counts its block in done[b] (zeroed by the lag kernel, read only
+// after griddepcontrol.wait); the block that draws kLags - 1 fences
+// again, copies Rx's rows and rx from L2 (load_l2: the other blocks'
+// writes, not a stale L1 line) into shared memory, and one lane runs
+// wm::solve8 into coefficients[b] and valid[b]. The order of the blocks
+// decides only which one solves, not what it reads: two calls give the
+// same bits, those of spd_solve8_kernel on the same Gram. The other 12
+// blocks of a frame add one fence and one atomic to their finish.
+template <bool kSolve>
 __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
     const float* __restrict__ img, const float* __restrict__ sums,
     const int* __restrict__ lags, const int* __restrict__ pair_start,
     const int* __restrict__ pairs, float* __restrict__ gram, int rows,
-    int cols, int n_parts, int top, int bottom) {
+    int cols, int n_parts, int top, int bottom,
+    float* __restrict__ coefficients, bool* __restrict__ valid,
+    int* __restrict__ done) {
   __shared__ float s_full[8];
   __shared__ float s_edge[4][4];
   __shared__ float s_window[5][3];
@@ -346,6 +385,23 @@ __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
     out[row * 9 + column] = value;
     out[column * 9 + row] = value;
   }
+
+  if constexpr (kSolve) {
+    __shared__ float s_system[wm::kSolve8][9];   // Rx's rows with rx
+    __threadfence();   // this warp's pairs, device-wide, before the count
+    __syncwarp();
+    int ticket = 0;
+    if (tid == 0) ticket = atomicAdd(done + b, 1);
+    if (__shfl_sync(0xffffffffu, ticket, 0) != kLags - 1) return;
+    __threadfence();   // the frame's other blocks' pairs, before the reads
+    for (int i = tid; i < wm::kSolve8 * 9; i += 32)
+      s_system[i / 9][i % 9] = load_l2(out + i);
+    __syncwarp();
+    if (tid == 0)
+      wm::solve8([&](int i, int j) { return s_system[i][j]; },
+                 coefficients + static_cast<size_t>(b) * wm::kSolve8,
+                 valid + b);
+  }
 }
 
 }  // namespace
@@ -353,11 +409,12 @@ __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
 // img (batch, top + rows + bottom, cols) f32 -> sums (batch, 13, strips,
 // column blocks) f32 over the owned rows, strips = ceil(rows / strip),
 // column blocks = ceil(cols / block_cols); the caller owns that layout and
-// passes its column block, which must be kBlockCols.
+// passes its column block, which must be kBlockCols. done (batch,) int32,
+// or null: zeroed for the solving assembly that follows.
 extern "C" int wm_me_gram_lags(const float* img, const int* lag_index,
                                float* sums, int batch, int rows, int cols,
                                int strip, int block_cols, int top,
-                               int bottom, void* stream) {
+                               int bottom, int* done, void* stream) {
   if (batch < 1 || rows < 1 || cols < 1 || strip < 1 || top < 0 ||
       bottom < 0 || block_cols != kBlockCols ||
       static_cast<long long>(top + rows + bottom) * cols > 2147483647LL)
@@ -370,18 +427,25 @@ extern "C" int wm_me_gram_lags(const float* img, const int* lag_index,
   const dim3 grid(wm::ceil_div(cols, kBlockCols), n_strips, batch);
   me_gram_lags_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      img, lag_index, sums, rows, cols, strip, vec, top, bottom);
+      img, lag_index, sums, rows, cols, strip, vec, top, bottom, done);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The lag kernel's sums with the image (as above) -> gram (batch, 9, 9).
+// With coefficients not null (whole frames: top = bottom = 0), also the
+// 8x8 solve of each frame's Gram -> coefficients (batch, 8) f32, valid
+// (batch,) bool, counting in done (batch,) int32, which the lag kernel
+// zeroed (wm_me_gram_lags with the same done).
 extern "C" int wm_me_gram_assemble(const float* img, const float* sums,
                                    const int* lags, const int* pair_start,
                                    const int* pairs, float* gram, int batch,
                                    int rows, int cols, int n_parts, int top,
-                                   int bottom, void* stream) {
+                                   int bottom, float* coefficients,
+                                   bool* valid, int* done, void* stream) {
+  const bool solve = coefficients != nullptr;
   if (batch < 1 || rows < 1 || cols < 1 || n_parts < 1 || batch > 65535 ||
-      top < 0 || bottom < 0)
+      top < 0 || bottom < 0 ||
+      (solve && (valid == nullptr || done == nullptr || top || bottom)))
     return cudaErrorInvalidValue;
   const dim3 grid(kLags, batch);
   // programmatic dependent launch: the kernel may start before the lag
@@ -395,9 +459,15 @@ extern "C" int wm_me_gram_assemble(const float* img, const float* sums,
   attribute.val.programmaticStreamSerializationAllowed = 1;
   config.attrs = &attribute;
   config.numAttrs = 1;
-  const cudaError_t code = cudaLaunchKernelEx(
-      &config, me_gram_assemble_kernel, img, sums, lags, pair_start, pairs,
-      gram, rows, cols, n_parts, top, bottom);
+  const cudaError_t code =
+      solve ? cudaLaunchKernelEx(&config, me_gram_assemble_kernel<true>, img,
+                                 sums, lags, pair_start, pairs, gram, rows,
+                                 cols, n_parts, top, bottom, coefficients,
+                                 valid, done)
+            : cudaLaunchKernelEx(&config, me_gram_assemble_kernel<false>,
+                                 img, sums, lags, pair_start, pairs, gram,
+                                 rows, cols, n_parts, top, bottom,
+                                 coefficients, valid, done);
   if (code != cudaSuccess) return static_cast<int>(code);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,12 +34,12 @@
 // thread a system holds the 36 entries of L and the right-hand side in
 // registers (the loops unroll fully); 128 threads a block, so a batch of
 // hundreds (a service batch, the calibration tool's) runs several blocks.
-// Its recurrence rounds each operation on its own (__f*_rn, never
-// contracted into FMAs) in the plain version's order: each sum starts at
-// 0 and adds the products in increasing k, the pivot's reciprocal is
-// taken once and multiplied (torch's 1.0 / t is a reciprocal, then a
-// product by 1.0), the substitutions divide by the pivot. It thus gives
-// the plain version's bits on the card.
+// The solve itself is wm::solve8 (spd_solve8.cuh), which rounds each
+// operation on its own in the plain version's order and so gives its
+// bits on the card. me_gram.cu's assembly kernel runs the same function
+// as its tail on a single device (ops/cuda/me_kernel.py::me_gram_solve8);
+// this kernel solves the Gram that parallel/spatial.py folds from the
+// shards' halo-form Grams.
 //
 // spd_solve_wide<k>: one block a system, 8k threads; Rx lives in shared
 // memory in the Gram's own layout (k rows of k + 1 floats, an odd stride,
@@ -80,37 +80,13 @@
 // order everywhere, so two calls give the same bits.
 #include <cuda_runtime.h>
 
+#include "spd_solve8.cuh"
+
 namespace {
 
 constexpr int kN = 8;           // unknowns of the 3x3 predictor; panel width
 constexpr int kG = kN + 1;      // the 3x3 Gram's row length
 constexpr int kThreads = 128;   // systems a block of spd_solve8
-
-// The lower Cholesky factor of an 8x8 SPD block whose entry (i, j), i >= j,
-// is entry(i, j), into lower[i][j] (j <= i).
-template <class Entry>
-__device__ __forceinline__ void chol8_factor(const Entry& entry,
-                                             float (&lower)[kN][kN]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int k = 0; k < j; ++k) {
-      sum = __fadd_rn(sum, __fmul_rn(lower[j][k], lower[j][k]));
-    }
-    lower[j][j] = __fsqrt_rn(__fsub_rn(entry(j, j), sum));
-    const float inv_diag = __fdiv_rn(1.0f, lower[j][j]);
-#pragma unroll
-    for (int i = j + 1; i < kN; ++i) {
-      float off = 0.0f;
-#pragma unroll
-      for (int k = 0; k < j; ++k) {
-        off = __fadd_rn(off, __fmul_rn(lower[i][k], lower[j][k]));
-      }
-      lower[i][j] = __fmul_rn(__fsub_rn(entry(i, j), off), inv_diag);
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
     spd_solve8_kernel(const float* __restrict__ gram,
@@ -119,42 +95,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= batch) return;
   const float* g = gram + static_cast<size_t>(b) * kG * kG;
-
-  // lower[i][j], j <= i: the Cholesky factor, Rx = L L^T
-  float lower[kN][kN];
-  chol8_factor([g](int i, int j) { return __ldg(g + i * kG + j); }, lower);
-
-  // forward substitution L y = rx
-  float y[kN];
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int k = 0; k < i; ++k) {
-      sum = __fadd_rn(sum, __fmul_rn(lower[i][k], y[k]));
-    }
-    y[i] = __fdiv_rn(__fsub_rn(__ldg(g + i * kG + kN), sum), lower[i][i]);
-  }
-
-  // back substitution L^T x = y
-  float x[kN];
-#pragma unroll
-  for (int i = kN - 1; i >= 0; --i) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int k = i + 1; k < kN; ++k) {
-      sum = __fadd_rn(sum, __fmul_rn(lower[k][i], x[k]));
-    }
-    x[i] = __fdiv_rn(__fsub_rn(y[i], sum), lower[i][i]);
-  }
-
-  bool finite = true;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) finite = finite && isfinite(x[i]);
-  float* out = coefficients + static_cast<size_t>(b) * kN;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) out[i] = finite ? x[i] : 0.0f;
-  valid[b] = finite;
+  wm::solve8([g](int i, int j) { return __ldg(g + i * kG + j); },
+             coefficients + static_cast<size_t>(b) * kN, valid + b);
 }
 
 constexpr unsigned kFullWarp = 0xffffffffu;

@@ -6,10 +6,13 @@ counts its launches in a plain integer attribute, ``wrapper.launches``, where
 it launches its kernel; ``me_gram`` launches the 3x3 Gram's two kernels
 through their wrappers, ``me_gram_lags`` and ``me_gram_assemble``, and
 ``me_gram_wide`` the wide Gram's, ``wide_lag_strips`` and
-``wide_assemble``, so each of those counts one a Gram. ``spd_solve8``
-solves the 3x3 predictor's system from the 3x3 Gram and
-``spd_solve_wide`` the wide predictor's from the wide Gram, one launch a
-solve. ``embed_finish`` scales the embed field to each frame's strength and
+``wide_assemble``, so each of those counts one a Gram. ``me_gram_solve8``
+is the 3x3 Gram with the 3x3 predictor's solve in its assembly kernel
+(its two launches count in ``me_gram_lags`` and ``me_gram_assemble``, and
+the call once in its own count): a single device's analysis.
+``spd_solve8`` solves that system from a Gram alone, the Gram that the
+spatial routes fold from their shards, and ``spd_solve_wide`` the wide
+predictor's from the wide Gram, one launch a solve. ``embed_finish`` scales the embed field to each frame's strength and
 adds it to the output, one launch a fused embed.
 ``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
 calls (their modules say why); the rest carry the embed, detect and
@@ -25,7 +28,7 @@ from .fused import (detect_partials, detect_partials_plain, embed_field,
                     embed_field_plain, stencil_reach)
 from .me_gram_wide import me_gram_wide, wide_assemble, wide_lag_strips
 from .me_kernel import (me_gram, me_gram_assemble, me_gram_lags,
-                        me_gram_plain)
+                        me_gram_plain, me_gram_solve8)
 from .nvf import nvf_mask, nvf_mask_plain
 from .predict import prediction_error, prediction_error_plain
 from .solve import (spd_solve8, spd_solve8_plain, spd_solve_wide,
@@ -33,6 +36,7 @@ from .solve import (spd_solve8, spd_solve8_plain, spd_solve_wide,
 
 KERNELS = {"me_gram_lags": me_gram_lags,
            "me_gram_assemble": me_gram_assemble,
+           "me_gram_solve8": me_gram_solve8,
            "wide_lag_strips": wide_lag_strips,
            "wide_assemble": wide_assemble,
            "embed_field": embed_field, "detect_partials": detect_partials,
@@ -58,7 +62,7 @@ __all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
            "embed_finish", "embed_finish_plain",
            "frame_banks", "gram_lags_plain", "lag_partials_plain",
            "lag_strips_plain", "launch_counts", "me_gram", "me_gram_assemble",
-           "me_gram_lags", "me_gram_plain", "me_gram_wide",
+           "me_gram_lags", "me_gram_plain", "me_gram_solve8", "me_gram_wide",
            "me_gram_wide_plain", "nvf_mask", "nvf_mask_plain",
            "prediction_error", "prediction_error_plain",
            "reset_launch_counts", "spd_solve8", "spd_solve8_plain",

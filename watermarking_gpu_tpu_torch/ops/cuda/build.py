@@ -44,9 +44,9 @@ _FLOAT = ctypes.c_float
 # ctypes does not cut 64-bit addresses to int; a float as c_float)
 SIGNATURES = {
     "wm_me_gram_lags": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                        _INT, _INT, _PTR),
+                        _INT, _INT, _PTR, _PTR),
     "wm_me_gram_assemble": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                            _INT, _INT, _INT, _INT, _PTR),
+                            _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR),
     "wm_wide_lag_strips": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                            _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
     "wm_wide_assemble": (_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
@@ -158,11 +158,22 @@ def library() -> ctypes.CDLL:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream; raise if
     the launch was refused."""
+    launch_many(device, (name, args))
+
+
+def launch_many(device: torch.device, *calls: tuple[str, tuple]) -> None:
+    """Call each (C entry point, arguments) of ``calls`` in order on
+    ``device``'s current stream, in one device context with one lookup of
+    the stream (the host's cost of a launch, which paces the small
+    kernels); raise at the first launch that was refused, before the
+    next."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(library(), name)(*args, stream)
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+        lib = library()
+        for name, args in calls:
+            code = getattr(lib, name)(*args, stream)
+            if code != 0:
+                raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
 def num_blocks(name: str, *dims: int) -> int:

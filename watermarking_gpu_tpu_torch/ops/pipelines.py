@@ -16,8 +16,8 @@ Implementations:
   solve, normalized mask, reference embed/correlation formulas. The port's
   oracle, counterpart of the JAX package's ``impl="xla"``.
 * ``impl="cuda"``: the fused algebra of the JAX package's ``impl="pallas"``
-  — Gram kernel, solve kernel (the 8x8 Cholesky at a 3x3 predictor, the
-  blocked Cholesky above it), then one
+  — Gram kernel and solve (at a 3x3 predictor the 8x8 Cholesky in the
+  Gram's assembly kernel, above it the blocked Cholesky kernel), then one
   embed-field, detect-tail or multi-candidate detect kernel; the embed ends
   in the embed-finish kernel (the strength and the AXPY/clamp/gate), the
   detect with its final divisions in torch. On CUDA tensors the kernels
@@ -33,7 +33,7 @@ import torch
 
 from .correlation import correlation
 from .cuda import (detect_many_partials, detect_partials, embed_field,
-                   embed_finish, me_gram, me_gram_wide, spd_solve8,
+                   embed_finish, me_gram_solve8, me_gram_wide,
                    spd_solve_wide)
 from .cuda.fused import predictor_p
 from .embed import embed_watermark
@@ -79,11 +79,12 @@ def _analysis(image: torch.Tensor, p: int
 
 def _fused_analysis(img3: torch.Tensor, pred_p: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gram kernel + Cholesky kernel -> (coefficients (B, k), valid (B,)),
-    k = pred_p**2 - 1: the 3x3 Gram and the 8x8 solve kernel at pred_p=3,
-    the wide lag Gram and the blocked solve kernel above it."""
+    """Gram kernels + Cholesky -> (coefficients (B, k), valid (B,)),
+    k = pred_p**2 - 1: at pred_p=3 the 3x3 Gram whose assembly kernel also
+    solves the 8x8 system (one wrapper call, two launches), above it the
+    wide lag Gram and the blocked solve kernel."""
     if pred_p == 3:
-        return spd_solve8(me_gram(img3))
+        return me_gram_solve8(img3)[1:]
     return spd_solve_wide(me_gram_wide(img3, pred_p))
 
 

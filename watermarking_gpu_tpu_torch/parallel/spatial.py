@@ -231,7 +231,9 @@ def _solve_cuda(imgs: Shards, ext: Shards, halo: int, pred_p: int):
     Gram's lag kernel (its sums reduced over strips before the fold) and
     one assembly with the frame's banks or, for a frame below the lag
     form's 6h geometry, the direct per-pair sums, as a single device takes
-    them, then the blocked solve kernel on the folded Gram."""
+    them, then the blocked solve kernel on the folded Gram. (A single
+    device solves the 3x3 system inside the Gram's assembly kernel,
+    ``me_gram_solve8``; the folded Gram is solved on its own here.)"""
     h_local, cols = imgs[0].shape[-2:]
     total_rows = len(imgs) * h_local
     devices = [x.device for x in imgs]
