@@ -167,8 +167,9 @@ its reductions (of the output, relative to its largest value, for the
 standalone ops); ``ms`` and ``plain_ms`` per call from phase 4 (CUDA
 events around the wrapper; the embed finish's into the f32 frames at ME,
 its u8 form in ``u8_form``); for the 3x3 Gram, the embed field, the
-detect tail, the embed finish and the fused solve ``device_ms``, its
-kernels' device time a call from the profiler (the fused solve's row also
+detect tail, the embed finish, the fused solve and the standalone
+prediction error and NVF mask ``device_ms``, its kernels' device time a
+call from the profiler (the fused solve's row also
 carries ``two_calls``, the ms and device ms of ``spd_solve8(me_gram(x))``,
 and ``solve_tail_device_ms``, what the solve adds to the assembly
 kernel);
@@ -410,7 +411,6 @@ JAX_WIDE_REFERENCE = {
 # 1080-row bounds of the JAX package's own multi-device checks
 # (__graft_entry__.py:192-195) — the f32 Gram's reduction order moves the
 # coefficients through cond(Rx) ~1e4.
-U_RAW_RTOL, U_RAW_ATOL = 1e-5, 1e-3
 SUM_RTOL = 1e-4
 # the 8x8 solve kernel against its plain version: the same rounded
 # operations in the same order, so bit-identical is expected; a difference
@@ -1482,8 +1482,10 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     wide Gram's two kernels and the wide solve kernel at p = 5, 7, 9 (keyed
     "wide_lag_strips_p5", ..., "spd_solve_wide_p5", ...) and of the embed
     field and the detect tail at ME and NVF p = 3, 5, 7, 9 (keyed by
-    kernel row name) and of the embed finish into f32 frames and u8 lumas
-    ("embed_finish", "embed_finish_u8"), from one ``device_ms`` session;
+    kernel row name), of the standalone prediction error and NVF mask at
+    each p ("prediction_error_p3", ..., "nvf_mask_p3", ...) and of the
+    embed finish into f32 frames and u8 lumas ("embed_finish",
+    "embed_finish_u8"), from one ``device_ms`` session;
     each
     kernel is told apart by its name and template arguments. The 3x3
     assembly kernel is a programmatic dependent launch: it may start
@@ -1522,6 +1524,14 @@ def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             patterns[row_name("detect_partials", mask, p)] = (
                 f"detect_tail_kernel<{MASK_CODES[mask]}, {half[0]}, "
                 f"{half[1]}>")
+    # the standalone ops, which no main path runs
+    for p in ALL_P:
+        fns.append(lambda p=p: kernels.prediction_error(frames_d, coeffs[p],
+                                                        p))
+        patterns[f"prediction_error_p{p}"] = (
+            f"prediction_error_kernel<{p // 2}>")
+        fns.append(lambda p=p: kernels.nvf_mask(frames_d, p))
+        patterns[f"nvf_mask_p{p}"] = f"nvf_mask_kernel<{p // 2}>"
     field = kernels.embed_field(frames_d, wm_d, coeffs[3], "me")
     valid = torch.ones(BATCH, dtype=torch.bool, device=frames_d.device)
     for name, output, dtype in (
@@ -1623,10 +1633,18 @@ def phase_identify_kernels(frames_d: torch.Tensor,
                     (f"nvf_mask_p{p}", kernels.nvf_mask(img, p),
                      kernels.nvf_mask_plain(img, p))):
                 abs_err = float((got - want).abs().max())
-                check(torch.allclose(got, want, rtol=U_RAW_RTOL,
-                                     atol=U_RAW_ATOL),
-                      f"{name} {label}: max abs err {abs_err:.3e}")
+                check(same_bits(got, want),
+                      f"{name} {label}: not bit-identical to the plain "
+                      f"version, max abs err {abs_err:.3e}")
                 worst[name] = (abs_err, abs_err / float(want.abs().max()))
+            # one (H, W) frame, as the JAX package's standalone ops take it
+            check(same_bits(kernels.prediction_error(img[1], coeffs[p][1], p),
+                            kernels.prediction_error_plain(
+                                img[1:2], coeffs[p][1:2], p)[0])
+                  and same_bits(kernels.nvf_mask(img[1], p),
+                                kernels.nvf_mask_plain(img[1:2], p)[0]),
+                  f"p={p} {label}: the (H, W) form of a standalone op is "
+                  f"not bit-identical to the plain version")
         after = kernels.launch_counts()
         check(all(after[k] > before[k] for k in ("detect_many",
                                                   *STANDALONE_KERNELS)),
@@ -1638,7 +1656,8 @@ def phase_identify_kernels(frames_d: torch.Tensor,
         print(f"[2] {label}: detect_many at ME and NVF p = 3, 5, 7, 9: sums "
               f"rel {max(v[1] for v in many):.2e}, corr abs "
               f"{max(v[0] for v in many):.2e}; prediction_error and nvf_mask "
-              f"at p = 3, 5, 7, 9: max abs {max(alone):.2e}: ok", flush=True)
+              f"at p = 3, 5, 7, 9, (B, H, W) and (H, W): bit-identical (max "
+              f"abs {max(alone):.2e}): ok", flush=True)
         if img is frames_d:
             errors = worst
     return errors
@@ -3642,7 +3661,8 @@ def kernel_row(name: str, kernel: str, mask: str, p: int, launches: int,
                device: dict | None = None) -> dict:
     """One row of the kernels line; ``times`` is (ms, plain ms) or (ms,
     plain ms, library ms); ``device`` maps row names to the kernel's
-    device ms (``device_ms``, the embed field's and detect tail's rows)."""
+    device ms (``device_ms``; rows without a kernel of their own there
+    have none)."""
     source, replaces = KERNEL_SOURCES[kernel]
     bound_ms, bound_by = kernel_bound(kernel, mask, p)
     row = {"name": name, "route": "cuda", "source": source,
@@ -3774,6 +3794,14 @@ def main() -> int:
                       f"{times[row_name(kernel, mask, p)][0]:.4f} ms)"
                       for mask in ("me", "nvf")), flush=True)
 
+    for p in ALL_P:
+        print(f"[4] p={p} standalone ops (device time a call, "
+              f"torch.profiler): " + "; ".join(
+                  f"{kernel} {split[f'{kernel}_p{p}']:.4f} ms (CUDA events "
+                  f"with the wrapper {times[f'{kernel}_p{p}'][0]:.4f} ms, "
+                  f"its bound {kernel_bound(kernel, 'me', p)[0]:.4f} ms)"
+                  for kernel in STANDALONE_KERNELS), flush=True)
+
     rows = [kernel_row("me_gram", "me_gram", "me", 3,
                        sum(counts["all"][n] for n in GRAM_KERNELS),
                        errors["me_gram"], times["me_gram"], split)]
@@ -3854,7 +3882,7 @@ def main() -> int:
         for p in ALL_P:
             name = f"{kernel}_p{p}"
             rows.append(kernel_row(name, kernel, "me", p, launched,
-                                   errors[name], times[name]))
+                                   errors[name], times[name], split))
     # the sharded routes' launches (phase 6) and the halo forms' times
     for row in rows:
         row["launches"] += mesh_launches.pop(row["name"], 0)

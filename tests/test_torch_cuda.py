@@ -9,10 +9,10 @@ runs on a machine without them; there, skip the JAX-based conftest:
 Tolerances: Gram, lag sums and reductions rtol 1e-4 (summation order
 only; a detect kernel's dot relative to sqrt(||e_u||^2 ||e_z||^2), see
 ``check_detect_tail``); the embed field's u_raw and max mask bit-identical
-(the same rounded operations in the same order); the prediction error and
-the NVF mask rtol 1e-5 + atol 1e-3 (their terms round identically); between
-the two routes, correlations abs 2e-4 (3e-4 for NVF, as the JAX suite holds
-its fused NVF kernels) and strengths rel 2e-4. The 8x8 solve kernel's
+(the same rounded operations in the same order), and so are the
+prediction error and the NVF mask; between the two routes, correlations
+abs 2e-4 (3e-4 for NVF, as the JAX suite holds its fused NVF kernels) and
+strengths rel 2e-4. The 8x8 solve kernel's
 coefficients and valid flags equal its plain version's, bit for bit (the
 same rounded operations in the same order), and so do the Gram's and the
 solve's of ``me_gram_solve8``, whose assembly kernel solves with the same
@@ -513,27 +513,56 @@ def test_detect_many_matches_plain_on_card(device, p, shape, n):
     torch.cuda.synchronize()
 
 
+def standalone_frames(shape, device, seed=40961):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.clip(rng.normal(128, 40, shape), 0,
+                                    255).astype(np.float32)).to(device)
+
+
 @pytest.mark.parametrize("shape", [(3, 40, 96), (2, 37, 83), (2, 1, 5),
-                                   (2, 1080, 1920)])
+                                   (2, 1080, 1920), (2, 37, 1921),
+                                   (2, 200, 40), (2, 30, 200), (130, 70)])
 @pytest.mark.parametrize("p", [3, 5, 7, 9])
 def test_standalone_ops_match_plain_on_card(device, p, shape):
-    frames, _, _ = make_inputs(shape, device)
+    """Bit-identical to the plain versions (the same rounded operations in
+    the same order): widths that are no multiple of 4, frames narrower and
+    shorter than the kernels' 64 x 64 tile, the (H, W) form."""
+    frames = standalone_frames(shape, device)
     rng = np.random.default_rng(p)
-    coeffs = torch.from_numpy(rng.normal(0, 0.1, (shape[0], p * p - 1)).astype(
-        np.float32)).to(device)
+    coeffs = torch.from_numpy(rng.normal(0, 0.1, (*shape[:-2], p * p - 1))
+                              .astype(np.float32)).to(device)
     before = kernels.launch_counts()
-    torch.testing.assert_close(kernels.prediction_error(frames, coeffs, p),
-                               kernels.prediction_error_plain(frames, coeffs,
-                                                              p),
-                               rtol=1e-5, atol=1e-3)
-    torch.testing.assert_close(kernels.nvf_mask(frames, p),
-                               kernels.nvf_mask_plain(frames, p),
-                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(kernels.prediction_error(frames, coeffs, p),
+                       kernels.prediction_error_plain(frames, coeffs, p))
+    assert torch.equal(kernels.nvf_mask(frames, p),
+                       kernels.nvf_mask_plain(frames, p))
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after == {**before,
                      "prediction_error": before["prediction_error"] + 1,
                      "nvf_mask": before["nvf_mask"] + 1}
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 83), (2, 64, 1920)])
+@pytest.mark.parametrize("p", [3, 9])
+def test_standalone_ops_on_unaligned_frames(device, p, shape):
+    """An image whose data pointer is 4 bytes past a 16-byte boundary (a
+    view at an offset of one float) takes the kernels' 4-byte copies and
+    scalar stores: the plain versions' bits all the same."""
+    frames = standalone_frames(shape, device)
+    store = torch.empty(frames.numel() + 1, device=device)
+    store[1:] = frames.flatten()
+    unaligned = store[1:].view(shape)
+    assert unaligned.data_ptr() % 16 == 4 and unaligned.is_contiguous()
+    coeffs = torch.from_numpy(np.random.default_rng(p).normal(
+        0, 0.1, (shape[0], p * p - 1)).astype(np.float32)).to(device)
+    for got in (kernels.prediction_error(unaligned, coeffs, p),
+                kernels.prediction_error(frames, coeffs, p)):
+        assert torch.equal(got, kernels.prediction_error_plain(frames,
+                                                               coeffs, p))
+    for got in (kernels.nvf_mask(unaligned, p), kernels.nvf_mask(frames, p)):
+        assert torch.equal(got, kernels.nvf_mask_plain(frames, p))
+    torch.cuda.synchronize()
 
 
 def check_embed_finish(u_raw, output, sum_u2, max_e, valid, mask_type):

@@ -230,3 +230,22 @@ def test_standalone_plain_ops_match_pallas(p):
     got = kernels.nvf_mask(torch.from_numpy(imgs), p)
     want = nvf_mask_pallas(jnp.asarray(imgs), p=p, strip=16)
     np.testing.assert_allclose(got.numpy(), want, atol=5e-3)
+
+
+@pytest.mark.parametrize("p", [3, 5, 7, 9])
+def test_standalone_ops_take_one_frame_as_pallas_does(p):
+    """The (H, W) form with (p*p-1,) coefficients, as prediction_error_pallas
+    and nvf_mask_pallas take one frame: an (H, W) result, against theirs."""
+    img = frames((40, 96), seed=10 + p)
+    coeffs = np.random.default_rng(p).normal(0, 0.1, p * p - 1).astype(
+        np.float32)
+    got = kernels.prediction_error(torch.from_numpy(img),
+                                   torch.from_numpy(coeffs), p)
+    want = prediction_error_pallas(jnp.asarray(img), jnp.asarray(coeffs),
+                                   strip=16, p=p)
+    assert got.shape == want.shape == img.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+    got = kernels.nvf_mask(torch.from_numpy(img), p)
+    want = nvf_mask_pallas(jnp.asarray(img), p=p, strip=16)
+    assert got.shape == want.shape == img.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-3)

@@ -217,6 +217,14 @@ def test_wrappers_raise_on_other_devices():
         kernels.prediction_error(frames, torch.zeros(1, 8, device="meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.nvf_mask(frames)
+    # coefficients that do not match the image's batch or p raise on every
+    # device, before the device is looked at
+    for image, wrong in ((frames, torch.zeros(1, 24, device="meta")),
+                         (frames[0], torch.zeros(1, 8, device="meta")),
+                         (torch.zeros(1, 8, 8), torch.zeros(2, 8)),
+                         (torch.zeros(8, 8), torch.zeros(24))):
+        with pytest.raises(ValueError, match="coefficients"):
+            kernels.prediction_error(image, wrong)
 
 
 @pytest.mark.parametrize("p", [5, 7, 9])
@@ -252,7 +260,7 @@ def test_kernel_sources_ship_with_the_package():
         "predict.cu", "nvf.cu")}
     sources["embed_finish.cu"] = "ops/pipelines.py::_embed_pipeline_fused"
     names = {p.name for p in (PACKAGE / "csrc").iterdir()}
-    assert {*sources, "common.cuh"} <= names
+    assert {*sources, "common.cuh", "stencil.cuh"} <= names
     for name, replaced in sources.items():
         head = (PACKAGE / "csrc" / name).read_text()[:1500]
         assert "Replaces:" in head and replaced in head

@@ -18,16 +18,22 @@ from . import build
 
 
 def nvf_mask(image: torch.Tensor, p: int = 3) -> torch.Tensor:
-    """(B, H, W) f32 frames -> (B, H, W) NVF mask.
+    """(B, H, W) f32 frames -> (B, H, W) NVF mask; or one (H, W) frame ->
+    (H, W), as ``nvf_mask_pallas`` takes it.
 
     CPU tensors take ``nvf_mask_plain``; CUDA tensors launch the kernel.
     """
+    require_supported_p(p)
+    if image.ndim == 2:
+        return nvf_mask(image[None], p)[0]
+    if image.ndim != 3:
+        raise ValueError(f"nvf_mask takes a (B, H, W) or (H, W) image, got "
+                         f"{tuple(image.shape)}")
     if image.device.type == "cpu":
         return nvf_mask_plain(image, p)
-    require_supported_p(p)
-    if image.device.type != "cuda" or image.ndim != 3:
-        raise ValueError(f"nvf_mask takes a (B, H, W) CUDA or CPU tensor, got "
-                         f"{tuple(image.shape)} on {image.device}")
+    if image.device.type != "cuda":
+        raise ValueError(f"nvf_mask takes a CUDA or CPU tensor, got one on "
+                         f"{image.device}")
     batch, rows, cols = image.shape
     build.check_input("image", image, (batch, rows, cols), image.device)
     out = torch.empty_like(image)

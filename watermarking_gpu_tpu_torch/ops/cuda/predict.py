@@ -20,19 +20,33 @@ from . import build
 
 def prediction_error(image: torch.Tensor, coefficients: torch.Tensor,
                      p: int = 3) -> torch.Tensor:
-    """(B, H, W) f32 frames, (B, p*p-1) coefficients -> (B, H, W) error.
+    """(B, H, W) f32 frames, (B, p*p-1) coefficients -> (B, H, W) error;
+    or one (H, W) frame with (p*p-1,) coefficients -> (H, W), as
+    ``prediction_error_pallas`` takes them.
 
     CPU tensors take ``prediction_error_plain``; CUDA tensors launch the
     kernel.
     """
+    require_supported_p(p)
+    if image.ndim == 2:
+        if tuple(coefficients.shape) != (p * p - 1,):
+            raise ValueError(f"coefficients must have shape ({p * p - 1},) "
+                             f"for an (H, W) image, got "
+                             f"{tuple(coefficients.shape)}")
+        return prediction_error(image[None], coefficients[None], p)[0]
+    if image.ndim != 3:
+        raise ValueError(f"prediction_error takes a (B, H, W) or (H, W) "
+                         f"image, got {tuple(image.shape)}")
+    batch, rows, cols = image.shape
+    if tuple(coefficients.shape) != (batch, p * p - 1):
+        raise ValueError(f"coefficients must have shape "
+                         f"{(batch, p * p - 1)}, got "
+                         f"{tuple(coefficients.shape)}")
     if image.device.type == "cpu":
         return prediction_error_plain(image, coefficients, p)
-    require_supported_p(p)
-    if image.device.type != "cuda" or image.ndim != 3:
-        raise ValueError(f"prediction_error takes a (B, H, W) CUDA or CPU "
-                         f"tensor, got {tuple(image.shape)} on "
-                         f"{image.device}")
-    batch, rows, cols = image.shape
+    if image.device.type != "cuda":
+        raise ValueError(f"prediction_error takes a CUDA or CPU tensor, got "
+                         f"one on {image.device}")
     build.check_input("image", image, (batch, rows, cols), image.device)
     build.check_input("coefficients", coefficients, (batch, p * p - 1),
                       image.device)
