@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.pipelines import _embed_u8_fused, detect_pipeline, embed_pipeline
+from ..utils.profiling import begin
 from .masks import MaskType
 from .watermark import Watermark, as_device_input
 
@@ -22,16 +23,27 @@ def batch_embed(images: torch.Tensor, outputs: torch.Tensor,
                 mask_type: str, p: int = 3, impl: str = "cuda"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed into (B, H, W[, C]) frames. The watermark matrix is shared."""
-    return embed_pipeline(images, outputs, watermark, strength_factor_value,
-                          mask_type=mask_type, p=p, impl=impl)
+    span = begin("engine.embed")
+    try:
+        return embed_pipeline(images, outputs, watermark,
+                              strength_factor_value, mask_type=mask_type,
+                              p=p, impl=impl)
+    finally:
+        if span:
+            span.end()
 
 
 def batch_detect(images: torch.Tensor, watermark: torch.Tensor,
                  mask_type: str, p: int = 3,
                  impl: str = "cuda") -> torch.Tensor:
     """Detector correlations for (B, H, W) frames -> (B,)."""
-    return detect_pipeline(images, watermark, mask_type=mask_type, p=p,
-                           impl=impl)
+    span = begin("engine.detect")
+    try:
+        return detect_pipeline(images, watermark, mask_type=mask_type, p=p,
+                               impl=impl)
+    finally:
+        if span:
+            span.end()
 
 
 def pad_to_batch(stack: np.ndarray, batch_size: int) -> np.ndarray:
@@ -55,13 +67,18 @@ def batch_embed_luma_u8(lumas: torch.Tensor, watermark: torch.Tensor,
     On ``impl="cuda"`` the lumas widen once, for the analysis, and the
     embed finish reads and writes the uint8 frames.
     """
-    if impl == "cuda":
-        return _embed_u8_fused(lumas, watermark, strength_factor_value,
-                               mask_type, p)
-    marked, strength = embed_pipeline(lumas, lumas, watermark,
-                                      strength_factor_value,
-                                      mask_type=mask_type, p=p, impl=impl)
-    return marked.to(torch.uint8), strength
+    span = begin("engine.embed_u8")
+    try:
+        if impl == "cuda":
+            return _embed_u8_fused(lumas, watermark, strength_factor_value,
+                                   mask_type, p)
+        marked, strength = embed_pipeline(lumas, lumas, watermark,
+                                          strength_factor_value,
+                                          mask_type=mask_type, p=p, impl=impl)
+        return marked.to(torch.uint8), strength
+    finally:
+        if span:
+            span.end()
 
 
 class BatchedWatermark(Watermark):

@@ -21,6 +21,7 @@ from ..io.matfile import generate_watermark, load_watermark
 from ..ops.embed import strength_factor
 from ..ops.pipelines import (IMPLS, detect_many_pipeline, detect_pipeline,
                              embed_pipeline, fused_detect_many_applies)
+from ..utils.profiling import begin
 from .masks import MaskType
 
 _VALID_P = (3, 5, 7, 9)
@@ -30,11 +31,16 @@ def as_device_input(x, device: torch.device) -> torch.Tensor:
     """Move an image to ``device`` in its transfer dtype: uint8 stays uint8
     (a 4x narrower copy, widened on the device by the pipelines); anything
     else becomes f32 before the copy."""
-    tensor = (x if isinstance(x, torch.Tensor)
-              else torch.from_numpy(np.ascontiguousarray(x)))
-    if tensor.dtype != torch.uint8:
-        tensor = tensor.to(torch.float32)
-    return tensor.to(device)
+    span = begin("engine.to_device")
+    try:
+        tensor = (x if isinstance(x, torch.Tensor)
+                  else torch.from_numpy(np.ascontiguousarray(x)))
+        if tensor.dtype != torch.uint8:
+            tensor = tensor.to(torch.float32)
+        return tensor.to(device)
+    finally:
+        if span:
+            span.end()
 
 
 class Watermark:
@@ -128,23 +134,33 @@ class Watermark:
               ) -> tuple[torch.Tensor, torch.Tensor]:
         """Embed the watermark computed from grayscale ``image`` into
         ``output`` (default: ``image``). Returns (watermarked, strength)."""
-        mask_type = MaskType.parse(mask_type)
-        self._check_dims(image)
-        image = as_device_input(image, self.device)
-        output = image if output is None else as_device_input(output,
-                                                              self.device)
-        return embed_pipeline(image, output, self.random_matrix,
-                              self.strength_factor, mask_type.value,
-                              p=self.p, impl=self.impl)
+        span = begin("engine.embed")
+        try:
+            mask_type = MaskType.parse(mask_type)
+            self._check_dims(image)
+            image = as_device_input(image, self.device)
+            output = (image if output is None
+                      else as_device_input(output, self.device))
+            return embed_pipeline(image, output, self.random_matrix,
+                                  self.strength_factor, mask_type.value,
+                                  p=self.p, impl=self.impl)
+        finally:
+            if span:
+                span.end()
 
     def detect(self, image,
                mask_type: "MaskType | str" = MaskType.ME) -> torch.Tensor:
         """Detector correlation of a grayscale image (0-d tensor)."""
-        mask_type = MaskType.parse(mask_type)
-        self._check_dims(image)
-        return detect_pipeline(as_device_input(image, self.device),
-                               self.random_matrix, mask_type.value,
-                               p=self.p, impl=self.impl)
+        span = begin("engine.detect")
+        try:
+            mask_type = MaskType.parse(mask_type)
+            self._check_dims(image)
+            return detect_pipeline(as_device_input(image, self.device),
+                                   self.random_matrix, mask_type.value,
+                                   p=self.p, impl=self.impl)
+        finally:
+            if span:
+                span.end()
 
     # Device memory one detect_many dispatch may take for its per-candidate
     # intermediates; the candidate axis is chunked to stay inside it. 8 GiB,
@@ -176,43 +192,49 @@ class Watermark:
         tensor on the engine's device is used in place. The engine's own
         ``random_matrix`` is not implied: pass every candidate.
         """
-        mask_type = MaskType.parse(mask_type)
-        if (tuple(image.shape[-2:]) != (self.rows, self.cols)
-                or len(image.shape) not in (2, 3)):
-            raise ValueError(
-                f"Images must be ({self.rows}, {self.cols}) or "
-                f"(B, {self.rows}, {self.cols}), got shape "
-                f"{tuple(image.shape)}")
-        if (len(watermarks.shape) != 3
-                or tuple(watermarks.shape[1:]) != (self.rows, self.cols)):
-            raise ValueError(
-                f"Candidate watermarks must be (N, {self.rows}, "
-                f"{self.cols}), got shape {tuple(watermarks.shape)}")
-        image = as_device_input(image, self.device)
-        watermarks = as_device_input(watermarks, self.device).to(
-            torch.float32)
-        batch = image.shape[0] if image.ndim == 3 else 1
-        n = watermarks.shape[0]
-        if (self.device.type == "cuda" and fused_detect_many_applies(
-                n, self.rows, self.cols, mask_type.value, self.p, self.impl)):
-            chunk = n   # the kernel keeps no per-candidate planes
-        else:
-            per_candidate = (self._PLAIN_PLANES * batch * 4 * self.rows
-                             * self.cols)
-            chunk = max(1, self._DETECT_MANY_BUDGET_BYTES // per_candidate)
+        span = begin("engine.detect_many")
+        try:
+            mask_type = MaskType.parse(mask_type)
+            if (tuple(image.shape[-2:]) != (self.rows, self.cols)
+                    or len(image.shape) not in (2, 3)):
+                raise ValueError(
+                    f"Images must be ({self.rows}, {self.cols}) or "
+                    f"(B, {self.rows}, {self.cols}), got shape "
+                    f"{tuple(image.shape)}")
+            if (len(watermarks.shape) != 3
+                    or tuple(watermarks.shape[1:]) != (self.rows, self.cols)):
+                raise ValueError(
+                    f"Candidate watermarks must be (N, {self.rows}, "
+                    f"{self.cols}), got shape {tuple(watermarks.shape)}")
+            image = as_device_input(image, self.device)
+            watermarks = as_device_input(watermarks, self.device).to(
+                torch.float32)
+            batch = image.shape[0] if image.ndim == 3 else 1
+            n = watermarks.shape[0]
+            if (self.device.type == "cuda" and fused_detect_many_applies(
+                    n, self.rows, self.cols, mask_type.value, self.p,
+                    self.impl)):
+                chunk = n   # the kernel keeps no per-candidate planes
+            else:
+                per_candidate = (self._PLAIN_PLANES * batch * 4 * self.rows
+                                 * self.cols)
+                chunk = max(1, self._DETECT_MANY_BUDGET_BYTES // per_candidate)
 
-        def run(bank):
-            return detect_many_pipeline(image, bank, mask_type.value,
-                                        p=self.p, impl=self.impl)
-        if chunk >= n:
-            return run(watermarks)
-        parts = [run(watermarks[start:start + chunk])
-                 for start in range(0, n - n % chunk, chunk)]
-        if n % chunk:
-            tail = watermarks[n - n % chunk:]
-            pad = tail[-1:].expand(chunk - tail.shape[0], -1, -1)
-            parts.append(run(torch.cat([tail, pad]))[..., :tail.shape[0]])
-        return torch.cat(parts, dim=-1)
+            def run(bank):
+                return detect_many_pipeline(image, bank, mask_type.value,
+                                            p=self.p, impl=self.impl)
+            if chunk >= n:
+                return run(watermarks)
+            parts = [run(watermarks[start:start + chunk])
+                     for start in range(0, n - n % chunk, chunk)]
+            if n % chunk:
+                tail = watermarks[n - n % chunk:]
+                pad = tail[-1:].expand(chunk - tail.shape[0], -1, -1)
+                parts.append(run(torch.cat([tail, pad]))[..., :tail.shape[0]])
+            return torch.cat(parts, dim=-1)
+        finally:
+            if span:
+                span.end()
 
     def _check_dims(self, image) -> None:
         # exact shape: an RGB (H, W, 3) array passed as the grayscale

@@ -16,7 +16,9 @@ predictor's from the wide Gram, one launch a solve. ``embed_finish`` scales the 
 adds it to the output, one launch a fused embed.
 ``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
 calls (their modules say why); the rest carry the embed, detect and
-identification paths.
+identification paths. Each wrapper of ``KERNELS``, ``me_gram`` and
+``me_gram_wide`` opens a ``kernels.<name>`` span (``utils/profiling.py``)
+over its checks, allocations and launch.
 """
 
 from ..me import (assemble_lags_plain, assemble_strips_plain, frame_banks,

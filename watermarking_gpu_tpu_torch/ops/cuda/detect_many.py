@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import begin
 from ..me import prediction_error
 from . import build
 from .fused import (_mask_code, check_halo, predictor_p, stencil_reach,
@@ -76,39 +77,46 @@ def detect_many_partials(image: torch.Tensor, bank: torch.Tensor,
     ``chunk`` candidates, each writing its sums to a (B, chunks, blocks,
     2 * chunk + 1) partials buffer that is finished here.
     """
-    rows, total_rows = check_halo(
-        image, top, bottom, stencil_reach(mask_type, p), row_start,
-        total_rows, f"the multi-candidate kernel at {mask_type} p={p}")
-    if image.device.type == "cpu":
-        return detect_many_partials_plain(image, bank, coefficients,
-                                          mask_type, p, top, bottom,
-                                          row_start, total_rows)
-    code = _mask_code(mask_type, p)
-    if image.device.type != "cuda" or image.ndim != 3 or bank.ndim != 3:
-        raise ValueError(f"expected (B, H, W) frames and an (N, H, W) bank, "
-                         f"CUDA or CPU tensors, got {tuple(image.shape)} and "
-                         f"{tuple(bank.shape)} on {image.device}")
-    batch, img_rows, cols = image.shape
-    n = bank.shape[0]
-    taps = predictor_p(mask_type, p) ** 2 - 1
-    build.check_input("image", image, (batch, img_rows, cols), image.device)
-    build.check_input("bank", bank, (n, img_rows, cols), image.device)
-    build.check_input("coefficients", coefficients, (batch, taps),
-                      image.device)
-    chunk = build.library().wm_detect_many_chunk()
-    n_chunks = -(-n // chunk)
-    blocks = build.num_blocks("wm_detect_many", rows, cols)
-    partials = torch.empty((batch, n_chunks, blocks, 2 * chunk + 1),
-                           dtype=torch.float32, device=image.device)
-    build.launch("wm_detect_many", image.device, image.data_ptr(),
-                 bank.data_ptr(), coefficients.data_ptr(),
-                 partials.data_ptr(), batch, n, rows, cols, code, p, top,
-                 bottom, row_start, total_rows)
-    detect_many_partials.launches += 1
-    sums = partials.sum(dim=2)
-    dot = sums[:, :, 0:2 * chunk:2].reshape(batch, -1)[:, :n]
-    norm_u = sums[:, :, 1:2 * chunk:2].reshape(batch, -1)[:, :n]
-    return dot, norm_u, sums[:, 0, 2 * chunk]
+    span = begin("kernels.detect_many")
+    try:
+        rows, total_rows = check_halo(
+            image, top, bottom, stencil_reach(mask_type, p), row_start,
+            total_rows, f"the multi-candidate kernel at {mask_type} p={p}")
+        if image.device.type == "cpu":
+            return detect_many_partials_plain(image, bank, coefficients,
+                                              mask_type, p, top, bottom,
+                                              row_start, total_rows)
+        code = _mask_code(mask_type, p)
+        if image.device.type != "cuda" or image.ndim != 3 or bank.ndim != 3:
+            raise ValueError(
+                f"expected (B, H, W) frames and an (N, H, W) bank, CUDA or "
+                f"CPU tensors, got {tuple(image.shape)} and "
+                f"{tuple(bank.shape)} on {image.device}")
+        batch, img_rows, cols = image.shape
+        n = bank.shape[0]
+        taps = predictor_p(mask_type, p) ** 2 - 1
+        build.check_input("image", image, (batch, img_rows, cols),
+                          image.device)
+        build.check_input("bank", bank, (n, img_rows, cols), image.device)
+        build.check_input("coefficients", coefficients, (batch, taps),
+                          image.device)
+        chunk = build.library().wm_detect_many_chunk()
+        n_chunks = -(-n // chunk)
+        blocks = build.num_blocks("wm_detect_many", rows, cols)
+        partials = torch.empty((batch, n_chunks, blocks, 2 * chunk + 1),
+                               dtype=torch.float32, device=image.device)
+        build.launch("wm_detect_many", image.device, image.data_ptr(),
+                     bank.data_ptr(), coefficients.data_ptr(),
+                     partials.data_ptr(), batch, n, rows, cols, code, p, top,
+                     bottom, row_start, total_rows)
+        detect_many_partials.launches += 1
+        sums = partials.sum(dim=2)
+        dot = sums[:, :, 0:2 * chunk:2].reshape(batch, -1)[:, :n]
+        norm_u = sums[:, :, 1:2 * chunk:2].reshape(batch, -1)[:, :n]
+        return dot, norm_u, sums[:, 0, 2 * chunk]
+    finally:
+        if span:
+            span.end()
 
 
 detect_many_partials.launches = 0

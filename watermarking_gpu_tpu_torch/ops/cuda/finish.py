@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import begin
 from . import build
 
 MASK_TYPES = ("me", "nvf")
@@ -57,46 +58,53 @@ def embed_finish(u_raw: torch.Tensor, output: torch.Tensor,
     one count in ``embed_finish.launches`` a call. Another device, shape or
     dtype raises ``ValueError``.
     """
-    if mask_type not in MASK_TYPES:
-        raise ValueError(f"mask_type must be one of {MASK_TYPES}, got "
-                         f"{mask_type!r}")
-    if u_raw.device.type == "cpu":
-        return embed_finish_plain(u_raw, output, sum_u2, max_e, valid,
-                                  numerator, mask_type)
-    device = u_raw.device
-    if device.type != "cuda" or u_raw.ndim not in (2, 3):
-        raise ValueError(f"embed_finish takes a (B, H, W) or (H, W) CUDA or "
-                         f"CPU u_raw, got {tuple(u_raw.shape)} on {device}")
-    lead = tuple(u_raw.shape[:-2])
-    extra = output.ndim - u_raw.ndim
-    if (extra not in (0, 1) or tuple(output.shape[:u_raw.ndim])
-            != tuple(u_raw.shape) or output.device != device
-            or output.dtype not in (torch.float32, torch.uint8)
-            or not output.is_contiguous()):
-        raise ValueError(f"embed_finish: the output must be a contiguous "
-                         f"float32 or uint8 tensor of shape "
-                         f"{tuple(u_raw.shape)}[+ (C,)] on {device}, got "
-                         f"{tuple(output.shape)} {output.dtype} on "
-                         f"{output.device}")
-    build.check_input("u_raw", u_raw, u_raw.shape, device)
-    build.check_input("sum_u2", sum_u2, lead, device)
-    build.check_input("max_e", max_e, lead, device)
-    if (valid.dtype != torch.bool or tuple(valid.shape) != lead
-            or valid.device != device or not valid.is_contiguous()):
-        raise ValueError(f"valid must be a contiguous bool tensor of shape "
-                         f"{lead} on {device}, got {tuple(valid.shape)} "
-                         f"{valid.dtype} on {valid.device}")
-    rows, cols = u_raw.shape[-2:]
-    watermarked = torch.empty_like(output)
-    strength = torch.empty(lead, dtype=torch.float32, device=device)
-    build.launch("wm_embed_finish", device, u_raw.data_ptr(),
-                 output.data_ptr(), sum_u2.data_ptr(), max_e.data_ptr(),
-                 valid.data_ptr(), watermarked.data_ptr(),
-                 strength.data_ptr(), lead[0] if lead else 1, rows * cols,
-                 output.shape[-1] if extra else 1, numerator,
-                 int(mask_type == "me"), int(output.dtype == torch.uint8))
-    embed_finish.launches += 1
-    return watermarked, strength
+    span = begin("kernels.embed_finish")
+    try:
+        if mask_type not in MASK_TYPES:
+            raise ValueError(f"mask_type must be one of {MASK_TYPES}, got "
+                             f"{mask_type!r}")
+        if u_raw.device.type == "cpu":
+            return embed_finish_plain(u_raw, output, sum_u2, max_e, valid,
+                                      numerator, mask_type)
+        device = u_raw.device
+        if device.type != "cuda" or u_raw.ndim not in (2, 3):
+            raise ValueError(
+                f"embed_finish takes a (B, H, W) or (H, W) CUDA or CPU "
+                f"u_raw, got {tuple(u_raw.shape)} on {device}")
+        lead = tuple(u_raw.shape[:-2])
+        extra = output.ndim - u_raw.ndim
+        if (extra not in (0, 1) or tuple(output.shape[:u_raw.ndim])
+                != tuple(u_raw.shape) or output.device != device
+                or output.dtype not in (torch.float32, torch.uint8)
+                or not output.is_contiguous()):
+            raise ValueError(f"embed_finish: the output must be a contiguous "
+                             f"float32 or uint8 tensor of shape "
+                             f"{tuple(u_raw.shape)}[+ (C,)] on {device}, got "
+                             f"{tuple(output.shape)} {output.dtype} on "
+                             f"{output.device}")
+        build.check_input("u_raw", u_raw, u_raw.shape, device)
+        build.check_input("sum_u2", sum_u2, lead, device)
+        build.check_input("max_e", max_e, lead, device)
+        if (valid.dtype != torch.bool or tuple(valid.shape) != lead
+                or valid.device != device or not valid.is_contiguous()):
+            raise ValueError(
+                f"valid must be a contiguous bool tensor of shape {lead} on "
+                f"{device}, got {tuple(valid.shape)} {valid.dtype} on "
+                f"{valid.device}")
+        rows, cols = u_raw.shape[-2:]
+        watermarked = torch.empty_like(output)
+        strength = torch.empty(lead, dtype=torch.float32, device=device)
+        build.launch("wm_embed_finish", device, u_raw.data_ptr(),
+                     output.data_ptr(), sum_u2.data_ptr(), max_e.data_ptr(),
+                     valid.data_ptr(), watermarked.data_ptr(),
+                     strength.data_ptr(), lead[0] if lead else 1, rows * cols,
+                     output.shape[-1] if extra else 1, numerator,
+                     int(mask_type == "me"), int(output.dtype == torch.uint8))
+        embed_finish.launches += 1
+        return watermarked, strength
+    finally:
+        if span:
+            span.end()
 
 
 embed_finish.launches = 0

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import begin
 from ..me import prediction_error, require_supported_p
 from ..nvf import nvf_mask
 from . import build
@@ -211,25 +212,30 @@ def embed_field(image: torch.Tensor, watermark: torch.Tensor,
 
     CPU tensors take ``embed_field_plain``; CUDA tensors launch the kernel.
     """
-    rows, _ = check_halo(image, top, bottom)
-    if image.device.type == "cpu":
-        return embed_field_plain(image, watermark, coefficients, mask_type, p,
-                                 top, bottom)
-    code = _mask_code(mask_type, p)
-    batch, cols = _check_launch(image, watermark, coefficients,
-                                code == MASK_CODES["me"], p * p - 1, rows)
-    u_raw = torch.empty((batch, rows, cols), dtype=torch.float32,
-                        device=image.device)
-    partials = torch.empty(
-        (batch, build.num_blocks("wm_embed_field", rows, cols, code, p), 2),
-        dtype=torch.float32, device=image.device)
-    build.launch("wm_embed_field", image.device, image.data_ptr(),
-                 watermark.data_ptr(),
-                 None if coefficients is None else coefficients.data_ptr(),
-                 u_raw.data_ptr(), partials.data_ptr(), batch, rows, cols,
-                 code, p, top, bottom)
-    embed_field.launches += 1
-    return u_raw, partials[..., 0].sum(dim=1), partials[..., 1].amax(dim=1)
+    span = begin("kernels.embed_field")
+    try:
+        rows, _ = check_halo(image, top, bottom)
+        if image.device.type == "cpu":
+            return embed_field_plain(image, watermark, coefficients,
+                                     mask_type, p, top, bottom)
+        code = _mask_code(mask_type, p)
+        batch, cols = _check_launch(image, watermark, coefficients,
+                                    code == MASK_CODES["me"], p * p - 1, rows)
+        u_raw = torch.empty((batch, rows, cols), dtype=torch.float32,
+                            device=image.device)
+        blocks = build.num_blocks("wm_embed_field", rows, cols, code, p)
+        partials = torch.empty((batch, blocks, 2), dtype=torch.float32,
+                               device=image.device)
+        build.launch("wm_embed_field", image.device, image.data_ptr(),
+                     watermark.data_ptr(),
+                     None if coefficients is None else coefficients.data_ptr(),
+                     u_raw.data_ptr(), partials.data_ptr(), batch, rows, cols,
+                     code, p, top, bottom)
+        embed_field.launches += 1
+        return u_raw, partials[..., 0].sum(dim=1), partials[..., 1].amax(dim=1)
+    finally:
+        if span:
+            span.end()
 
 
 def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
@@ -245,27 +251,32 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
     CPU tensors take ``detect_partials_plain``; CUDA tensors launch the
     kernel.
     """
-    rows, total_rows = check_halo(
-        image, top, bottom, stencil_reach(mask_type, p), row_start,
-        total_rows, f"the detect tail at {mask_type} p={p}")
-    if image.device.type == "cpu":
-        return detect_partials_plain(image, watermark, coefficients,
-                                     mask_type, p, top, bottom, row_start,
-                                     total_rows)
-    code = _mask_code(mask_type, p)
-    taps = predictor_p(mask_type, p) ** 2 - 1
-    batch, cols = _check_launch(image, watermark, coefficients, True, taps,
-                                image.shape[1])
-    partials = torch.empty(
-        (batch, build.num_blocks("wm_detect_partials", rows, cols), 3),
-        dtype=torch.float32, device=image.device)
-    build.launch("wm_detect_partials", image.device, image.data_ptr(),
-                 watermark.data_ptr(), coefficients.data_ptr(),
-                 partials.data_ptr(), batch, rows, cols, code, p, top, bottom,
-                 row_start, total_rows)
-    detect_partials.launches += 1
-    sums = partials.sum(dim=1)
-    return sums[:, 0], sums[:, 1], sums[:, 2]
+    span = begin("kernels.detect_partials")
+    try:
+        rows, total_rows = check_halo(
+            image, top, bottom, stencil_reach(mask_type, p), row_start,
+            total_rows, f"the detect tail at {mask_type} p={p}")
+        if image.device.type == "cpu":
+            return detect_partials_plain(image, watermark, coefficients,
+                                         mask_type, p, top, bottom, row_start,
+                                         total_rows)
+        code = _mask_code(mask_type, p)
+        taps = predictor_p(mask_type, p) ** 2 - 1
+        batch, cols = _check_launch(image, watermark, coefficients, True, taps,
+                                    image.shape[1])
+        partials = torch.empty(
+            (batch, build.num_blocks("wm_detect_partials", rows, cols), 3),
+            dtype=torch.float32, device=image.device)
+        build.launch("wm_detect_partials", image.device, image.data_ptr(),
+                     watermark.data_ptr(), coefficients.data_ptr(),
+                     partials.data_ptr(), batch, rows, cols, code, p, top,
+                     bottom, row_start, total_rows)
+        detect_partials.launches += 1
+        sums = partials.sum(dim=1)
+        return sums[:, 0], sums[:, 1], sums[:, 2]
+    finally:
+        if span:
+            span.end()
 
 
 embed_field.launches = 0

@@ -39,6 +39,7 @@ import itertools
 
 import torch
 
+from ...utils.profiling import begin
 from ..me import (LANE_BLOCK, assemble_strips_plain, frame_banks,
                   gram_direct, lag_plan, lag_strips_plain, wide_lag_geometry,
                   wide_lag_layout)
@@ -158,12 +159,17 @@ def wide_lag_strips(image: torch.Tensor, p: int, top: int = 0,
     kernel (a frame of rows, cols >= 6h), one count in
     ``wide_lag_strips.launches`` a call.
     """
-    _check_p(p)
-    rows, total_rows = _check_image(image, p, top, bottom, row_start,
-                                    total_rows)
-    if image.device.type == "cpu":
-        return lag_strips_plain(image, p, top, bottom)
-    return _launch_lags(image, p, rows, top, bottom, total_rows)
+    span = begin("kernels.wide_lag_strips")
+    try:
+        _check_p(p)
+        rows, total_rows = _check_image(image, p, top, bottom, row_start,
+                                        total_rows)
+        if image.device.type == "cpu":
+            return lag_strips_plain(image, p, top, bottom)
+        return _launch_lags(image, p, rows, top, bottom, total_rows)
+    finally:
+        if span:
+            span.end()
 
 
 def _check_banks(low: torch.Tensor, high: torch.Tensor, p: int) -> None:
@@ -200,22 +206,28 @@ def wide_assemble(sums: torch.Tensor, edges: torch.Tensor, low: torch.Tensor,
     assembly kernel (the banks' rows contiguous, both with one batch
     stride), one count in ``wide_assemble.launches`` a call.
     """
-    _check_p(p)
-    h = p // 2
-    if not wide_lag_geometry(total_rows, low.shape[-1], p):
-        raise ValueError(f"the wide Gram kernels need a frame of rows, cols "
-                         f">= {6 * h} at p={p}, got {total_rows} rows of "
-                         f"{low.shape[-1]} columns")
-    if low.device.type == "cpu":
-        return assemble_strips_plain(sums, edges, low, high, p)
-    _check_banks(low, high, p)
-    if sums.ndim != 4:
-        raise ValueError(f"sums must be (B, L, S, NB), got "
-                         f"{tuple(sums.shape)}")
-    shape = (low.shape[0], len(lag_plan(p)[0]), *sums.shape[2:])
-    build.check_input("sums", sums, shape, low.device)
-    build.check_input("edges", edges, (*shape[:3], 4 * h), low.device)
-    return _launch_assemble(sums, edges, low, high, p, total_rows)
+    span = begin("kernels.wide_assemble")
+    try:
+        _check_p(p)
+        h = p // 2
+        if not wide_lag_geometry(total_rows, low.shape[-1], p):
+            raise ValueError(
+                f"the wide Gram kernels need a frame of rows, cols >= "
+                f"{6 * h} at p={p}, got {total_rows} rows of "
+                f"{low.shape[-1]} columns")
+        if low.device.type == "cpu":
+            return assemble_strips_plain(sums, edges, low, high, p)
+        _check_banks(low, high, p)
+        if sums.ndim != 4:
+            raise ValueError(f"sums must be (B, L, S, NB), got "
+                             f"{tuple(sums.shape)}")
+        shape = (low.shape[0], len(lag_plan(p)[0]), *sums.shape[2:])
+        build.check_input("sums", sums, shape, low.device)
+        build.check_input("edges", edges, (*shape[:3], 4 * h), low.device)
+        return _launch_assemble(sums, edges, low, high, p, total_rows)
+    finally:
+        if span:
+            span.end()
 
 
 wide_lag_strips.launches = 0
@@ -231,13 +243,18 @@ def me_gram_wide(image: torch.Tensor, p: int) -> torch.Tensor:
     direct per-pair sums, as the JAX package routes such frames to its XLA
     formulation.
     """
-    _check_p(p)
-    rows, cols = image.shape[-2:]
-    if not wide_lag_geometry(rows, cols, p):
-        return gram_direct(image, p)
-    _check_image(image, p)
-    if image.device.type == "cpu":
-        return assemble_strips_plain(*lag_strips_plain(image, p),
-                                     *frame_banks(image, p), p)
-    return _launch_assemble(*_launch_lags(image, p, rows, 0, 0, rows),
-                            *frame_banks(image, p), p, rows)
+    span = begin("kernels.me_gram_wide")
+    try:
+        _check_p(p)
+        rows, cols = image.shape[-2:]
+        if not wide_lag_geometry(rows, cols, p):
+            return gram_direct(image, p)
+        _check_image(image, p)
+        if image.device.type == "cpu":
+            return assemble_strips_plain(*lag_strips_plain(image, p),
+                                         *frame_banks(image, p), p)
+        return _launch_assemble(*_launch_lags(image, p, rows, 0, 0, rows),
+                                *frame_banks(image, p), p, rows)
+    finally:
+        if span:
+            span.end()

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import begin
 from ..me import (GRAM_BLOCK_COLS, assemble_lags_plain, gram_direct,
                   gram_lag_layout, gram_lags_plain, lag_plan)
 from . import build
@@ -134,10 +135,15 @@ def me_gram_lags(image: torch.Tensor, top: int = 0, bottom: int = 0,
     CPU tensors take ``gram_lags_plain``; CUDA tensors launch the lag
     kernel, one count in ``me_gram_lags.launches`` a call.
     """
-    rows = _check_image(image, top, bottom, row_start, total_rows)
-    if image.device.type == "cpu":
-        return gram_lags_plain(image, top, bottom)
-    return _launch_lags(image, rows, top, bottom)
+    span = begin("kernels.me_gram_lags")
+    try:
+        rows = _check_image(image, top, bottom, row_start, total_rows)
+        if image.device.type == "cpu":
+            return gram_lags_plain(image, top, bottom)
+        return _launch_lags(image, rows, top, bottom)
+    finally:
+        if span:
+            span.end()
 
 
 def me_gram_assemble(sums: torch.Tensor, image: torch.Tensor, top: int = 0,
@@ -152,15 +158,20 @@ def me_gram_assemble(sums: torch.Tensor, image: torch.Tensor, top: int = 0,
     ends: a programmatic dependent launch), one count in
     ``me_gram_assemble.launches`` a call.
     """
-    rows = _check_image(image, top, bottom, row_start, total_rows)
-    if image.device.type == "cpu":
-        return assemble_lags_plain(sums, image, top, bottom)
-    if sums.ndim != 4:
-        raise ValueError(f"sums must be (B, 13, S, NB), got "
-                         f"{tuple(sums.shape)}")
-    build.check_input("sums", sums, (image.shape[0], N_LAGS,
-                                     *sums.shape[2:]), image.device)
-    return _launch_assemble(sums, image, rows, top, bottom)
+    span = begin("kernels.me_gram_assemble")
+    try:
+        rows = _check_image(image, top, bottom, row_start, total_rows)
+        if image.device.type == "cpu":
+            return assemble_lags_plain(sums, image, top, bottom)
+        if sums.ndim != 4:
+            raise ValueError(f"sums must be (B, 13, S, NB), got "
+                             f"{tuple(sums.shape)}")
+        build.check_input("sums", sums, (image.shape[0], N_LAGS,
+                                         *sums.shape[2:]), image.device)
+        return _launch_assemble(sums, image, rows, top, bottom)
+    finally:
+        if span:
+            span.end()
 
 
 me_gram_lags.launches = 0
@@ -177,11 +188,16 @@ def me_gram(image: torch.Tensor, top: int = 0, bottom: int = 0,
     assembly kernel (so each of their counts takes one a Gram), the image
     checked once.
     """
-    rows = _check_image(image, top, bottom, row_start, total_rows)
-    if image.device.type == "cpu":
-        return me_gram_plain(image, top, bottom)
-    return _launch_assemble(_launch_lags(image, rows, top, bottom), image,
-                            rows, top, bottom)
+    span = begin("kernels.me_gram")
+    try:
+        rows = _check_image(image, top, bottom, row_start, total_rows)
+        if image.device.type == "cpu":
+            return me_gram_plain(image, top, bottom)
+        return _launch_assemble(_launch_lags(image, rows, top, bottom), image,
+                                rows, top, bottom)
+    finally:
+        if span:
+            span.end()
 
 
 def me_gram_solve8(image: torch.Tensor
@@ -196,35 +212,40 @@ def me_gram_solve8(image: torch.Tensor
     ``me_gram_assemble.launches``, and one in ``me_gram_solve8.launches``,
     a call); another device or shape raises ``ValueError``.
     """
-    if image.ndim != 3:
-        raise ValueError(f"me_gram_solve8 takes (B, H, W) frames, got "
-                         f"{tuple(image.shape)}")
-    rows = _check_image(image, 0, 0, 0, None)
-    if image.device.type == "cpu":
-        gram = me_gram_plain(image)
-        return (gram, *spd_solve8_plain(gram))
-    batch, _, cols = image.shape
-    _, n_strips, n_blocks = gram_lag_layout(rows, cols)
-    # one f32 allocation from the caching allocator on the current stream:
-    # the coefficients (first, at the allocation's alignment), the Gram,
-    # the call's own count of finished assembly blocks a frame (int32;
-    # services on other streams of the card have theirs) and the lag sums
-    buffer = torch.empty(batch * (90 + N_LAGS * n_strips * n_blocks),
-                         dtype=torch.float32, device=image.device)
-    coefficients = buffer[:8 * batch].view(batch, 8)
-    gram = buffer[8 * batch:89 * batch].view(batch, 9, 9)
-    valid = torch.empty(batch, dtype=torch.bool, device=image.device)
-    done = buffer.data_ptr() + 4 * 89 * batch
-    sums = done + 4 * batch
-    build.launch_many(
-        image.device, _lags_call(image, rows, 0, 0, sums, done),
-        _assemble_call(image, rows, 0, 0, sums, n_strips * n_blocks,
-                       gram.data_ptr(), (coefficients.data_ptr(),
-                                         valid.data_ptr(), done)))
-    me_gram_lags.launches += 1
-    me_gram_assemble.launches += 1
-    me_gram_solve8.launches += 1
-    return gram, coefficients, valid
+    span = begin("kernels.me_gram_solve8")
+    try:
+        if image.ndim != 3:
+            raise ValueError(f"me_gram_solve8 takes (B, H, W) frames, got "
+                             f"{tuple(image.shape)}")
+        rows = _check_image(image, 0, 0, 0, None)
+        if image.device.type == "cpu":
+            gram = me_gram_plain(image)
+            return (gram, *spd_solve8_plain(gram))
+        batch, _, cols = image.shape
+        _, n_strips, n_blocks = gram_lag_layout(rows, cols)
+        # one f32 allocation from the caching allocator on the current stream:
+        # the coefficients (first, at the allocation's alignment), the Gram,
+        # the call's own count of finished assembly blocks a frame (int32;
+        # services on other streams of the card have theirs) and the lag sums
+        buffer = torch.empty(batch * (90 + N_LAGS * n_strips * n_blocks),
+                             dtype=torch.float32, device=image.device)
+        coefficients = buffer[:8 * batch].view(batch, 8)
+        gram = buffer[8 * batch:89 * batch].view(batch, 9, 9)
+        valid = torch.empty(batch, dtype=torch.bool, device=image.device)
+        done = buffer.data_ptr() + 4 * 89 * batch
+        sums = done + 4 * batch
+        build.launch_many(
+            image.device, _lags_call(image, rows, 0, 0, sums, done),
+            _assemble_call(image, rows, 0, 0, sums, n_strips * n_blocks,
+                           gram.data_ptr(), (coefficients.data_ptr(),
+                                             valid.data_ptr(), done)))
+        me_gram_lags.launches += 1
+        me_gram_assemble.launches += 1
+        me_gram_solve8.launches += 1
+        return gram, coefficients, valid
+    finally:
+        if span:
+            span.end()
 
 
 me_gram_solve8.launches = 0

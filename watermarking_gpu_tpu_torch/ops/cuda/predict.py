@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import begin
 from ..me import prediction_error as prediction_error_plain
 from ..me import require_supported_p
 from . import build
@@ -27,35 +28,40 @@ def prediction_error(image: torch.Tensor, coefficients: torch.Tensor,
     CPU tensors take ``prediction_error_plain``; CUDA tensors launch the
     kernel.
     """
-    require_supported_p(p)
-    if image.ndim == 2:
-        if tuple(coefficients.shape) != (p * p - 1,):
-            raise ValueError(f"coefficients must have shape ({p * p - 1},) "
-                             f"for an (H, W) image, got "
+    span = begin("kernels.prediction_error")
+    try:
+        require_supported_p(p)
+        if image.ndim == 2:
+            if tuple(coefficients.shape) != (p * p - 1,):
+                raise ValueError(f"coefficients must have shape "
+                                 f"({p * p - 1},) for an (H, W) image, got "
+                                 f"{tuple(coefficients.shape)}")
+            return prediction_error(image[None], coefficients[None], p)[0]
+        if image.ndim != 3:
+            raise ValueError(f"prediction_error takes a (B, H, W) or (H, W) "
+                             f"image, got {tuple(image.shape)}")
+        batch, rows, cols = image.shape
+        if tuple(coefficients.shape) != (batch, p * p - 1):
+            raise ValueError(f"coefficients must have shape "
+                             f"{(batch, p * p - 1)}, got "
                              f"{tuple(coefficients.shape)}")
-        return prediction_error(image[None], coefficients[None], p)[0]
-    if image.ndim != 3:
-        raise ValueError(f"prediction_error takes a (B, H, W) or (H, W) "
-                         f"image, got {tuple(image.shape)}")
-    batch, rows, cols = image.shape
-    if tuple(coefficients.shape) != (batch, p * p - 1):
-        raise ValueError(f"coefficients must have shape "
-                         f"{(batch, p * p - 1)}, got "
-                         f"{tuple(coefficients.shape)}")
-    if image.device.type == "cpu":
-        return prediction_error_plain(image, coefficients, p)
-    if image.device.type != "cuda":
-        raise ValueError(f"prediction_error takes a CUDA or CPU tensor, got "
-                         f"one on {image.device}")
-    build.check_input("image", image, (batch, rows, cols), image.device)
-    build.check_input("coefficients", coefficients, (batch, p * p - 1),
-                      image.device)
-    out = torch.empty_like(image)
-    build.launch("wm_prediction_error", image.device, image.data_ptr(),
-                 coefficients.data_ptr(), out.data_ptr(), batch, rows, cols,
-                 p)
-    prediction_error.launches += 1
-    return out
+        if image.device.type == "cpu":
+            return prediction_error_plain(image, coefficients, p)
+        if image.device.type != "cuda":
+            raise ValueError(f"prediction_error takes a CUDA or CPU tensor, "
+                             f"got one on {image.device}")
+        build.check_input("image", image, (batch, rows, cols), image.device)
+        build.check_input("coefficients", coefficients, (batch, p * p - 1),
+                          image.device)
+        out = torch.empty_like(image)
+        build.launch("wm_prediction_error", image.device, image.data_ptr(),
+                     coefficients.data_ptr(), out.data_ptr(), batch, rows,
+                     cols, p)
+        prediction_error.launches += 1
+        return out
+    finally:
+        if span:
+            span.end()
 
 
 prediction_error.launches = 0

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import begin
 from ..me import solve_coefficients_spd, solve_coefficients_spd_blocked
 from . import build
 
@@ -42,20 +43,26 @@ def spd_solve8(gram: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     CPU tensors take ``spd_solve8_plain``; CUDA tensors launch the kernel,
     one count in ``spd_solve8.launches`` a call.
     """
-    if gram.device.type == "cpu":
-        return spd_solve8_plain(gram)
-    if gram.device.type != "cuda" or gram.ndim != 3:
-        raise ValueError(f"spd_solve8 takes a (B, 9, 9) CUDA or CPU tensor, "
-                         f"got {tuple(gram.shape)} on {gram.device}")
-    batch = gram.shape[0]
-    build.check_input("gram", gram, (batch, 9, 9), gram.device)
-    coefficients = torch.empty((batch, 8), dtype=torch.float32,
-                               device=gram.device)
-    valid = torch.empty(batch, dtype=torch.bool, device=gram.device)
-    build.launch("wm_spd_solve8", gram.device, gram.data_ptr(),
-                 coefficients.data_ptr(), valid.data_ptr(), batch)
-    spd_solve8.launches += 1
-    return coefficients, valid
+    span = begin("kernels.spd_solve8")
+    try:
+        if gram.device.type == "cpu":
+            return spd_solve8_plain(gram)
+        if gram.device.type != "cuda" or gram.ndim != 3:
+            raise ValueError(f"spd_solve8 takes a (B, 9, 9) CUDA or CPU "
+                             f"tensor, got {tuple(gram.shape)} on "
+                             f"{gram.device}")
+        batch = gram.shape[0]
+        build.check_input("gram", gram, (batch, 9, 9), gram.device)
+        coefficients = torch.empty((batch, 8), dtype=torch.float32,
+                                   device=gram.device)
+        valid = torch.empty(batch, dtype=torch.bool, device=gram.device)
+        build.launch("wm_spd_solve8", gram.device, gram.data_ptr(),
+                     coefficients.data_ptr(), valid.data_ptr(), batch)
+        spd_solve8.launches += 1
+        return coefficients, valid
+    finally:
+        if span:
+            span.end()
 
 
 spd_solve8.launches = 0
@@ -78,26 +85,31 @@ def spd_solve_wide(gram: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     kernel, one count in ``spd_solve_wide.launches`` a call. Another
     device, shape or dtype raises ``ValueError``.
     """
-    k = gram.shape[-1] - 1 if gram.ndim == 3 else -1
-    if k not in WIDE_UNKNOWNS or gram.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"spd_solve_wide takes a (B, k+1, k+1) CUDA or CPU "
-                         f"tensor, k in {WIDE_UNKNOWNS}, got "
-                         f"{tuple(gram.shape)} on {gram.device}")
-    batch = gram.shape[0]
-    if gram.device.type == "cpu":
-        if gram.dtype != torch.float32 or gram.shape[1] != k + 1:
-            raise ValueError(f"spd_solve_wide takes a (B, {k + 1}, {k + 1}) "
-                             f"float32 tensor, got {tuple(gram.shape)} "
-                             f"{gram.dtype}")
-        return spd_solve_wide_plain(gram)
-    build.check_input("gram", gram, (batch, k + 1, k + 1), gram.device)
-    coefficients = torch.empty((batch, k), dtype=torch.float32,
-                               device=gram.device)
-    valid = torch.empty(batch, dtype=torch.bool, device=gram.device)
-    build.launch("wm_spd_solve_wide", gram.device, gram.data_ptr(),
-                 coefficients.data_ptr(), valid.data_ptr(), batch, k)
-    spd_solve_wide.launches += 1
-    return coefficients, valid
+    span = begin("kernels.spd_solve_wide")
+    try:
+        k = gram.shape[-1] - 1 if gram.ndim == 3 else -1
+        if k not in WIDE_UNKNOWNS or gram.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"spd_solve_wide takes a (B, k+1, k+1) CUDA or "
+                             f"CPU tensor, k in {WIDE_UNKNOWNS}, got "
+                             f"{tuple(gram.shape)} on {gram.device}")
+        batch = gram.shape[0]
+        if gram.device.type == "cpu":
+            if gram.dtype != torch.float32 or gram.shape[1] != k + 1:
+                raise ValueError(f"spd_solve_wide takes a (B, {k + 1}, "
+                                 f"{k + 1}) float32 tensor, got "
+                                 f"{tuple(gram.shape)} {gram.dtype}")
+            return spd_solve_wide_plain(gram)
+        build.check_input("gram", gram, (batch, k + 1, k + 1), gram.device)
+        coefficients = torch.empty((batch, k), dtype=torch.float32,
+                                   device=gram.device)
+        valid = torch.empty(batch, dtype=torch.bool, device=gram.device)
+        build.launch("wm_spd_solve_wide", gram.device, gram.data_ptr(),
+                     coefficients.data_ptr(), valid.data_ptr(), batch, k)
+        spd_solve_wide.launches += 1
+        return coefficients, valid
+    finally:
+        if span:
+            span.end()
 
 
 spd_solve_wide.launches = 0

@@ -31,6 +31,7 @@ from typing import Literal
 
 import torch
 
+from ..utils.profiling import begin
 from .correlation import correlation
 from .cuda import (detect_many_partials, detect_partials, embed_field,
                    embed_finish, me_gram_solve8, me_gram_wide,
@@ -114,9 +115,14 @@ def _embed_u8_fused(lumas: torch.Tensor, watermark: torch.Tensor,
     cast back to uint8 (truncating): the lumas widen once, as the image,
     and the embed finish reads them as the output and writes the uint8
     frames itself."""
-    _check_args(mask_type, p, "cuda")
-    return _embed_fused(_to_f32(lumas), lumas, _to_f32(watermark),
-                        strength_factor_value, mask_type, p)
+    span = begin("pipeline.embed_u8")
+    try:
+        _check_args(mask_type, p, "cuda")
+        return _embed_fused(_to_f32(lumas), lumas, _to_f32(watermark),
+                            strength_factor_value, mask_type, p)
+    finally:
+        if span:
+            span.end()
 
 
 def embed_pipeline(image: torch.Tensor, output: torch.Tensor,
@@ -129,22 +135,28 @@ def embed_pipeline(image: torch.Tensor, output: torch.Tensor,
     Returns (watermarked, strengths). On an unsolvable ME system the output
     is returned unmodified and the strength is 0 (Watermark.cpp:164-165).
     """
-    _check_args(mask_type, p, impl)
-    image, output, watermark = map(_to_f32, (image, output, watermark))
-    if impl == "cuda":
-        return _embed_fused(image, output, watermark, strength_factor_value,
-                            mask_type, p)
-    if mask_type == "me":
-        coefficients, valid = _analysis(image, p)
-        mask = me_mask_from_error(prediction_error(image, coefficients, p))
-    else:
-        mask = nvf_mask(image, p)
-        valid = torch.ones(image.shape[:-2], dtype=torch.bool,
-                           device=image.device)
-    watermarked, strength = embed_watermark(output, mask, watermark,
-                                            strength_factor_value)
-    return (_gate(watermarked, valid, output),
-            torch.where(valid, strength, 0.0))
+    span = begin("pipeline.embed")
+    try:
+        _check_args(mask_type, p, impl)
+        image, output, watermark = map(_to_f32, (image, output, watermark))
+        if impl == "cuda":
+            return _embed_fused(image, output, watermark,
+                                strength_factor_value, mask_type, p)
+        if mask_type == "me":
+            coefficients, valid = _analysis(image, p)
+            mask = me_mask_from_error(prediction_error(image, coefficients,
+                                                       p))
+        else:
+            mask = nvf_mask(image, p)
+            valid = torch.ones(image.shape[:-2], dtype=torch.bool,
+                               device=image.device)
+        watermarked, strength = embed_watermark(output, mask, watermark,
+                                                strength_factor_value)
+        return (_gate(watermarked, valid, output),
+                torch.where(valid, strength, 0.0))
+    finally:
+        if span:
+            span.end()
 
 
 def detect_pipeline(image: torch.Tensor, watermark: torch.Tensor,
@@ -156,26 +168,31 @@ def detect_pipeline(image: torch.Tensor, watermark: torch.Tensor,
     coefficients and error sequence, with the NVF mask in place of the ME
     mask (Watermark.cpp:238-241). Returns 0 where the system is unsolvable.
     """
-    _check_args(mask_type, p, impl)
-    image, watermark = map(_to_f32, (image, watermark))
-    if impl == "cuda":
-        squeeze = image.ndim == 2
-        img3 = (image[None] if squeeze else image).contiguous()
-        coefficients, valid = _fused_analysis(img3,
-                                              predictor_p(mask_type, p))
-        dot, norm_u, norm_z = detect_partials(img3, watermark.contiguous(),
-                                              coefficients, mask_type, p)
-        corr = dot / torch.sqrt(norm_u * norm_z)
-        if squeeze:
-            corr, valid = corr[0], valid[0]
-        return torch.where(valid, corr, 0.0)
-    pred_p = predictor_p(mask_type, p)
-    coefficients, valid = _analysis(image, pred_p)
-    e_z = prediction_error(image, coefficients, pred_p)
-    mask = me_mask_from_error(e_z) if mask_type == "me" else nvf_mask(image,
-                                                                      p)
-    e_u = prediction_error(mask * watermark, coefficients, pred_p)
-    return torch.where(valid, correlation(e_u, e_z), 0.0)
+    span = begin("pipeline.detect")
+    try:
+        _check_args(mask_type, p, impl)
+        image, watermark = map(_to_f32, (image, watermark))
+        if impl == "cuda":
+            squeeze = image.ndim == 2
+            img3 = (image[None] if squeeze else image).contiguous()
+            coefficients, valid = _fused_analysis(img3,
+                                                  predictor_p(mask_type, p))
+            dot, norm_u, norm_z = detect_partials(
+                img3, watermark.contiguous(), coefficients, mask_type, p)
+            corr = dot / torch.sqrt(norm_u * norm_z)
+            if squeeze:
+                corr, valid = corr[0], valid[0]
+            return torch.where(valid, corr, 0.0)
+        pred_p = predictor_p(mask_type, p)
+        coefficients, valid = _analysis(image, pred_p)
+        e_z = prediction_error(image, coefficients, pred_p)
+        mask = (me_mask_from_error(e_z) if mask_type == "me"
+                else nvf_mask(image, p))
+        e_u = prediction_error(mask * watermark, coefficients, pred_p)
+        return torch.where(valid, correlation(e_u, e_z), 0.0)
+    finally:
+        if span:
+            span.end()
 
 
 def fused_detect_many_applies(n: int, rows: int, cols: int, mask_type: str,
@@ -210,28 +227,33 @@ def detect_many_pipeline(image: torch.Tensor, watermarks: torch.Tensor,
     (B, N, H, W) u and e_u of ``impl="torch"``'s formulation. Returns 0 for
     every candidate of an unsolvable image.
     """
-    _check_args(mask_type, p, impl)
-    image, watermarks = map(_to_f32, (image, watermarks))
-    n, rows, cols = watermarks.shape
-    batch_shape = image.shape[:-2]
-    pred_p = predictor_p(mask_type, p)
-    if fused_detect_many_applies(n, rows, cols, mask_type, p, impl):
-        img3 = image.reshape(-1, rows, cols).contiguous()
-        coefficients, valid = _fused_analysis(img3, pred_p)
-        dot, norm_u, norm_z = detect_many_partials(
-            img3, watermarks.contiguous(), coefficients, mask_type, p)
-        corr = dot / torch.sqrt(norm_u * norm_z[:, None])
-        corr = torch.where(valid[:, None], corr, 0.0)
-        return corr.reshape(batch_shape + (n,))
-    coefficients, valid = _analysis(image, pred_p)
-    e_z = prediction_error(image, coefficients, pred_p)
-    mask = me_mask_from_error(e_z) if mask_type == "me" else nvf_mask(image,
-                                                                      p)
-    u = mask[..., None, :, :] * watermarks               # (..., N, H, W)
-    e_u = prediction_error(u, coefficients[..., None, :], pred_p)
-    dims = (-2, -1)
-    dot = (e_u * e_z[..., None, :, :]).sum(dim=dims)
-    norm_u = torch.sqrt((e_u * e_u).sum(dim=dims))
-    norm_z = torch.sqrt((e_z * e_z).sum(dim=dims))
-    return torch.where(valid[..., None], dot / (norm_u * norm_z[..., None]),
-                       0.0)
+    span = begin("pipeline.detect_many")
+    try:
+        _check_args(mask_type, p, impl)
+        image, watermarks = map(_to_f32, (image, watermarks))
+        n, rows, cols = watermarks.shape
+        batch_shape = image.shape[:-2]
+        pred_p = predictor_p(mask_type, p)
+        if fused_detect_many_applies(n, rows, cols, mask_type, p, impl):
+            img3 = image.reshape(-1, rows, cols).contiguous()
+            coefficients, valid = _fused_analysis(img3, pred_p)
+            dot, norm_u, norm_z = detect_many_partials(
+                img3, watermarks.contiguous(), coefficients, mask_type, p)
+            corr = dot / torch.sqrt(norm_u * norm_z[:, None])
+            corr = torch.where(valid[:, None], corr, 0.0)
+            return corr.reshape(batch_shape + (n,))
+        coefficients, valid = _analysis(image, pred_p)
+        e_z = prediction_error(image, coefficients, pred_p)
+        mask = (me_mask_from_error(e_z) if mask_type == "me"
+                else nvf_mask(image, p))
+        u = mask[..., None, :, :] * watermarks               # (..., N, H, W)
+        e_u = prediction_error(u, coefficients[..., None, :], pred_p)
+        dims = (-2, -1)
+        dot = (e_u * e_z[..., None, :, :]).sum(dim=dims)
+        norm_u = torch.sqrt((e_u * e_u).sum(dim=dims))
+        norm_z = torch.sqrt((e_z * e_z).sum(dim=dims))
+        return torch.where(valid[..., None],
+                           dot / (norm_u * norm_z[..., None]), 0.0)
+    finally:
+        if span:
+            span.end()

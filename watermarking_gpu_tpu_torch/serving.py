@@ -19,6 +19,7 @@ device when the service was built.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue
 import threading
 import time
@@ -33,6 +34,12 @@ from .parallel import (DATA_AXIS, SPACE_AXIS, Sharded, make_dp_detect,
                        make_dp_detect_many, make_dp_embed, make_hybrid_detect,
                        make_hybrid_embed, make_mesh_detect_many, replicate,
                        shard, shard_frames, shard_hybrid, shard_watermark)
+from .utils import profiling
+
+# ids of requests and of batches, unique in the process, so that the spans
+# of two services never share one
+_REQUEST_IDS = itertools.count()
+_BATCH_IDS = itertools.count()
 
 
 class _BatchingService:
@@ -52,6 +59,15 @@ class _BatchingService:
     device blocks in ``submit`` instead of buffering frames without limit
     (1080p f32 frames at a few hundred fps of excess would be ~GB/min of
     host RAM). ``None`` makes the queue unbounded.
+
+    Each accepted request and each dispatched batch gets an id unique in
+    the process. While ``utils.profiling`` records, a request leaves a
+    ``serving.request`` span (``submit`` accepts it -> its future is
+    resolved) and its batch ``serving.gather`` (the first frame popped ->
+    the batch closes), ``serving.stage`` (stacking, the copy to the device
+    and the launches), ``serving.inflight`` (handed to the collector ->
+    taken) and ``serving.collect`` (the copy back and the futures
+    resolved).
     """
 
     def __init__(self, engine: BatchedWatermark, mask_type, batch_size: int,
@@ -170,6 +186,13 @@ class _BatchingService:
         except InvalidStateError:
             return False
 
+    @staticmethod
+    def _requests_done(requests, opened) -> None:
+        """Each request's ``serving.request`` span, once resolved."""
+        for request, start in zip(requests, opened):
+            if start is not None:    # None: not recording when submitted
+                profiling.record("serving.request", start, request=request)
+
     def _dispatch_loop(self):
         while True:
             items = []
@@ -177,6 +200,7 @@ class _BatchingService:
             if item is None:
                 self._inflight.put(None)
                 return
+            gathering = profiling.stamp()
             items.append(item)
             # opportunistically fill the batch, waiting briefly for stragglers
             while len(items) < self.batch_size:
@@ -185,55 +209,75 @@ class _BatchingService:
                 except queue.Empty:
                     break
                 if nxt is None:
-                    self._drain_batch(items)
+                    self._drain_batch(items, gathering)
                     self._inflight.put(None)
                     return
                 items.append(nxt)
-            self._drain_batch(items)
+            self._drain_batch(items, gathering)
 
-    def _drain_batch(self, items):
+    def _drain_batch(self, items, gathering):
         if not items:
             return
-        futures, frames = zip(*items)
+        futures, frames, requests, opened = zip(*items)
         real = len(frames)
+        batch = next(_BATCH_IDS)
+        profiling.record("serving.gather", gathering, batch=batch,
+                         requests=requests)
         try:
-            stack = pad_to_batch(np.stack(frames), self.batch_size)
-            with self._on_stream():
-                device_result = self._run_batch(stack)   # async launches
+            span = profiling.begin("serving.stage", batch=batch)
+            try:
+                stack = pad_to_batch(np.stack(frames), self.batch_size)
+                with self._on_stream():
+                    device_result = self._run_batch(stack)  # async launches
+            finally:
+                if span:
+                    span.end()
         except Exception as exc:  # shape errors must not hang callers
             failed = sum(self._finish(future, exc=exc)
                          for future in futures)
             with self._stats_lock:
                 self._failed += failed
+            self._requests_done(requests, opened)
             return
         with self._stats_lock:
             self._batches += 1
             self._batched_frames += real
-        self._inflight.put((futures, device_result, real,
-                            time.monotonic()))
+        self._inflight.put((futures, device_result, real, time.monotonic(),
+                            (batch, requests, opened, profiling.stamp())))
 
     def _collect_loop(self):
         while True:
             entry = self._inflight.get()
             if entry is None:
                 return
-            futures, device_result, real, dispatched_at = entry
+            futures, device_result, real, dispatched_at, spans = entry
+            batch, requests, opened, queued = spans
+            profiling.record("serving.inflight", queued, batch=batch)
+            span = profiling.begin("serving.collect", batch=batch)
             try:
-                host = self._to_host(device_result)
-            except Exception as exc:  # propagate device errors to callers
-                failed = sum(self._finish(future, exc=exc)
-                             for future in futures)
-                with self._stats_lock:
-                    self._failed += failed
-                continue
-            latency = time.monotonic() - dispatched_at
-            completed = sum(self._resolve(future, host, index)
-                            for index, future in enumerate(futures[:real]))
+                self._collect(futures, device_result, real, dispatched_at)
+            finally:
+                if span:
+                    span.end()
+            self._requests_done(requests, opened)
+
+    def _collect(self, futures, device_result, real, dispatched_at):
+        """Wait for a batch, copy it back and resolve its futures."""
+        try:
+            host = self._to_host(device_result)
+        except Exception as exc:  # propagate device errors to callers
+            failed = sum(self._finish(future, exc=exc) for future in futures)
             with self._stats_lock:
-                self._completed += completed
-                self._latency_sum += latency
-                self._latency_count += 1
-                self._latency_max = max(self._latency_max, latency)
+                self._failed += failed
+            return
+        latency = time.monotonic() - dispatched_at
+        completed = sum(self._resolve(future, host, index)
+                        for index, future in enumerate(futures[:real]))
+        with self._stats_lock:
+            self._completed += completed
+            self._latency_sum += latency
+            self._latency_count += 1
+            self._latency_max = max(self._latency_max, latency)
 
     # -- public -------------------------------------------------------------
 
@@ -284,7 +328,9 @@ class _BatchingService:
                     # the put stays under the lock: a submit racing close()
                     # must not land after the None sentinel (the queue
                     # itself is unbounded, so this never blocks)
-                    self._submissions.put((future, frame))
+                    self._submissions.put((future, frame,
+                                           next(_REQUEST_IDS),
+                                           profiling.stamp()))
                     return future
             # full: wait OUTSIDE the lock, then re-check closed/capacity
             if deadline is not None:
