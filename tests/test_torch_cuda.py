@@ -39,6 +39,8 @@ from watermarking_gpu_tpu_torch.io.matfile import save_watermark
 from watermarking_gpu_tpu_torch.models import BatchedWatermark, pad_to_batch
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import pipelines
+from watermarking_gpu_tpu_torch.ops.cuda.detect_many import cluster_size
+from watermarking_gpu_tpu_torch.ops.cuda.fused import _mask_code
 from watermarking_gpu_tpu_torch.ops.me import (GRAM_STRIP_ROWS,
                                                solve_coefficients)
 from watermarking_gpu_tpu_torch.ops.pipelines import _analysis
@@ -458,17 +460,25 @@ def test_wide_kernels_match_plain_on_card(device, p, shape):
 @pytest.mark.parametrize("shape,n", [((3, 40, 96), 10), ((2, 37, 83), 5),
                                      ((2, 1, 5), 3), ((2, 1080, 1920), 9),
                                      ((1, 40, 96), 64), ((9, 37, 83), 65),
-                                     ((2, 45, 4), 130), ((2, 40, 256), 5)])
+                                     ((2, 45, 4), 130), ((2, 40, 256), 5),
+                                     ((8, 1080, 1920), 64),
+                                     ((8, 1080, 1920), 65),
+                                     ((4, 40, 256), 10), ((6, 40, 256), 10),
+                                     ((5, 40, 256), 10)])
 @pytest.mark.parametrize("p", [3, 5, 7, 9])
 def test_detect_many_matches_plain_on_card(device, p, shape, n):
     """The multi-candidate kernel against its plain version, with banks of
     part of a chunk of 64 (10, 5, 3, 9), a full chunk (64), a partial second
-    chunk (65) and a partial third (130); one frame and nine; a frame 4
-    pixels wide. Each candidate's sums also against the detect tail's for
-    that watermark alone. Tiles whose rows lie inside the frame copy a
-    16-byte aligned bank in 16-byte chunks (at 40 x 256 and 1080 x 1920):
-    the same bank starting 4 bytes past an alignment boundary takes the
-    4-byte copies and must give the same sums.
+    chunk (65) and a partial third (130); one frame, four, five, six, eight
+    and nine; a frame 4 pixels wide. Each candidate's sums also against the
+    detect tail's for that watermark alone. Tiles whose rows lie inside the
+    frame copy a 16-byte aligned bank in 16-byte chunks (at 40 x 256 and
+    1080 x 1920), and at a 3 x 3 predictor (ME p=3, NVF) where the batch is
+    even (2, 4, 6, 8 frames; not 1, 3, 5, 9) pairs of frames run as a
+    cluster in which one bulk copy a row lands in both blocks:
+    ``detect_many_partials.clustered`` counts exactly those launches. The
+    same bank starting 4 bytes past an alignment boundary takes each
+    block's 4-byte copies and must give the same sums.
 
     A dot is held as the correlation it becomes, dot / sqrt(||e_u||^2
     ||e_z||^2): for a candidate the frame does not carry it is a sum of
@@ -488,7 +498,14 @@ def test_detect_many_matches_plain_on_card(device, p, shape, n):
         pred_p = p if mask_type == "me" else 3
         coeffs = _analysis(frames.cpu(), pred_p)[0].to(device)
         before = kernels.launch_counts()
+        clustered = kernels.detect_many_partials.clustered
         got = kernels.detect_many_partials(frames, bank, coeffs, mask_type, p)
+        cluster = (2 if shape[0] % 2 == 0 and (mask_type == "nvf" or p == 3)
+                   else 1)
+        assert kernels.detect_many_partials.clustered == clustered + (
+            cluster > 1)
+        assert cluster_size(device, shape[0], _mask_code(mask_type, p),
+                            p) == cluster
         want = kernels.detect_many_partials_plain(frames, bank, coeffs,
                                                   mask_type, p)
         scale = torch.sqrt(want[1] * want[2][:, None])
@@ -771,8 +788,11 @@ def extended(frames: torch.Tensor, start: int, stop: int, halo: int):
 # interior and the bottom one; (3, 40, 96) in 4 of 10 rows (a shard shorter
 # than a tile and than a Gram strip), (2, 150, 90) in 2 of 75 rows (two
 # tiles, rows no multiple of 4 floats), (1, 270 * 3, 520) in 3 of 270 (the
-# main path's shard height, a second column block of the Gram)
-HALO_SHAPES = {(3, 40, 96): 10, (2, 150, 90): 75, (1, 810, 520): 270}
+# main path's shard height, a second column block of the Gram), (8, 120,
+# 256) in 3 of 40 (eight frames: the multi-candidate kernel's clusters, with
+# tiles whose rows are whole chunks)
+HALO_SHAPES = {(3, 40, 96): 10, (2, 150, 90): 75, (1, 810, 520): 270,
+               (8, 120, 256): 40}
 
 
 @pytest.mark.parametrize("shape", list(HALO_SHAPES))
@@ -790,7 +810,10 @@ def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
     wide Gram's lag kernel at the detect tail's 2h halo against its plain
     halo form, the shards' sums folded and assembled with the frame's banks
     by the assembly kernel against its plain version and the frame's wide
-    Gram."""
+    Gram. The multi-candidate launches of an even batch at a 3 x 3
+    predictor run in clusters (``detect_many_partials.clustered``): at 8
+    frames of 256 columns the interior tiles share each candidate's copy,
+    clamped rows and seams included."""
     frames, wm, coeffs = make_inputs(shape, device)
     if mask_type == "me" and p != 3:
         coeffs = torch.zeros(shape[0], p * p - 1, device=device)
@@ -805,6 +828,7 @@ def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
         size=(5,) + shape[1:]).astype(np.float32)).to(device)
     grams = {halo: [] for halo in {half, reach}}
     many, strips = [], []
+    clustered = kernels.detect_many_partials.clustered
     for start in range(0, total, rows):
         stop = start + rows
         ext = extended(frames, start, stop, reach)
@@ -872,6 +896,11 @@ def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
                                atol=1e-6)
     torch.testing.assert_close(norm_u, want[1], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(norm_z, want[2], rtol=1e-4, atol=1e-6)
+    # every multi-candidate launch of an even batch at a 3 x 3 predictor
+    # runs in clusters
+    assert kernels.detect_many_partials.clustered - clustered == (
+        len(many) + 1 if shape[0] % 2 == 0 and (mask_type == "nvf" or p == 3)
+        else 0)
     if wide:
         folded = [sum(parts) for parts in zip(*strips)]
         banks = kernels.frame_banks(frames, p)

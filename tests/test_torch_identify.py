@@ -167,6 +167,24 @@ def test_bank_on_the_device_is_used_in_place(monkeypatch):
     assert seen[0].data_ptr() == wms.data_ptr()
 
 
+def test_cpu_tensors_count_no_launch_and_no_cluster():
+    """CPU tensors take the plain version: neither ``launches`` nor
+    ``clustered`` counts; ``launch_counts`` leaves ``clustered`` out and
+    ``reset_launch_counts`` zeroes it."""
+    kernels.detect_many_partials.clustered = 3
+    before = kernels.launch_counts()
+    imgs = torch.from_numpy(frames((8, 37, 83)))
+    coeffs = torch.full((8, 8), 0.125)
+    kernels.detect_many_partials(imgs, torch.from_numpy(bank(3, 37, 83)),
+                                 coeffs, "me", 3)
+    assert kernels.launch_counts() == before
+    assert kernels.detect_many_partials.clustered == 3
+    assert "clustered" not in kernels.launch_counts()
+    kernels.reset_launch_counts()
+    assert kernels.detect_many_partials.clustered == 0
+    assert not any(kernels.launch_counts().values())
+
+
 def test_detect_many_shape_checks():
     engine = Watermark(37, 83, 5, p=3, device="cpu")
     wms = bank(2, 37, 83)

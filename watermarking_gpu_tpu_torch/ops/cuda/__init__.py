@@ -16,9 +16,12 @@ predictor's from the wide Gram, one launch a solve. ``embed_finish`` scales the 
 adds it to the output, one launch a fused embed.
 ``prediction_error`` and ``nvf_mask`` are standalone ops that no engine path
 calls (their modules say why); the rest carry the embed, detect and
-identification paths. Each wrapper of ``KERNELS``, ``me_gram`` and
-``me_gram_wide`` opens a ``kernels.<name>`` span (``utils/profiling.py``)
-over its checks, allocations and launch.
+identification paths. ``detect_many_partials.clustered`` counts, beside its
+launches, those that ran in clusters of frames sharing each candidate's
+copy; ``launch_counts`` leaves it out, ``reset_launch_counts`` zeroes it.
+Each wrapper of ``KERNELS``, ``me_gram`` and ``me_gram_wide`` opens a
+``kernels.<name>`` span (``utils/profiling.py``) over its checks,
+allocations and launch.
 """
 
 from ..me import (assemble_lags_plain, assemble_strips_plain, frame_banks,
@@ -51,6 +54,7 @@ KERNELS = {"me_gram_lags": me_gram_lags,
 def reset_launch_counts() -> None:
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+    detect_many_partials.clustered = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -59,6 +59,7 @@ SIGNATURES = {
     "wm_detect_partials": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                            _INT, _INT, _INT, _INT, _INT, _PTR),
     "wm_detect_many_chunk": (),
+    "wm_detect_many_cluster": (_INT, _INT, _INT),
     "wm_detect_many_num_blocks": (_INT, _INT),
     "wm_detect_many": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                        _INT, _INT, _INT, _INT, _INT, _PTR),

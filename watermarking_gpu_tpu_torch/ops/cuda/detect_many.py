@@ -26,6 +26,8 @@ total_rows``) and is u of the true rows at a seam, which needs
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...utils.profiling import begin
@@ -75,7 +77,10 @@ def detect_many_partials(image: torch.Tensor, bank: torch.Tensor,
     CPU tensors take ``detect_many_partials_plain``; CUDA tensors launch the
     kernel: one block per tile of a frame's owned rows and chunk of
     ``chunk`` candidates, each writing its sums to a (B, chunks, blocks,
-    2 * chunk + 1) partials buffer that is finished here.
+    2 * chunk + 1) partials buffer that is finished here. Where the batch
+    allows it (``cluster_size``), the blocks of one tile and chunk run in
+    clusters that copy each candidate's tile once for their frames;
+    ``detect_many_partials.clustered`` counts those launches.
     """
     span = begin("kernels.detect_many")
     try:
@@ -110,6 +115,8 @@ def detect_many_partials(image: torch.Tensor, bank: torch.Tensor,
                      partials.data_ptr(), batch, n, rows, cols, code, p, top,
                      bottom, row_start, total_rows)
         detect_many_partials.launches += 1
+        detect_many_partials.clustered += cluster_size(
+            image.device, batch, code, p) > 1
         sums = partials.sum(dim=2)
         dot = sums[:, :, 0:2 * chunk:2].reshape(batch, -1)[:, :n]
         norm_u = sums[:, :, 1:2 * chunk:2].reshape(batch, -1)[:, :n]
@@ -120,3 +127,16 @@ def detect_many_partials(image: torch.Tensor, bank: torch.Tensor,
 
 
 detect_many_partials.launches = 0
+detect_many_partials.clustered = 0
+
+
+@functools.cache
+def cluster_size(device: torch.device, batch: int, mask_code: int,
+                 p: int) -> int:
+    """Frames a cluster of the kernel's launch for ``batch`` frames on
+    ``device`` (the C entry's own choice): 2 at a 3 x 3 predictor (ME p=3,
+    NVF) where the batch is even and the card can schedule the pair, else
+    1."""
+    with torch.cuda.device(device):
+        return int(build.library().wm_detect_many_cluster(batch, mask_code,
+                                                          p))
