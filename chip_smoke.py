@@ -482,6 +482,9 @@ P3_KERNELS = (*GRAM_SOLVE_KERNELS, *EMBED_KERNELS, "detect_partials")
 WIDE_GRAM_KERNELS = ("wide_lag_strips", "wide_assemble")
 # and the wide solve of its system: every ME analysis at p > 3
 WIDE_GRAM_SOLVE_KERNELS = (*WIDE_GRAM_KERNELS, "spd_solve_wide")
+# calls of the one-call fused embed and detect (``ops/cuda/chain.py``), not
+# kernels: each of the chain's kernels counts in its own row
+CHAIN_COUNTERS = ("embed_chain", "detect_chain")
 
 
 class SmokeFailure(RuntimeError):
@@ -2967,7 +2970,7 @@ def add_counts(total: dict, counts: dict, mask: str, p: int) -> None:
     """Add a run's launches to the kernels line's rows (row name ->
     launches), a run at one mask and p."""
     for kernel, n in counts.items():
-        if not n:
+        if not n or kernel in CHAIN_COUNTERS:
             continue
         if kernel in GRAM_KERNELS:
             name = "me_gram"

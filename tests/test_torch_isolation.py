@@ -183,7 +183,99 @@ def test_cpu_tensors_launch_no_kernel():
                                        "nvf_mask": 0,
                                        "spd_solve8": 0,
                                        "spd_solve_wide": 0,
-                                       "embed_finish": 0}
+                                       "embed_finish": 0,
+                                       "embed_chain": 0,
+                                       "detect_chain": 0}
+
+
+def test_cpu_tensors_keep_the_per_wrapper_route(monkeypatch):
+    """CPU frames never take the one-call chain (``ops/cuda/chain.py``):
+    ``applies`` says no at every mask and p, the pipelines run the plain
+    versions with the chain counters at 0, and the chain's entry points
+    refuse CPU frames before they touch the library. ``launch_counts``
+    carries the chain counters and ``reset_launch_counts`` zeroes them."""
+    from watermarking_gpu_tpu_torch.ops.cuda import chain
+
+    monkeypatch.setattr(build, "library", lambda: pytest.fail(
+        "the kernel library was loaded for CPU frames"))
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(np.clip(rng.normal(128, 40, (2, 30, 40)), 0,
+                                      255).astype(np.float32))
+    wm = torch.from_numpy(rng.normal(size=(30, 40)).astype(np.float32))
+    for mask_type in ("me", "nvf"):
+        for p in (3, 5, 7, 9):
+            for image in (frames, frames[0]):
+                assert not chain.applies(image, mask_type, p, detect=False)
+                assert not chain.applies(image, mask_type, p, detect=True)
+        marked, strength = pipelines.embed_pipeline(frames, frames, wm, 2.55,
+                                                    mask_type, p=5,
+                                                    impl="cuda")
+        want = pipelines.embed_pipeline(frames, frames, wm, 2.55, mask_type,
+                                        p=5, impl="torch")
+        torch.testing.assert_close(marked, want[0], atol=0.1, rtol=0)
+        torch.testing.assert_close(strength, want[1], rtol=2e-4, atol=0)
+        pipelines.detect_pipeline(marked, wm, mask_type, p=3, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA frames"):
+        chain.embed_chain(frames, frames, wm, 1.0, "me", 3)
+    with pytest.raises(ValueError, match="CUDA frames"):
+        chain.detect_chain(frames, wm, "nvf", 3)
+    with pytest.raises(ValueError, match="mask_type"):
+        chain.detect_chain(frames, wm, "xyz", 3)
+    counts = kernels.launch_counts()
+    assert counts["embed_chain"] == counts["detect_chain"] == 0
+    assert not any(counts.values())
+    kernels.embed_chain.launches = kernels.detect_chain.launches = 4
+    assert kernels.launch_counts()["embed_chain"] == 4
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts()["detect_chain"] == 0
+    assert kernels.KERNELS["embed_chain"] is kernels.embed_chain
+
+
+@pytest.mark.parametrize("mask_type, p, detect",
+                         [("me", 3, False), ("me", 3, True), ("me", 9, False),
+                          ("me", 5, True), ("nvf", 7, False),
+                          ("nvf", 5, True)])
+def test_chain_scratch_layout(monkeypatch, mask_type, p, detect):
+    """The chain's one allocation a call: every buffer it needs for the
+    mask, p and direction, each on a 16-byte boundary, none overlapping,
+    of the size its kernel writes (the kernels' block counts from the
+    library, stood in for here by the tile counts of a 64 x 64 tile)."""
+    from watermarking_gpu_tpu_torch.ops.cuda import chain
+    from watermarking_gpu_tpu_torch.ops.me import lag_plan
+
+    monkeypatch.setattr(build, "num_blocks", lambda name, rows, cols, *_: (
+        -(-rows // 64)) * -(-cols // 64))
+    batch, rows, cols = 3, 100, 200
+    plan = chain._Plan(batch, rows, cols, mask_type, p, detect,
+                       torch.device("cpu"))
+    pred_p = 3 if mask_type == "nvf" else p
+    analysis = mask_type == "me" or detect
+    tiles = 2 * 4
+    want = {"partials": batch * tiles * (3 if detect else 2) * 4,
+            "done": batch * 4, "valid": batch}
+    if not detect:
+        want.update(u_raw=batch * rows * cols * 4, totals=2 * batch * 4)
+    if analysis:
+        k = pred_p * pred_p - 1
+        n_lags = len(lag_plan(pred_p)[0])
+        want.update(gram=batch * (k + 1) ** 2 * 4, coefficients=batch * k * 4,
+                    sums=batch * n_lags * plan.n_strips * plan.n_blocks * 4)
+        if pred_p > 3:
+            want["edges"] = batch * n_lags * plan.n_strips * 4 * (p // 2) * 4
+            assert plan.bank_rows.tolist()[:p // 2 + 1] == [0] * (p // 2 + 1)
+    assert set(plan.offsets) == set(want)
+    assert plan.pred_p == (pred_p if analysis else 0)
+    spans = sorted((plan.offsets[name], plan.offsets[name] + size)
+                   for name, size in want.items())
+    assert all(start % 16 == 0 for start, _ in spans)
+    assert all(a_end <= b_start for (_, a_end), (b_start, _) in
+               zip(spans, spans[1:]))
+    assert spans[-1][1] <= plan.nbytes < spans[-1][1] + 16
+    pointers = plan.pointers(1 << 20, ("u_raw", "edges", "done"))
+    assert pointers[2] == (1 << 20) + plan.offsets["done"]
+    assert (pointers[0] is None) == detect
+    assert (pointers[1] is None) == (pred_p == 3 or not analysis)
 
 
 def test_wrappers_raise_on_other_devices():

@@ -5,8 +5,10 @@
 // indices (the reference's CLK_ADDRESS_CLAMP_TO_EDGE sampler), so one
 // kernel covers what the JAX package needed a padded and a raw twin for.
 // Per-block sums and maxes go to a (batch, n_blocks, slots) buffer that the
-// Python wrapper finishes with torch.sum / torch.amax, or that an assembly
-// kernel finishes (the Grams): deterministic, no float atomics.
+// Python wrapper finishes with torch.sum / torch.amax, that an assembly
+// kernel finishes (the Grams), or that the frame's last block finishes
+// (frame_total: the fused embed's and detect's chains): deterministic, no
+// float atomics.
 //
 // The arithmetic that has a plain PyTorch twin (prediction errors, the NVF
 // variance, u = mask * W) uses the __f*_rn intrinsics, which nvcc never
@@ -224,6 +226,59 @@ __device__ __forceinline__ void block_reduce_store(float (&v)[N],
       r = tid < N_SUM ? r + per_warp[w][tid] : fmaxf(r, per_warp[w][tid]);
     out[tid] = r;
   }
+}
+
+// A float from L2, as __ldcg reads it (no L1 line that another block's
+// write would leave stale), but volatile and a memory clobber, so that the
+// compiler keeps it after the __threadfence() before it.
+__device__ __forceinline__ float load_l2(const float* at) {
+  float value;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(value) : "l"(at)
+               : "memory");
+  return value;
+}
+
+// The last-block pattern of a threadfence reduction (me_gram.cu's solving
+// assembly), for a kernel whose blocks each store N partials of a frame with
+// block_reduce_store: the threads that stored them fence, and the block
+// counts itself in *done (which holds 0 when the kernel starts). The block
+// that draws blocks - 1, the frame's last, fences again, reduces the frame's
+// (blocks, N) partials in their index order, as block_reduce_store does
+// (slots below N_SUM summed from 0, the rest the max from 0: the kernels'
+// maxes are of masks >= 0), into total in every thread, sets *done back to
+// 0 for the next kernel of its chain and returns true; the others return
+// false. Which block is last decides only who reduces, not the order: every
+// run gives the same bits. Every thread of the block must call it.
+template <int N, int N_SUM>
+__device__ __forceinline__ bool frame_total(const float* parts, int blocks,
+                                            int* done, float (&total)[N]) {
+  __shared__ int s_last;
+  __shared__ float s_total[N];
+  const int tid = threadIdx.x + threadIdx.y * blockDim.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  if (tid < N) __threadfence();   // this block's partials, before the count
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(done, 1) == blocks - 1;
+  __syncthreads();
+  if (!s_last) return false;
+  __threadfence();   // the frame's other blocks' partials, before the reads
+  float v[N];
+#pragma unroll
+  for (int s = 0; s < N; ++s) v[s] = 0.0f;
+#pragma unroll 4
+  for (int i = tid; i < blocks; i += n_threads) {
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      const float x = load_l2(parts + static_cast<size_t>(i) * N + s);
+      v[s] = s < N_SUM ? v[s] + x : fmaxf(v[s], x);
+    }
+  }
+  block_reduce_store<N, N_SUM>(v, s_total);
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < N; ++s) total[s] = s_total[s];
+  if (tid == 0) *done = 0;
+  return true;
 }
 
 }  // namespace wm

@@ -26,22 +26,25 @@
 // What the design does about it: each input is read once, coalesced, and
 // nothing intermediate goes to device memory: no padded copies (loads clamp
 // their indices), no e or mask planes. The ME mask's 1/max|e| is not applied
-// (it cancels in the pixels and in the correlation; the wrapper only
-// reports max|e| for the strength). Per-block sums and maxes go to a small
-// partials buffer that the wrapper finishes. Both kernels take a 64 x 64
-// tile a block of 256 threads (the other kernels' tiles are 32 x 64; the
-// ring recomputed by neighbouring tiles is then 27% of the tile at p=9, not
-// 41%), copy the frame with its clamped halo into dynamic shared memory by
-// cp.async (16-byte chunks where a chunk lies inside the frame and is
-// aligned, 4-byte clamped copies elsewhere: a synchronous load a pixel held
-// the first designs back), and compute kR = 8 consecutive outputs of a row
-// a thread: per tap row the row's 8 + 2 PH pixels go into registers once
-// with the widest aligned shared loads, with the tap row's coefficients
-// (registers at PH <= 2, float4 rows of s_cg above), instead of two shared
-// loads a tap. The NVF mask adds p row sums down a column for each of a
-// thread's rows instead of p^2 pixels a point; the row sums are the
-// thread's own, or at p=9 taken once per staged row into shared memory.
-// That machinery is stencil.cuh's, shared with predict.cu and nvf.cu.
+// (it cancels in the pixels and in the correlation; the wrapper only reports
+// max|e| for the strength). Per-block sums and maxes go to a small partials
+// buffer that the wrapper finishes, or, on whole frames in a chain (chain.cu),
+// that the frame's last block finishes (wm::frame_total): the embed field's sum
+// u_raw^2 and max mask, the detect tail's correlation dot / sqrt(||e_u||^2
+// ||e_z||^2), 0 where the frame's solve failed, with __f*_rn in the order of
+// the eager division it replaces. Both kernels take a 64 x 64 tile a block of
+// 256 threads (the other kernels' tiles are 32 x 64; the ring recomputed by
+// neighbouring tiles is then 27% of the tile at p=9, not 41%), copy the frame
+// with its clamped halo into dynamic shared memory by cp.async (16-byte chunks
+// where a chunk lies inside the frame and is aligned, 4-byte clamped copies
+// elsewhere: a synchronous load a pixel held the first designs back), and
+// compute kR = 8 consecutive outputs of a row a thread: per tap row the row's
+// 8 + 2 PH pixels go into registers once with the widest aligned shared loads,
+// with the tap row's coefficients (registers at PH <= 2, float4 rows of s_cg
+// above), instead of two shared loads a tap. The NVF mask adds p row sums down
+// a column for each of a thread's rows instead of p^2 pixels a point; the row
+// sums are the thread's own, or at p=9 taken once per staged row into shared
+// memory. That machinery is stencil.cuh's, shared with predict.cu and nvf.cu.
 //
 // Embed field: u_raw = mask * W and the per-image sum u_raw^2 and max mask.
 // Halo PH (ME) or NH (NVF). W is read only at the outputs, so it is not
@@ -174,7 +177,8 @@ __device__ __forceinline__ void store_u(const float (&mask)[kR],
 
 // Partials (batch, tiles, kEmbedSlots). A frame of img holds img_rows rows,
 // its owned rows from row top (the halo form); wmark and u_raw hold the
-// owned rows.
+// owned rows. With done not null (whole frames), the frame's last block
+// also writes totals[b] (sum u_raw^2) and totals[batch + b] (max mask).
 template <int kMask, int kHalf>
 __global__ void __launch_bounds__(kThreads, Embed<kMask, kHalf>::kMinBlocks)
     embed_field_kernel(const float* __restrict__ img,
@@ -182,7 +186,8 @@ __global__ void __launch_bounds__(kThreads, Embed<kMask, kHalf>::kMinBlocks)
                        const float* __restrict__ coeffs,
                        float* __restrict__ u_raw,
                        float* __restrict__ partials, int rows, int cols,
-                       int top, int img_rows) {
+                       int top, int img_rows, float* __restrict__ totals,
+                       int* __restrict__ done) {
   using G = Embed<kMask, kHalf>;
   constexpr int kIS = G::kIS;
   constexpr int kItems = kTileH * kTG / kThreads;  // rows of kR a thread
@@ -253,6 +258,17 @@ __global__ void __launch_bounds__(kThreads, Embed<kMask, kHalf>::kMinBlocks)
   const size_t block = (static_cast<size_t>(b) * gridDim.y + blockIdx.y) *
                            gridDim.x + blockIdx.x;
   wm::block_reduce_store<kEmbedSlots, 1>(acc, partials + block * kEmbedSlots);
+  if (done != nullptr) {
+    const int blocks = gridDim.x * gridDim.y;
+    float total[kEmbedSlots];
+    if (wm::frame_total<kEmbedSlots, 1>(
+            partials + static_cast<size_t>(b) * blocks * kEmbedSlots, blocks,
+            done + b, total) &&
+        tid == 0) {
+      totals[b] = total[0];
+      totals[gridDim.z + b] = total[1];
+    }
+  }
 }
 
 // ---- detect tail -------------------------------------------------------
@@ -301,6 +317,8 @@ struct Tail {
 // Partials (batch, tiles, kDetectSlots). A frame of img and wmark hold
 // img_rows rows, the owned ones from row halo_top (the halo form);
 // clamp_top / clamp_bottom: the shard's top / bottom edge is the frame's.
+// With done not null (whole frames), the frame's last block also writes
+// corr[b] = valid[b] ? dot / sqrt(||e_u||^2 ||e_z||^2) : 0.
 // Blocks an SM: three at PH = 2, whose registers then fit 72 without a
 // spill (11% faster at ME p=5); at PH >= 3 they would spill, and at PH = 1
 // the kernel takes at most 64 registers, which lets four blocks in anyway.
@@ -311,7 +329,8 @@ __global__ void __launch_bounds__(kThreads, kPH == 2 ? 3 : 2)
                        const float* __restrict__ coeffs,
                        float* __restrict__ partials, int rows, int cols,
                        int halo_top, int img_rows, bool clamp_top,
-                       bool clamp_bottom) {
+                       bool clamp_bottom, const bool* __restrict__ valid,
+                       float* __restrict__ corr, int* __restrict__ done) {
   using G = Tail<kMask, kPH, kNH>;
   constexpr int kP = G::kP;
   constexpr int kWin = kR + 2 * kPH;  // a window row: kR outputs and ring
@@ -484,19 +503,33 @@ __global__ void __launch_bounds__(kThreads, kPH == 2 ? 3 : 2)
                            gridDim.x + blockIdx.x;
   wm::block_reduce_store<kDetectSlots, kDetectSlots>(
       acc, partials + block * kDetectSlots);
+  if (done != nullptr) {
+    const int blocks = gridDim.x * gridDim.y;
+    float total[kDetectSlots];
+    if (wm::frame_total<kDetectSlots, kDetectSlots>(
+            partials + static_cast<size_t>(b) * blocks * kDetectSlots,
+            blocks, done + b, total) &&
+        tid == 0) {
+      corr[b] = valid[b] ? __fdiv_rn(total[0], __fsqrt_rn(__fmul_rn(
+                                                   total[1], total[2])))
+                         : 0.0f;
+    }
+  }
 }
 
 template <int kMask, int kHalf>
 int launch_embed(const float* img, const float* wmark, const float* coeffs,
                  float* u_raw, float* partials, int batch, int rows, int cols,
-                 int top, int img_rows, cudaStream_t s) {
+                 int top, int img_rows, float* totals, int* done,
+                 cudaStream_t s) {
   constexpr int bytes = Embed<kMask, kHalf>::kFloats * sizeof(float);
   cudaFuncSetAttribute(embed_field_kernel<kMask, kHalf>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   const dim3 grid(wm::ceil_div(cols, kTileW), wm::ceil_div(rows, kTileH),
                   batch);
   embed_field_kernel<kMask, kHalf><<<grid, kThreads, bytes, s>>>(
-      img, wmark, coeffs, u_raw, partials, rows, cols, top, img_rows);
+      img, wmark, coeffs, u_raw, partials, rows, cols, top, img_rows, totals,
+      done);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -504,7 +537,7 @@ template <int kMask, int kPH, int kNH>
 int launch_detect(const float* img, const float* wmark, const float* coeffs,
                   float* partials, int batch, int rows, int cols, int top,
                   int img_rows, bool clamp_top, bool clamp_bottom,
-                  cudaStream_t s) {
+                  const bool* valid, float* corr, int* done, cudaStream_t s) {
   constexpr int bytes = Tail<kMask, kPH, kNH>::kFloats * sizeof(float);
   cudaFuncSetAttribute(detect_tail_kernel<kMask, kPH, kNH>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -512,7 +545,7 @@ int launch_detect(const float* img, const float* wmark, const float* coeffs,
                   batch);
   detect_tail_kernel<kMask, kPH, kNH><<<grid, kThreads, bytes, s>>>(
       img, wmark, coeffs, partials, rows, cols, top, img_rows, clamp_top,
-      clamp_bottom);
+      clamp_bottom, valid, corr, done);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,15 +556,12 @@ extern "C" int wm_embed_field_num_blocks(int rows, int cols, int mask_type,
   return wm::ceil_div(cols, kTileW) * wm::ceil_div(rows, kTileH);
 }
 
-// img, wmark (batch, top + rows + bottom, cols) / (rows, cols) f32; coeffs
-// (batch, p*p-1) f32 (ME only, may be null for NVF) -> u_raw (batch, rows,
-// cols) and partials (batch, wm_embed_field_num_blocks(rows, cols,
-// mask_type, p), 2) f32.
-extern "C" int wm_embed_field(const float* img, const float* wmark,
-                              const float* coeffs, float* u_raw,
-                              float* partials, int batch, int rows, int cols,
-                              int mask_type, int p, int top, int bottom,
-                              void* stream) {
+namespace {
+
+int embed_field(const float* img, const float* wmark, const float* coeffs,
+                float* u_raw, float* partials, int batch, int rows, int cols,
+                int mask_type, int p, int top, int bottom, float* totals,
+                int* done, void* stream) {
   if (batch < 1 || rows < 1 || cols < 1 || top < 0 || bottom < 0)
     return cudaErrorInvalidValue;
   if (batch > 65535 || wm::ceil_div(rows, kTileH) > 65535)
@@ -541,7 +571,7 @@ extern "C" int wm_embed_field(const float* img, const float* wmark,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define WM_EMBED(mask, half)                                                 \
   launch_embed<mask, half>(img, wmark, coeffs, u_raw, partials, batch, rows, \
-                           cols, top, top + rows + bottom, s)
+                           cols, top, top + rows + bottom, totals, done, s)
   if (mask_type == wm::kMaskME) {
     switch (p) {
       case 3: return WM_EMBED(wm::kMaskME, 1);
@@ -561,21 +591,45 @@ extern "C" int wm_embed_field(const float* img, const float* wmark,
   return cudaErrorInvalidValue;
 }
 
+}  // namespace
+
+// img, wmark (batch, top + rows + bottom, cols) / (rows, cols) f32; coeffs
+// (batch, p*p-1) f32 (ME only, may be null for NVF) -> u_raw (batch, rows,
+// cols) and partials (batch, wm_embed_field_num_blocks(rows, cols,
+// mask_type, p), 2) f32.
+extern "C" int wm_embed_field(const float* img, const float* wmark,
+                              const float* coeffs, float* u_raw,
+                              float* partials, int batch, int rows, int cols,
+                              int mask_type, int p, int top, int bottom,
+                              void* stream) {
+  return embed_field(img, wmark, coeffs, u_raw, partials, batch, rows, cols,
+                     mask_type, p, top, bottom, nullptr, nullptr, stream);
+}
+
+// As wm_embed_field on whole frames (top = bottom = 0), and each frame's
+// last block reduces the frame's partials into totals (2, batch) f32: sum
+// u_raw^2, then max mask. done (batch,) int32 must hold 0; it is left so.
+extern "C" int wm_embed_field_totals(const float* img, const float* wmark,
+                                     const float* coeffs, float* u_raw,
+                                     float* partials, float* totals,
+                                     int* done, int batch, int rows, int cols,
+                                     int mask_type, int p, void* stream) {
+  if (totals == nullptr || done == nullptr) return cudaErrorInvalidValue;
+  return embed_field(img, wmark, coeffs, u_raw, partials, batch, rows, cols,
+                     mask_type, p, 0, 0, totals, done, stream);
+}
+
 extern "C" int wm_detect_partials_num_blocks(int rows, int cols) {
   return wm::ceil_div(cols, kTileW) * wm::ceil_div(rows, kTileH);
 }
 
-// img (batch, top + rows + bottom, cols), wmark (top + rows + bottom, cols)
-// f32; coeffs (batch, k) f32 with k = p*p-1 for ME and 8 for NVF; the
-// owned rows are rows [row_start, row_start + rows) of a frame of
-// total_rows -> partials (batch, wm_detect_partials_num_blocks(rows,
-// cols), 3) f32.
-extern "C" int wm_detect_partials(const float* img, const float* wmark,
-                                  const float* coeffs, float* partials,
-                                  int batch, int rows, int cols,
-                                  int mask_type, int p, int top, int bottom,
-                                  int row_start, int total_rows,
-                                  void* stream) {
+namespace {
+
+int detect_partials(const float* img, const float* wmark, const float* coeffs,
+                    float* partials, int batch, int rows, int cols,
+                    int mask_type, int p, int top, int bottom, int row_start,
+                    int total_rows, const bool* valid, float* corr, int* done,
+                    void* stream) {
   if (batch < 1 || rows < 1 || cols < 1 || coeffs == nullptr || top < 0 ||
       bottom < 0 || row_start < 0 || total_rows < row_start + rows)
     return cudaErrorInvalidValue;
@@ -587,7 +641,7 @@ extern "C" int wm_detect_partials(const float* img, const float* wmark,
 #define WM_DETECT(mask, ph, nh)                                            \
   launch_detect<mask, ph, nh>(img, wmark, coeffs, partials, batch, rows,  \
                               cols, top, top + rows + bottom, clamp_top,     \
-                              clamp_bottom, s)
+                              clamp_bottom, valid, corr, done, s)
   if (mask_type == wm::kMaskME) {
     switch (p) {
       case 3: return WM_DETECT(wm::kMaskME, 1, 0);
@@ -605,4 +659,38 @@ extern "C" int wm_detect_partials(const float* img, const float* wmark,
   }
 #undef WM_DETECT
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// img (batch, top + rows + bottom, cols), wmark (top + rows + bottom, cols)
+// f32; coeffs (batch, k) f32 with k = p*p-1 for ME and 8 for NVF; the
+// owned rows are rows [row_start, row_start + rows) of a frame of
+// total_rows -> partials (batch, wm_detect_partials_num_blocks(rows,
+// cols), 3) f32.
+extern "C" int wm_detect_partials(const float* img, const float* wmark,
+                                  const float* coeffs, float* partials,
+                                  int batch, int rows, int cols,
+                                  int mask_type, int p, int top, int bottom,
+                                  int row_start, int total_rows,
+                                  void* stream) {
+  return detect_partials(img, wmark, coeffs, partials, batch, rows, cols,
+                         mask_type, p, top, bottom, row_start, total_rows,
+                         nullptr, nullptr, nullptr, stream);
+}
+
+// As wm_detect_partials on whole frames, and each frame's last block
+// reduces the frame's partials into corr (batch,) f32: valid[b] ? dot /
+// sqrt(||e_u||^2 ||e_z||^2) : 0, valid (batch,) bool. done (batch,) int32
+// must hold 0; it is left so.
+extern "C" int wm_detect_corr(const float* img, const float* wmark,
+                              const float* coeffs, const bool* valid,
+                              float* partials, float* corr, int* done,
+                              int batch, int rows, int cols, int mask_type,
+                              int p, void* stream) {
+  if (valid == nullptr || corr == nullptr || done == nullptr)
+    return cudaErrorInvalidValue;
+  return detect_partials(img, wmark, coeffs, partials, batch, rows, cols,
+                         mask_type, p, 0, 0, 0, rows, valid, corr, done,
+                         stream);
 }

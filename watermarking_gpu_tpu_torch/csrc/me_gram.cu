@@ -267,16 +267,6 @@ __global__ void __launch_bounds__(kThreads) me_gram_lags_kernel(
   }
 }
 
-// A float from L2, as __ldcg reads it (no L1 line that another block's
-// write would leave stale), but volatile and a memory clobber, so that the
-// compiler keeps it after the __threadfence() before it.
-__device__ __forceinline__ float load_l2(const float* at) {
-  float value;
-  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(value) : "l"(at)
-               : "memory");
-  return value;
-}
-
 // One block per (lag, image). lags holds (dr, dc) per lag; pairs, grouped by
 // lag from pair_start[l] to pair_start[l + 1], hold (row, column, ar, ai),
 // ai = ac + 1. sums is the lag kernel's output, n_parts = strips x column
@@ -293,7 +283,10 @@ __device__ __forceinline__ float load_l2(const float* at) {
 // wm::solve8 into coefficients[b] and valid[b]. The order of the blocks
 // decides only which one solves, not what it reads: two calls give the
 // same bits, those of spd_solve8_kernel on the same Gram. The other 12
-// blocks of a frame add one fence and one atomic to their finish.
+// blocks of a frame add one fence and one atomic to their finish. The
+// solving block sets done[b] back to 0, so that the next kernel of a chain
+// (chain.cu: the embed field's or the detect tail's frame_total) counts on
+// the same counter from 0.
 template <bool kSolve>
 __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
     const float* __restrict__ img, const float* __restrict__ sums,
@@ -393,9 +386,10 @@ __global__ void __launch_bounds__(kAssembleThreads) me_gram_assemble_kernel(
     int ticket = 0;
     if (tid == 0) ticket = atomicAdd(done + b, 1);
     if (__shfl_sync(0xffffffffu, ticket, 0) != kLags - 1) return;
+    if (tid == 0) done[b] = 0;   // every block of the frame has counted
     __threadfence();   // the frame's other blocks' pairs, before the reads
     for (int i = tid; i < wm::kSolve8 * 9; i += 32)
-      s_system[i / 9][i % 9] = load_l2(out + i);
+      s_system[i / 9][i % 9] = wm::load_l2(out + i);
     __syncwarp();
     if (tid == 0)
       wm::solve8([&](int i, int j) { return s_system[i][j]; },
@@ -435,7 +429,7 @@ extern "C" int wm_me_gram_lags(const float* img, const int* lag_index,
 // With coefficients not null (whole frames: top = bottom = 0), also the
 // 8x8 solve of each frame's Gram -> coefficients (batch, 8) f32, valid
 // (batch,) bool, counting in done (batch,) int32, which the lag kernel
-// zeroed (wm_me_gram_lags with the same done).
+// zeroed (wm_me_gram_lags with the same done) and which it leaves at 0.
 extern "C" int wm_me_gram_assemble(const float* img, const float* sums,
                                    const int* lags, const int* pair_start,
                                    const int* pairs, float* gram, int batch,

@@ -22,11 +22,28 @@ copy; ``launch_counts`` leaves it out, ``reset_launch_counts`` zeroes it.
 Each wrapper of ``KERNELS``, ``me_gram`` and ``me_gram_wide`` opens a
 ``kernels.<name>`` span (``utils/profiling.py``) over its checks,
 allocations and launch.
+
+``embed_chain`` and ``detect_chain`` (``chain.py``) are the pipelines'
+fused embed and detect of whole CUDA frames, each one call into the
+library: the predictor's analysis (the 3x3 lag kernel and solving
+assembly, or the wide lag kernel, wide assembly and blocked solve; none
+for NVF's embed), then the embed field and the embed finish, or the detect
+tail, whose last block of a frame finishes that frame's sums or its
+correlation. Each of their launches counts in its kernel's wrapper, as the
+wrappers called one by one count it (``me_gram_solve8`` once a 3x3
+analysis), and each call once in ``embed_chain.launches`` or
+``detect_chain.launches``, which ``launch_counts`` and
+``reset_launch_counts`` cover; their spans are ``kernels.embed_chain`` and
+``kernels.detect_chain``. The wrappers one by one remain the route of CPU
+tensors, the halo forms (``parallel/spatial.py``), frames too small for
+the wide Gram's lag form, identification (``detect_many_partials``), the
+tools and the tests.
 """
 
 from ..me import (assemble_lags_plain, assemble_strips_plain, frame_banks,
                   gram_lags_plain, lag_partials_plain, lag_strips_plain,
                   me_gram_wide_plain)
+from .chain import detect_chain, embed_chain
 from .detect_many import detect_many_partials, detect_many_partials_plain
 from .finish import embed_finish, embed_finish_plain
 from .fused import (detect_partials, detect_partials_plain, embed_field,
@@ -48,7 +65,8 @@ KERNELS = {"me_gram_lags": me_gram_lags,
            "detect_many": detect_many_partials,
            "prediction_error": prediction_error, "nvf_mask": nvf_mask,
            "spd_solve8": spd_solve8, "spd_solve_wide": spd_solve_wide,
-           "embed_finish": embed_finish}
+           "embed_finish": embed_finish, "embed_chain": embed_chain,
+           "detect_chain": detect_chain}
 
 
 def reset_launch_counts() -> None:
@@ -62,9 +80,10 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = ["KERNELS", "assemble_lags_plain", "assemble_strips_plain",
-           "detect_many_partials",
+           "detect_chain", "detect_many_partials",
            "detect_many_partials_plain", "detect_partials",
-           "detect_partials_plain", "embed_field", "embed_field_plain",
+           "detect_partials_plain", "embed_chain", "embed_field",
+           "embed_field_plain",
            "embed_finish", "embed_finish_plain",
            "frame_banks", "gram_lags_plain", "lag_partials_plain",
            "lag_strips_plain", "launch_counts", "me_gram", "me_gram_assemble",

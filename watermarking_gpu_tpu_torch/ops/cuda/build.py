@@ -69,6 +69,14 @@ SIGNATURES = {
     "wm_spd_solve_wide": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
     "wm_embed_finish": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                         _INT, _FLOAT, _INT, _INT, _PTR),
+    "wm_embed_chain": (_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                       _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR, _PTR, _PTR,
+                       _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR,
+                       _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR),
+    "wm_detect_chain": (_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                        _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                        _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                        _PTR),
 }
 
 
@@ -175,6 +183,16 @@ def launch_many(device: torch.device, *calls: tuple[str, tuple]) -> None:
             code = getattr(lib, name)(*args, stream)
             if code != 0:
                 raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def raw_stream(index: int) -> int:
+    """The handle of ``cuda:index``'s current stream, as a C entry point
+    takes it: PyTorch's raw getter where the build has one (no
+    ``torch.cuda.Stream`` object a call), else the public API."""
+    getter = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if getter is not None:
+        return getter(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def num_blocks(name: str, *dims: int) -> int:

@@ -19,9 +19,13 @@ Implementations:
   — Gram kernel and solve (at a 3x3 predictor the 8x8 Cholesky in the
   Gram's assembly kernel, above it the blocked Cholesky kernel), then one
   embed-field, detect-tail or multi-candidate detect kernel; the embed ends
-  in the embed-finish kernel (the strength and the AXPY/clamp/gate), the
-  detect with its final divisions in torch. On CUDA tensors the kernels
-  run; on CPU tensors their plain versions do.
+  in the embed-finish kernel (the strength and the AXPY/clamp/gate). On
+  CUDA frames an embed and a detect are each one call into the kernel
+  library (``ops/cuda/chain.py``), the frames' sums and correlations
+  finished inside the kernels; identification and frames too small for the
+  wide Gram's lag form call the kernels' wrappers one by one, the detect
+  with its final divisions in torch. On CPU tensors the kernels' plain
+  versions run.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import torch
 
 from ..utils.profiling import begin
 from .correlation import correlation
-from .cuda import (detect_many_partials, detect_partials, embed_field,
-                   embed_finish, me_gram_solve8, me_gram_wide,
-                   spd_solve_wide)
+from .cuda import (detect_chain, detect_many_partials, detect_partials,
+                   embed_chain, embed_field, embed_finish, me_gram_solve8,
+                   me_gram_wide, spd_solve_wide)
+from .cuda.chain import applies as chain_applies
 from .cuda.fused import predictor_p
 from .embed import embed_watermark
 from .me import (me_mask_from_error, me_normal_equations, prediction_error,
@@ -91,6 +96,11 @@ def _fused_analysis(img3: torch.Tensor, pred_p: int
 
 def _embed_fused(image, output, watermark, strength_factor_value, mask_type,
                  p):
+    numerator = strength_factor_value * math.sqrt(image.shape[-2]
+                                                  * image.shape[-1])
+    if chain_applies(image, mask_type, p, detect=False):
+        return embed_chain(image.contiguous(), output.contiguous(),
+                           watermark.contiguous(), numerator, mask_type, p)
     squeeze = image.ndim == 2
     img3 = (image[None] if squeeze else image).contiguous()
     if mask_type == "me":
@@ -103,9 +113,8 @@ def _embed_fused(image, output, watermark, strength_factor_value, mask_type,
                                        coefficients, mask_type, p)
     if squeeze:
         u_raw, sum_u2, max_e, valid = u_raw[0], sum_u2[0], max_e[0], valid[0]
-    n = image.shape[-2] * image.shape[-1]
     return embed_finish(u_raw, output.contiguous(), sum_u2, max_e, valid,
-                        strength_factor_value * math.sqrt(n), mask_type)
+                        numerator, mask_type)
 
 
 def _embed_u8_fused(lumas: torch.Tensor, watermark: torch.Tensor,
@@ -172,6 +181,10 @@ def detect_pipeline(image: torch.Tensor, watermark: torch.Tensor,
     try:
         _check_args(mask_type, p, impl)
         image, watermark = map(_to_f32, (image, watermark))
+        if impl == "cuda" and chain_applies(image, mask_type, p,
+                                            detect=True):
+            return detect_chain(image.contiguous(), watermark.contiguous(),
+                                mask_type, p)
         if impl == "cuda":
             squeeze = image.ndim == 2
             img3 = (image[None] if squeeze else image).contiguous()
