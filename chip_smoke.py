@@ -4,8 +4,8 @@ NVIDIA GPU: the quickest proof that the port still starts and is right.
 
     python3 chip_smoke.py
 
-Phases, each printing its lines; any failure raises, exits non-zero and
-prints no result:
+Phases, each printing its lines (tagged with the phase's number); any
+failure raises, exits non-zero and prints no result:
 
 1. Card and build: the device, ``nvidia-smi``'s name and power limit, and
    the ``nvcc`` build of the kernels in ``watermarking_gpu_tpu_torch/csrc``
@@ -52,7 +52,10 @@ prints no result:
    P = 5, 7, 9: ME and NVF embed then detect of 8 frames. Identification
    at ME and NVF P = 3, 5, 7, 9: ``IdentifierService`` answers 16
    single-frame requests (8 marked frames, 8 clean) against the
-   64-candidate bank. Each is held to numbers the JAX package computed on
+   64-candidate bank; at ME P=3 the plain route (``impl="torch"``) takes
+   the marked frames against the bank in chunks, within CORR_ATOL of the
+   kernel route and its peak allocation within the budget its chunks are
+   sized to. Each is held to numbers the JAX package computed on
    the CPU from the same frames (identification at ME and NVF P = 3, 5,
    7, 9), and its kernels' launch counters are zeroed just before it and
    read just after; the wide solve kernel must run once an analysis at ME
@@ -60,29 +63,10 @@ prints no result:
    NVF detect, every 3x3 Gram must solve in its assembly kernel
    (``me_gram_solve8``, one count a Gram) and ``spd_solve8`` never run
    alone on a single device, and the embed finish once an embed.
-4. Timing with CUDA events: the chained 8-frame ME embed+detect step at
-   each P through the kernels and through the plain path
-   (``impl="torch"``), each kernel beside its plain version (the wide Gram
-   as its two kernels together; the prediction error also beside one
-   ``conv2d``; the 8x8 solve at B = 8 beside the plain unrolled solve and
-   the library pair ``cholesky_ex`` + ``cholesky_solve``; the wide solve at
-   B = 8 and each P beside the plain blocked solve and the same library
-   pair; the embed finish into the f32 frames and into u8 lumas beside its
-   plain version), and the identification of 8 frames against 64
-   candidates
-   (ME) at each P through the kernel, through the plain route and as 64
-   looped detects. Last, after every timing, the device time a call of the
-   3x3 and the wide Gram's two kernels, of the 8x8 and the wide solve
-   kernels, of the embed field and the detect tail at each mask and P, and
-   of the embed finish in both forms, from one ``torch.profiler`` session;
-   the 3x3 Gram with the solve in its assembly beside the two calls it
-   replaces, by CUDA events and device time; then each P's step's device
-   kernels and busy time, from a ``torch.profiler`` session of 5 steps.
-5. The entry points a user runs, at 1080 x 1920 (run before phase 4's
-   profiler timings, since it times them too). The CLI: a PNG of
+5. The entry points a user runs, at 1080 x 1920. The CLI: a PNG of
    ``make_cli_image()`` and a ``.dat`` of the engines' watermark in a
    temporary directory, ``cli.main([ini])`` in process at p = 3 and 5 (20
-   loops, FPS, saves on), then ``python -m watermarking_gpu_tpu_torch`` at
+   loops, saves on), then ``python -m watermarking_gpu_tpu_torch`` at
    p=3 as a subprocess; strengths and correlations held to the JAX
    package's CPU numbers for the same PNG, the saved ``*_W_ME.png`` read
    back byte-equal to the engine's truncated output and within 0.5 dB of
@@ -91,103 +75,54 @@ prints no result:
    frames between samples equal to the input and its marked lumas
    byte-equal to a synchronous ``embed_luma_u8`` of the same frames, then
    ``detect_video`` of both outputs and of the clean clip, per-frame
-   correlations held to the JAX package's. Each run's launch counters are
+   correlations held to the JAX package's, each run's ``stats`` holding
+   its waits, frames and batches. Each run's launch counters are
    zeroed just before it and read just after, and must show the 3x3
    Gram's kernels and the embed field or the detect tail (the CLI both,
    and at p=5 the wide Gram's kernels too).
-6. The sharded routes of ``parallel/`` (run before phase 4's profiler
-   timings, at 8 x 1080 x 1920, the watermark of phase 3 and
-   ``make_bank()``); on one card every mesh names cuda:0 for each shard,
-   so no transfer between devices is measured. First the halo forms
-   against their plain halo forms on the same extended shards, at 270- and
-   540-row shards (space 4 and 2), every shard position: the 3x3 Gram's
-   two kernels, the embed field and the detect tail at ME p=3 and NVF p=3
-   and 5, with the shards' Grams summed against the unsharded kernel Gram;
-   the wide Gram's lag kernel at ME p = 5, 7, 9, the shards' sums folded
-   and assembled with the frame's banks by the assembly kernel against its
-   plain version and the frame's wide Gram; the multi-candidate kernel at
-   ME p = 3, 5, 9 and NVF p=3 against the 64-candidate bank, the shards'
-   sums added up against the frame's. Then each one's ms on an interior
-   shard (and, after phase 4's profiler timings, its device ms). Then,
-   each run's launch counters zeroed just before it and read just after,
-   with its ms from CUDA events (each hybrid route run four times, the
-   first run's time printed as cold, the others' as warm): hybrid embed then
-   detect on data=2 x
-   space=2 (ME p = 3, 5, 9, NVF p=3 and 5, ``impl="cuda"``) held to the
-   single-device kernel route (correlations 1e-4, strengths 1e-4
-   relative, pixels 1e-2) and to the JAX numbers; spatial detect on data=1
-   x space=4 (ME p=3 and p=9 on ``impl="cuda"``, ME p=9 on
-   ``impl="torch"``); DP embed and detect on data=4 at ME p=5 (the wide
-   Gram per shard); ``make_dp_detect_many`` at ME p=5 (16 candidates a
-   shard) and ``make_mesh_detect_many`` on data=2 x space=2 (ME p=3,
-   ``impl="torch"`` and ``"cuda"``) and on space=4 (ME p=9, NVF p=5,
+6. The sharded routes of ``parallel/`` (at 8 x 1080 x 1920, the watermark of
+   phase 3 and ``make_bank()``); on one card every mesh names cuda:0 for each
+   shard, so no transfer between devices is made. First the halo forms against
+   their plain halo forms on the same extended shards, at 270- and 540-row
+   shards (space 4 and 2), every shard position: the 3x3 Gram's two kernels,
+   the embed field and the detect tail at ME p=3 and NVF p=3 and 5, with the
+   shards' Grams summed against the unsharded kernel Gram; the wide Gram's lag
+   kernel at ME p = 5, 7, 9, the shards' sums folded and assembled with the
+   frame's banks by the assembly kernel against its plain version and the
+   frame's wide Gram; the multi-candidate kernel at ME p = 3, 5, 9 and NVF p=3
+   against the 64-candidate bank, the shards' sums added up against the
+   frame's. Then, each run's launch counters zeroed just before it and read
+   just after (each hybrid route run HYBRID_RUNS times, every run held to the
+   same launches): hybrid embed then detect on data=2 x space=2 (ME p = 3, 5,
+   9, NVF p=3 and 5, ``impl="cuda"``) held to the single-device kernel route
+   (correlations 1e-4, strengths 1e-4 relative, pixels 1e-2) and to the JAX
+   numbers; spatial detect on data=1 x space=4 (ME p=3 and p=9 on
+   ``impl="cuda"``, ME p=9 on ``impl="torch"``); DP embed and detect on data=4
+   at ME p=5 (the wide Gram per shard); ``make_dp_detect_many`` at ME p=5 (16
+   candidates a shard) and ``make_mesh_detect_many`` on data=2 x space=2 (ME
+   p=3, ``impl="torch"`` and ``"cuda"``) and on space=4 (ME p=9, NVF p=5,
    ``impl="cuda"``), where the embedded candidate must win, within 1e-4 of
    single-device identification and 3e-4 of the JAX numbers; each kernel
-   route's launches counted exactly (a halo-form kernel once a shard, the
-   wide Gram's assembly and the wide solve once a space row); and the
-   services with
-   ``mesh=`` (the detector and embedder on data=2 x space=2, the
-   identifier on data=2 and on data=2 x space=2, a p=5 detector on data=2
-   x space=2), their answers equal to the mesh functions'.
-7. The tools and the examples a user runs (run before phase 4's profiler
-   timings), each through its entry point on the card, its launch
-   counters zeroed just before and read just after, held to the JAX
-   package's own tools and examples (``JAX_TOOLS_REFERENCE``):
-   ``generate_watermark`` (the .dat byte-equal to ``save_watermark``'s,
-   with and without ``--repeat-blocks 4``); ``calibrate_threshold`` on
-   phase 5's PNG at its defaults (8 images, 256 nulls, FPR 1e-6) at ME p=3,
-   NVF p=3 and ME p=5 (the null matrix one ``detect_many`` dispatch; the
-   host's matrix generation, the upload and the null dispatch timed);
-   ``evaluate_robustness`` at ME and NVF, then ME with Pillow hidden (its
-   JPEG rows skipped, 9 attacks in one batch); the image and the
-   identification examples on the PNG, the video and the serving examples
-   at their own sizes.
+   route's launches counted exactly (a halo-form kernel once a shard, the wide
+   Gram's assembly and the wide solve once a space row); and the services with
+   ``mesh=`` (the detector and embedder on data=2 x space=2, the identifier on
+   data=2 and on data=2 x space=2, a p=5 detector on data=2 x space=2), their
+   answers equal to the mesh functions'.
+7. The tools and the examples a user runs, each through its entry point on the
+   card, its launch counters zeroed just before and read just after, held to
+   the JAX package's own tools and examples (``JAX_TOOLS_REFERENCE``):
+   ``generate_watermark`` (the .dat byte-equal to ``save_watermark``'s, with
+   and without ``--repeat-blocks 4``); ``calibrate_threshold`` on phase 5's
+   PNG at its defaults (8 images, 256 nulls, FPR 1e-6) at ME p=3, NVF p=3 and
+   ME p=5 (the null matrix one ``detect_many`` dispatch);
+   ``evaluate_robustness`` at ME and NVF, then ME with Pillow hidden (its JPEG
+   rows skipped, 9 attacks in one batch); the image and the identification
+   examples on the PNG, the video and the serving examples at their own sizes.
 
-The line before the last is ``{"kernels": [...]}``, one row per kernel,
-window and mask (the 3x3 Gram serves both masks), and ``replaces_kind``
-("pallas", or "xla" for the 8x8 and the wide solves and the embed finish,
-which replace XLA code of the JAX package's jitted step, not a Pallas
-kernel): launches in its part of
-phase 3 (0 for the standalone prediction error and NVF mask, which no main
-path runs; for the 3x3 and the wide Gram both kernels' launches, one each a
-Gram; for the 8x8 solve kernel alone, one a solve of a folded 3x3 Gram,
-phase 6's only; for its fused variant ``me_gram_solve8`` (the solve in the
-3x3 Gram's assembly kernel), one a single-device 3x3 Gram, those of every
-phase-3 run: the p=3 path, the NVF parts at p = 5, 7, 9 and the
-identification at p=3 and NVF; for the wide solve, one a solve at ME p,
-the main path's and identification's; for the embed finish, one a fused
-embed of any mask, p and form, every phase-3 run's), plus the launches of
-phase 6's
-and phase 7's runs at that kernel, mask and p;
-``max_abs_err`` of
-its main output against the plain version at 8 x 1080 x 1920 (the Gram,
-u_raw, the correlation formed from the detect sums, the coefficients, or
-the standalone op's output) and ``max_rel_err`` of
-its reductions (of the output, relative to its largest value, for the
-standalone ops); ``ms`` and ``plain_ms`` per call from phase 4 (CUDA
-events around the wrapper; the embed finish's into the f32 frames at ME,
-its u8 form in ``u8_form``); for the 3x3 Gram, the embed field, the
-detect tail, the embed finish, the fused solve and the standalone
-prediction error and NVF mask ``device_ms``, its kernels' device time a
-call from the profiler (the fused solve's row also
-carries ``two_calls``, the ms and device ms of ``spd_solve8(me_gram(x))``,
-and ``solve_tail_device_ms``, what the solve adds to the assembly
-kernel);
-``bound_ms``, the least time an H100 could take for the same work (the
-larger of the bytes the function must move over 3.35 TB/s and the flops it
-needs over 67 TFLOP/s f32, NVIDIA's data-sheet peaks for the SXM part at
-700 W; see ``kernel_bound``), and ``bound_by``; ``library_ms``: for the
-prediction error one grouped ``conv2d`` over the edge-padded frames (the
-pad included, cuDNN's TF32 off), for the 8x8 solve the library pair
-``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` (the port's
-kernel route never calls it; its plain route does at p > 3) and the same
-pair for the wide solves, null for the rest, which no single PyTorch call
-computes. The p=3 rows of the 3x3 Gram, the embed field and
-the detect tail, the wide Gram's rows (its lag kernel) and the
-multi-candidate kernel's rows at ME p = 3, 5, 9 and NVF p=3 also carry
-``halo_form``: per shard height (270, 540) the halo form's ms, plain ms,
-bound, and device ms on an interior shard.
-The last line is
+Last, over the launch counts of phases 3, 6 and 7: no main path runs the
+standalone prediction error or NVF mask, the wide solve runs once a wide
+Gram (an ME analysis at P = 5, 7, 9), and every launch of phases 6 and 7 is
+one of the main paths' kernels. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -205,6 +140,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -224,12 +160,10 @@ from watermarking_gpu_tpu_torch.models import (BatchedWatermark, Watermark,
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import rgb_to_gray, strength_factor
 from watermarking_gpu_tpu_torch.ops.cuda import build
-from watermarking_gpu_tpu_torch.ops.cuda.fused import (MASK_CODES,
-                                                      stencil_reach)
+from watermarking_gpu_tpu_torch.ops.cuda.fused import stencil_reach
 from watermarking_gpu_tpu_torch.ops.me import (gram_direct,
                                                solve_coefficients_spd,
                                                solve_coefficients_spd_wide)
-from watermarking_gpu_tpu_torch.ops.neighbors import neighbor_offsets
 from watermarking_gpu_tpu_torch.ops.pipelines import detect_many_pipeline
 from watermarking_gpu_tpu_torch.parallel import (make_dp_detect,
                                                  make_dp_detect_many,
@@ -257,8 +191,6 @@ N_CANDIDATES = 64
 BANK_SEED = 9041
 ENGINE_CANDIDATE = 17
 IDENTIFY_CASES = tuple((mask, p) for p in ALL_P for mask in ("me", "nvf"))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same source
 
 # Computed by the JAX package (watermarking_gpu_tpu, impl="xla") on the CPU,
 # one frame at a time, from the frames and watermark that make_frames() and
@@ -416,10 +348,6 @@ SUM_RTOL = 1e-4
 # operations in the same order, so bit-identical is expected; a difference
 # up to this, relative to a system's largest coefficient, passes and shows
 SOLVE_RTOL = 1e-6
-# operations of one 8x8 solve: the factorisation's products and sums with
-# its 8 square roots and 8 reciprocals (248), each substitution's products,
-# sums and 8 divisions (72 each)
-SOLVE_OPS = 248 + 2 * 72    # cholesky_ops(8)
 # the wide solve kernel against its plain version (the blocked Cholesky):
 # the wide solves' bound, their 8-term sums in another order than the
 # plain version's matmuls
@@ -435,39 +363,11 @@ PIXEL_ATOL, PIXEL_RTOL = 1e-2, 1e-2
 # detect_many's column for the engine's own watermark against detect on the
 # same frames: the same kernels' sums, finished in another order
 DETECT_MANY_ATOL = 1e-5
+# the (mask, p) at which phase 3 runs the plain identification route too
+PLAIN_IDENTIFY_CASE = ("me", 3)
 
-KERNEL_SOURCES = {
-    "me_gram": ("watermarking_gpu_tpu_torch/csrc/me_gram.cu",
-                "watermarking_gpu_tpu/ops/pallas/me_kernel.py:101"),
-    "me_gram_wide": ("watermarking_gpu_tpu_torch/csrc/me_gram_wide.cu",
-                     "watermarking_gpu_tpu/ops/pallas/me_gram_wide.py:182"),
-    "embed_field": ("watermarking_gpu_tpu_torch/csrc/fused.cu",
-                    "watermarking_gpu_tpu/ops/pallas/fused.py:885"),
-    "detect_partials": ("watermarking_gpu_tpu_torch/csrc/fused.cu",
-                        "watermarking_gpu_tpu/ops/pallas/fused.py:300"),
-    "detect_many": ("watermarking_gpu_tpu_torch/csrc/detect_many.cu",
-                    "watermarking_gpu_tpu/ops/pallas/fused.py:683"),
-    "prediction_error": (
-        "watermarking_gpu_tpu_torch/csrc/predict.cu",
-        "watermarking_gpu_tpu/ops/pallas/predict_kernel.py:56"),
-    "nvf_mask": ("watermarking_gpu_tpu_torch/csrc/nvf.cu",
-                 "watermarking_gpu_tpu/ops/pallas/nvf_kernel.py:24"),
-    # not a Pallas kernel: XLA code of the JAX package's jitted step
-    "spd_solve8": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
-                   "watermarking_gpu_tpu/ops/me.py:279"),
-    # the same solve, in the 3x3 Gram's assembly kernel (row 13's fused
-    # variant)
-    "me_gram_solve8": ("watermarking_gpu_tpu_torch/csrc/me_gram.cu",
-                       "watermarking_gpu_tpu/ops/me.py:279"),
-    "spd_solve_wide": ("watermarking_gpu_tpu_torch/csrc/spd_solve.cu",
-                       "watermarking_gpu_tpu/ops/me.py:420"),
-    "embed_finish": ("watermarking_gpu_tpu_torch/csrc/embed_finish.cu",
-                     "watermarking_gpu_tpu/ops/pipelines.py:293"),
-}
-XLA_KERNELS = ("spd_solve8", "me_gram_solve8", "spd_solve_wide",
-               "embed_finish")
 STANDALONE_KERNELS = ("prediction_error", "nvf_mask")
-# the 3x3 Gram's two kernels (the me_gram row), each with its count
+# the 3x3 Gram's two kernels, each with its count
 GRAM_KERNELS = ("me_gram_lags", "me_gram_assemble")
 # and the 8x8 solve of its system in the assembly kernel
 # (``me_gram_solve8``, its own count a call): every single-device run of
@@ -478,13 +378,16 @@ GRAM_SOLVE_KERNELS = (*GRAM_KERNELS, "me_gram_solve8")
 # fused embed
 EMBED_KERNELS = ("embed_field", "embed_finish")
 P3_KERNELS = (*GRAM_SOLVE_KERNELS, *EMBED_KERNELS, "detect_partials")
-# the wide Gram's two kernels (the me_gram_wide rows), each with its count
+# the wide Gram's two kernels, each with its count
 WIDE_GRAM_KERNELS = ("wide_lag_strips", "wide_assemble")
 # and the wide solve of its system: every ME analysis at p > 3
 WIDE_GRAM_SOLVE_KERNELS = (*WIDE_GRAM_KERNELS, "spd_solve_wide")
 # calls of the one-call fused embed and detect (``ops/cuda/chain.py``), not
-# kernels: each of the chain's kernels counts in its own row
+# kernels: each of the chain's kernels counts in its own counter
 CHAIN_COUNTERS = ("embed_chain", "detect_chain")
+# every kernel a main path runs, on one device or sharded (phases 3, 6, 7)
+ROUTE_KERNELS = (*GRAM_SOLVE_KERNELS, "spd_solve8", *WIDE_GRAM_SOLVE_KERNELS,
+                 *EMBED_KERNELS, "detect_partials", "detect_many")
 
 
 class SmokeFailure(RuntimeError):
@@ -528,13 +431,10 @@ def phase_card_and_build() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    power = smi.stdout.strip().splitlines()[0]
-    print(power, flush=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
     # the plain blocked solve's matmuls (the wide solve kernel's oracle)
-    # and the one convolution timed as a yardstick (conv_prediction_error)
     # must run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     start = time.perf_counter()
     path, log = build.build()
     build.library()
@@ -543,7 +443,7 @@ def phase_card_and_build() -> str:
     for line in log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"[1]   ptxas: {line.strip()}", flush=True)
-    return kind, power
+    return kind
 
 
 def check_embed_field(img: torch.Tensor, wm: torch.Tensor,
@@ -587,19 +487,16 @@ def finish_numerator(u_raw: torch.Tensor) -> float:
 
 
 def check_embed_finish(u_raw, output, sum_u2, max_e, valid, mask: str,
-                       label: str) -> tuple[tuple, tuple[float, float]]:
+                       label: str) -> tuple:
     """The embed finish against its plain version on the same inputs:
     pixels and strengths bit-identical, NaN equal to NaN, as are two
-    calls. Returns (the kernel's (pixels, strengths), (max abs err of the
-    pixels, max rel err of the strengths), NaN left out)."""
+    calls. Returns the kernel's (pixels, strengths)."""
     args = (u_raw, output, sum_u2, max_e, valid, finish_numerator(u_raw),
             mask)
     got = kernels.embed_finish(*args)
     want = kernels.embed_finish_plain(*args)
     px_err = float((got[0].double() - want[0].double()).nan_to_num().abs()
                    .max())
-    finite = want[1].isfinite() & (want[1] != 0)
-    s_err = rel_err(got[1][finite], want[1][finite]) if finite.any() else 0.0
     check(same_bits(got[0], want[0]), f"embed_finish {label}: pixels not "
           f"bit-identical to the plain version, max abs err {px_err:.3e}")
     check(same_bits(got[1], want[1]), f"embed_finish {label}: strengths "
@@ -607,18 +504,16 @@ def check_embed_finish(u_raw, output, sum_u2, max_e, valid, mask: str,
     again = kernels.embed_finish(*args)
     check(all(same_bits(a, g) for a, g in zip(again, got)),
           f"embed_finish {label}: two calls differ")
-    return got, (px_err, s_err)
+    return got
 
 
 def check_finish_cases(img: torch.Tensor, wm: torch.Tensor,
-                       coeffs: torch.Tensor, label: str
-                       ) -> tuple[float, float]:
+                       coeffs: torch.Tensor, label: str) -> None:
     """The embed finish on the embed field of ``img`` at ME (its frames'
     coefficients) and NVF p=3, frame 1's solve forced to fail: into the
     f32 frames, into an RGB output and into the frames as u8 (the video's
     form); then an NVF constant frame (sum u_raw^2 = 0: NaN pixels), f32
-    and u8. Returns the worst (pixel, strength) errors."""
-    worst = (0.0, 0.0)
+    and u8."""
     valid = torch.ones(img.shape[0], dtype=torch.bool, device=img.device)
     valid[1] = False
     outputs = {"f32": img, "rgb": torch.stack([img, img * 0.5, 255 - img],
@@ -628,9 +523,8 @@ def check_finish_cases(img: torch.Tensor, wm: torch.Tensor,
         field = kernels.embed_field(img, wm, coeffs if mask == "me" else None,
                                     mask)
         for form, output in outputs.items():
-            _, errs = check_embed_finish(field[0], output, *field[1:], valid,
-                                         mask, f"{mask} {form} {label}")
-            worst = tuple(map(max, worst, errs))
+            check_embed_finish(field[0], output, *field[1:], valid, mask,
+                               f"{mask} {form} {label}")
     del outputs
     flat = img.clone()
     flat[-1] = 77.0
@@ -638,13 +532,11 @@ def check_finish_cases(img: torch.Tensor, wm: torch.Tensor,
     check(float(field[1][-1]) == 0.0, f"embed_finish {label}: a constant "
           f"frame's sum u_raw^2 is {float(field[1][-1])}")
     for output in (flat, flat.to(torch.uint8)):
-        (marked, _), errs = check_embed_finish(
+        marked, _ = check_embed_finish(
             field[0], output, *field[1:], torch.ones_like(valid), "nvf",
             f"nvf constant frame {output.dtype} {label}")
         check(output.dtype == torch.uint8 or bool(marked[-1].isnan().all()),
               f"embed_finish {label}: the NVF constant frame is not NaN")
-        worst = tuple(map(max, worst, errs))
-    return worst
 
 
 def check_gram(img: torch.Tensor, label: str) -> tuple[float, ...]:
@@ -652,8 +544,8 @@ def check_gram(img: torch.Tensor, label: str) -> tuple[float, ...]:
     same inputs (the lag kernel's strip sums; the assembly kernel's Gram
     from the plain sums), the Gram of both against the direct per-pair sums
     ``me_gram_plain`` within SUM_RTOL, and two calls bit-identical.
-    Returns the Gram's (max abs err, max rel err), then the lag and the
-    assembly kernel's max rel err."""
+    Returns the max rel err of the Gram, of the lag kernel and of the
+    assembly kernel."""
     sums = kernels.me_gram_lags(img)
     sums_plain = kernels.gram_lags_plain(img)
     lag_err = rel_err(sums, sums_plain)
@@ -671,8 +563,7 @@ def check_gram(img: torch.Tensor, label: str) -> tuple[float, ...]:
           f"me_gram {label}: rel err {gram_err:.3e}")
     check(torch.equal(kernels.me_gram(img), gram),
           f"me_gram {label}: two calls differ")
-    return (float((gram - plain).abs().max()), gram_err, lag_err,
-            assemble_err)
+    return gram_err, lag_err, assemble_err
 
 
 def check_solve(gram: torch.Tensor, label: str) -> tuple[float, float, bool]:
@@ -791,10 +682,8 @@ def accuracy_text(errors: tuple[float, float]) -> str:
             f"{errors[1]:.2e}, {errors[0] / errors[1]:.2f}x)")
 
 
-def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
-    """Each kernel against its plain version; returns per-kernel errors at
-    the main path's shape."""
-    errors = {}
+def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> None:
+    """Each p=3 kernel and the 8x8 solve against its plain version."""
     gen = np.random.default_rng(5)
     small = torch.from_numpy(np.clip(gen.normal(128, 40, (3, 37, 83)), 0,
                                      255).astype(np.float32)).cuda()
@@ -802,7 +691,6 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         gen.normal(size=(37, 83)).astype(np.float32)).cuda()
     for img, wm in ((frames_d, wm_d), (small, small_wm)):
         label = "x".join(str(n) for n in img.shape)
-        main_shape = img is frames_d
         before = kernels.launch_counts()
         gram_errors = check_gram(img, label)
         solved = check_solve(kernels.me_gram(img), label)
@@ -811,15 +699,10 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         coeffs, valid = solve_coefficients_spd(gram_plain[:, :8, :8],
                                                gram_plain[:, :8, 8])
         check(bool(valid.all()), f"{label}: solve flagged a frame singular")
-        if main_shape:
-            errors["me_gram"] = gram_errors[:2]
-            errors["spd_solve8"] = solved[:2]
-            errors["me_gram_solve8"] = fused[:2]
         worst_u = worst_sum = worst_corr = worst_detect = 0.0
         for mask in ("me", "nvf"):
             u_err, sums_err = check_embed_field(img, wm, coeffs, mask, 3,
                                                 label)
-
             corr_err, detect_err = detect_errors(
                 kernels.detect_partials(img, wm, coeffs, mask),
                 kernels.detect_partials_plain(img, wm, coeffs, mask))
@@ -828,20 +711,14 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
             worst_u, worst_sum = max(worst_u, u_err), max(worst_sum, sums_err)
             worst_corr = max(worst_corr, corr_err)
             worst_detect = max(worst_detect, detect_err)
-            if main_shape:
-                suffix = "" if mask == "me" else "_nvf_p3"
-                errors["embed_field" + suffix] = (u_err, sums_err)
-                errors["detect_partials" + suffix] = (corr_err, detect_err)
-        finish_errors = check_finish_cases(img, wm, coeffs, label)
-        if main_shape:
-            errors["embed_finish"] = finish_errors
+        check_finish_cases(img, wm, coeffs, label)
         after = kernels.launch_counts()
         check(all(after[k] > before[k] for k in P3_KERNELS),
               f"{label}: a launch counter did not rise: {before} -> {after}")
         torch.cuda.synchronize()
-        print(f"[2] {label}: me_gram lag kernel rel {gram_errors[2]:.2e}, "
-              f"assembly kernel rel {gram_errors[3]:.2e}, Gram rel "
-              f"{gram_errors[1]:.2e} (two calls bit-identical); "
+        print(f"[2] {label}: me_gram lag kernel rel {gram_errors[1]:.2e}, "
+              f"assembly kernel rel {gram_errors[2]:.2e}, Gram rel "
+              f"{gram_errors[0]:.2e} (two calls bit-identical); "
               f"embed_field u_raw abs {worst_u:.2e} (bit-identical, as are "
               f"two calls), sums rel "
               f"{worst_sum:.2e}; detect_partials sums rel "
@@ -891,7 +768,6 @@ def phase_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
     print("[2] me_gram_solve8 on a constant frame between two real ones: "
           "valid [True, False, True], its coefficients zeros, bit-identical "
           "to spd_solve8(me_gram(x)): ok", flush=True)
-    return errors
 
 
 def _close(got, want, atol=0.0, rtol=0.0) -> bool:
@@ -900,8 +776,7 @@ def _close(got, want, atol=0.0, rtol=0.0) -> bool:
 
 
 def phase_main_path(frames: np.ndarray) -> dict[str, dict]:
-    """The p=3 main path; returns the launch counts of the whole run
-    ("all") and of its NVF embed and detects ("nvf")."""
+    """The p=3 main path; returns the launch counts of the whole run."""
     engine = BatchedWatermark(ROWS, COLS, SEED, p=3, psnr=PSNR,
                               device="cuda")
     frames_d = torch.from_numpy(frames).cuda()
@@ -989,171 +864,7 @@ def phase_main_path(frames: np.ndarray) -> dict[str, dict]:
           f"strength {float(single_strength):.5f}: ok", flush=True)
     print(f"[3] launches on the main path: {counts} (NVF part "
           f"{part['nvf']})", flush=True)
-    return {"all": counts, "nvf": part["nvf"]}
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Milliseconds per call of ``fn``, CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def host_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Host milliseconds per call of ``fn``: the host clock around
-    ``iters`` calls with no synchronize between them, after one. The card
-    runs behind without pacing the host while its launch queue has room
-    (``iters`` calls of a few launches each), so this is what the host
-    spends to enqueue a call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    seconds = time.perf_counter() - start
-    torch.cuda.synchronize()
-    return seconds * 1e3 / iters
-
-
-def phase_timing(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
-    sf = strength_factor(PSNR)
-
-    def step_fps(impl: str) -> float:
-        state = {"frames": frames_d}
-
-        def step():
-            marked, _ = batch_embed(state["frames"], state["frames"], wm_d,
-                                    sf, "me", impl=impl)
-            batch_detect(marked, wm_d, "me", impl=impl)
-            state["frames"] = marked   # chained: the next step reads this
-        return BATCH * 1e3 / cuda_ms(step)
-
-    fps = {"cuda": [], "torch": []}
-    for impl in ("cuda", "torch", "torch", "cuda"):
-        fps[impl].append(step_fps(impl))
-    print(f"[4] 8x1080p ME embed+detect step: kernels "
-          f"{max(fps['cuda']):.1f} fps (runs {fps['cuda'][0]:.1f}, "
-          f"{fps['cuda'][1]:.1f}), plain path {max(fps['torch']):.1f} fps "
-          f"(runs {fps['torch'][0]:.1f}, {fps['torch'][1]:.1f})", flush=True)
-
-    gram = kernels.me_gram_plain(frames_d)
-    coeffs, _ = solve_coefficients_spd(gram[:, :8, :8], gram[:, :8, 8])
-    pairs = {"me_gram": (lambda: kernels.me_gram(frames_d),
-                         lambda: kernels.me_gram_plain(frames_d))}
-    for mask, suffix in (("me", ""), ("nvf", "_nvf_p3")):
-        pairs["embed_field" + suffix] = (
-            lambda m=mask: kernels.embed_field(
-                frames_d, wm_d, coeffs if m == "me" else None, m),
-            lambda m=mask: kernels.embed_field_plain(frames_d, wm_d, coeffs,
-                                                     m))
-        pairs["detect_partials" + suffix] = (
-            lambda m=mask: kernels.detect_partials(frames_d, wm_d, coeffs, m),
-            lambda m=mask: kernels.detect_partials_plain(frames_d, wm_d,
-                                                         coeffs, m))
-    # the embed finish on the ME field: into the f32 frames (the step's
-    # form) and into u8 lumas (the video's)
-    field = kernels.embed_field(frames_d, wm_d, coeffs, "me")
-    valid = torch.ones(BATCH, dtype=torch.bool, device=frames_d.device)
-    for name, output in (("embed_finish", frames_d),
-                         ("embed_finish_u8", frames_d.to(torch.uint8))):
-        args = (field[0], output, *field[1:], valid,
-                finish_numerator(field[0]), "me")
-        pairs[name] = (lambda a=args: kernels.embed_finish(*a),
-                       lambda a=args: kernels.embed_finish_plain(*a))
-    times = {}
-    for name, (kernel_fn, plain_fn) in pairs.items():
-        times[name] = (cuda_ms(kernel_fn), cuda_ms(plain_fn))
-        label = name if name.endswith("_p3") else f"{name} (ME p=3)"
-        print(f"[4] {label} at 8x1080x1920: kernel {times[name][0]:.4f} ms, "
-              f"plain {times[name][1]:.4f} ms", flush=True)
-    times["spd_solve8"] = solve_times(kernels.me_gram(frames_d))
-    times.update(gram_solve_times(frames_d))
-    return times
-
-
-def gram_solve_times(frames_d: torch.Tensor) -> dict:
-    """ms a call of the 3x3 Gram with the solve in its assembly kernel
-    (``me_gram_solve8``) beside the two calls it replaces,
-    ``spd_solve8(me_gram(x))``, CUDA events in turns fused, two calls, two
-    calls, fused (the least of each pair), and of its plain version
-    ``spd_solve8_plain(me_gram_plain(x))``: {"me_gram_solve8": (fused,
-    plain), "me_gram_solve8_two_calls": two calls}."""
-    fns = {"fused": lambda: kernels.me_gram_solve8(frames_d),
-           "two calls": lambda: kernels.spd_solve8(kernels.me_gram(frames_d))}
-    runs: dict[str, list[float]] = {name: [] for name in fns}
-    for name in (*fns, *reversed(fns)):
-        runs[name].append(cuda_ms(fns[name], iters=50))
-    plain = cuda_ms(lambda: kernels.spd_solve8_plain(
-        kernels.me_gram_plain(frames_d)), iters=10)
-    fused, two = min(runs["fused"]), min(runs["two calls"])
-    gram = kernels.me_gram(frames_d)
-    host = {"fused": [], "two calls": [], "me_gram": [], "spd_solve8": []}
-    fns.update(me_gram=lambda: kernels.me_gram(frames_d),
-               spd_solve8=lambda: kernels.spd_solve8(gram))
-    for name in (*host, *reversed(host)):
-        host[name].append(host_ms(fns[name]))
-    host = {name: min(ms) for name, ms in host.items()}
-    print(f"[4] me_gram_solve8 (the 3x3 Gram with the 8x8 solve in its "
-          f"assembly, B={frames_d.shape[0]}): {fused:.4f} ms a call (runs "
-          f"{runs['fused'][0]:.4f}, {runs['fused'][1]:.4f}); the two calls "
-          f"spd_solve8(me_gram(x)) {two:.4f} ms (runs "
-          f"{runs['two calls'][0]:.4f}, {runs['two calls'][1]:.4f}); plain "
-          f"{plain:.4f} ms; host ms a call (enqueue, host_ms): fused "
-          f"{host['fused']:.4f}, two calls {host['two calls']:.4f} "
-          f"(me_gram {host['me_gram']:.4f}, spd_solve8 "
-          f"{host['spd_solve8']:.4f})", flush=True)
-    return {"me_gram_solve8": (fused, plain),
-            "me_gram_solve8_two_calls": two,
-            "me_gram_solve8_host": host}
-
-
-def library_solve(gram: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k-unknown systems of a (B, k+1, k+1) Gram by the library pair:
-    one ``cholesky_ex`` and one ``cholesky_solve`` (the yardstick of the
-    kernels line's ``library_ms``; the kernel route never calls it)."""
-    k = gram.shape[-1] - 1
-    lower, info = torch.linalg.cholesky_ex(gram[:, :k, :k])
-    return torch.cholesky_solve(gram[:, :k, k:], lower)[:, :, 0], info == 0
-
-
-def solve_times(gram: torch.Tensor, wide: bool = False
-                ) -> tuple[float, float, float]:
-    """(kernel, plain solve, library pair) ms a call of the 8x8 solve
-    kernel, or with ``wide`` the wide one, on the frames' (8, k+1, k+1)
-    Gram, CUDA events, in turns kernel, plain, library, library, plain,
-    kernel (the least of each pair)."""
-    kernel, plain = ((kernels.spd_solve_wide, kernels.spd_solve_wide_plain)
-                     if wide else (kernels.spd_solve8,
-                                   kernels.spd_solve8_plain))
-    fns = {"kernel": lambda: kernel(gram), "plain": lambda: plain(gram),
-           "library": lambda: library_solve(gram)}
-    # the plain blocked solve is thousands of launches a call
-    iters = {"kernel": 50, "plain": 10 if wide else 50, "library": 50}
-    runs: dict[str, list[float]] = {name: [] for name in fns}
-    for name in (*fns, *reversed(fns)):
-        runs[name].append(cuda_ms(fns[name], iters=iters[name]))
-    coeffs, _ = library_solve(gram)
-    lib_err = float((coeffs - kernel(gram)[0]).abs().max())
-    ms = tuple(min(runs[name]) for name in fns)
-    k = gram.shape[-1] - 1
-    label = (f"spd_solve_wide p={math.isqrt(k + 1)} ({k} unknowns"
-             if wide else "spd_solve8 (8x8 solve")
-    print(f"[4] {label}, B={gram.shape[0]}): kernel "
-          f"{ms[0]:.4f} ms (runs {runs['kernel'][0]:.4f}, "
-          f"{runs['kernel'][1]:.4f}), plain "
-          f"{'blocked' if wide else 'unrolled'} solve {ms[1]:.4f} ms, "
-          f"library cholesky_ex + cholesky_solve {ms[2]:.4f} ms (its "
-          f"coefficients abs {lib_err:.1e} from the kernel's)", flush=True)
-    return ms
+    return counts
 
 
 def predictor_coefficients(img: torch.Tensor) -> dict[int, torch.Tensor]:
@@ -1174,10 +885,8 @@ def predictor_coefficients(img: torch.Tensor) -> dict[int, torch.Tensor]:
     return coeffs
 
 
-def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
-    """The wide kernels against their plain versions at p = 5, 7, 9; returns
-    per-row (max abs err, max rel err) at the main path's shape."""
-    errors = {}
+def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> None:
+    """The wide kernels against their plain versions at p = 5, 7, 9."""
     gen = np.random.default_rng(6)
     small = torch.from_numpy(np.clip(gen.normal(128, 40, (3, 37, 83)), 0,
                                      255).astype(np.float32)).cuda()
@@ -1220,13 +929,9 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                       f"me_gram_wide {label}: Gram rel err against the "
                       f"direct sums {rel_err(gram, direct):.3e}")
                 worst["direct"] = rel_err(gram, direct)
-            else:
-                errors[f"me_gram_wide_p{p}"] = (
-                    float((gram - plain).abs().max()), worst["gram"])
             solved = check_solve_wide(gram, label)
             accuracy = solve_accuracy(gram)
             if main_shape:
-                errors[f"spd_solve_wide_p{p}"] = solved[:2]
                 check(accuracy[0] <= WIDE_SOLVE_ACCURACY * accuracy[1],
                       f"spd_solve_wide {label}: error against float64 "
                       f"{accuracy[0]:.3e}, over {WIDE_SOLVE_ACCURACY}x the "
@@ -1242,10 +947,6 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
                 check(detect_err <= SUM_RTOL, f"detect_partials {mask} "
                       f"{label}: rel err {detect_err:.3e}")
                 worst[mask] = (u_err, sums_err, corr_err, detect_err)
-                if main_shape:
-                    errors[f"embed_field_{mask}_p{p}"] = (u_err, sums_err)
-                    errors[f"detect_partials_{mask}_p{p}"] = (corr_err,
-                                                              detect_err)
             after = kernels.launch_counts()
             check(all(after[n] > before[n] for n in
                       (*WIDE_GRAM_SOLVE_KERNELS, "embed_field",
@@ -1286,12 +987,11 @@ def phase_wide_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
         print(f"[2] spd_solve_wide p={p} on a frame's, a constant frame's and "
               f"a zero wide Gram: valid [True, False, False], the singular "
               f"ones zeros; {solve_text(solved)}: ok", flush=True)
-    return errors
 
 
-def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
+def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, int]:
     """ME and NVF embed then detect of 8 frames at window p through the
-    engine; returns the launch counts of each mask's part of the run."""
+    engine; returns the launch counts of the whole run."""
     engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR,
                               device="cuda")
     frames_d = torch.from_numpy(frames).cuda()
@@ -1365,91 +1065,7 @@ def phase_wide_main_path(frames: np.ndarray, p: int) -> dict[str, dict]:
               f"{pixel_err:.2e}: ok", flush=True)
     print(f"[3] p={p} launches on the main path: {total} (ME {counts['me']},"
           f" NVF {counts['nvf']})", flush=True)
-    return counts
-
-
-def phase_wide_timing(frames_d: torch.Tensor, wm_d: torch.Tensor,
-                      p: int) -> dict:
-    sf = strength_factor(PSNR)
-
-    def step_fps(impl: str) -> float:
-        state = {"frames": frames_d}
-
-        def step():
-            marked, _ = batch_embed(state["frames"], state["frames"], wm_d,
-                                    sf, "me", p=p, impl=impl)
-            batch_detect(marked, wm_d, "me", p=p, impl=impl)
-            state["frames"] = marked
-        return BATCH * 1e3 / cuda_ms(step)
-
-    fps = {"cuda": [], "torch": []}
-    for impl in ("cuda", "torch", "torch", "cuda"):
-        fps[impl].append(step_fps(impl))
-    print(f"[4] p={p} 8x1080p ME embed+detect step: kernels "
-          f"{max(fps['cuda']):.1f} fps (runs {fps['cuda'][0]:.1f}, "
-          f"{fps['cuda'][1]:.1f}), plain path {max(fps['torch']):.1f} fps "
-          f"(runs {fps['torch'][0]:.1f}, {fps['torch'][1]:.1f})", flush=True)
-
-    coeffs = predictor_coefficients(frames_d)
-    pairs = {f"me_gram_wide_p{p}": (
-        lambda: kernels.me_gram_wide(frames_d, p),
-        lambda: kernels.me_gram_wide_plain(frames_d, p))}
-    for mask in ("me", "nvf"):
-        c = coeffs[p if mask == "me" else 3]
-        pairs[f"embed_field_{mask}_p{p}"] = (
-            lambda c=c, m=mask: kernels.embed_field(
-                frames_d, wm_d, c if m == "me" else None, m, p),
-            lambda c=c, m=mask: kernels.embed_field_plain(frames_d, wm_d, c,
-                                                          m, p))
-        pairs[f"detect_partials_{mask}_p{p}"] = (
-            lambda c=c, m=mask: kernels.detect_partials(frames_d, wm_d, c, m,
-                                                        p),
-            lambda c=c, m=mask: kernels.detect_partials_plain(frames_d, wm_d,
-                                                              c, m, p))
-    times = {}
-    for name, (kernel_fn, plain_fn) in pairs.items():
-        times[name] = (cuda_ms(kernel_fn), cuda_ms(plain_fn))
-        print(f"[4] {name} at 8x1080x1920: kernel {times[name][0]:.4f} ms, "
-              f"plain {times[name][1]:.4f} ms", flush=True)
-    times[f"spd_solve_wide_p{p}"] = solve_times(
-        kernels.me_gram_wide(frames_d, p), wide=True)
-    return times
-
-
-def device_ms(fns, patterns: dict[str, str], calls: int = 20,
-              tries: int = 3) -> dict[str, float]:
-    """Device ms a call of each kernel whose name holds ``patterns[key]``,
-    keyed as ``patterns``, from torch.profiler's kernel records of one
-    session over ``calls`` calls of each of ``fns`` in turn (CUDA events
-    around a call would count the wrappers' host time when it exceeds a
-    kernel's); each fn launches each of its kernels once a call. The
-    profiler may drop records: a mean is over the records it kept, and a
-    session that kept none of some kernel is run again. Run after every
-    other timing: the profiler's tracing may stay attached and slow later
-    launches."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for fn in fns:
-                for _ in range(calls):
-                    fn()
-            torch.cuda.synchronize()
-        total = dict.fromkeys(patterns, 0.0)
-        seen = dict.fromkeys(patterns, 0)
-        for event in prof.events():
-            if event.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            for key, pattern in patterns.items():
-                if pattern in event.name:
-                    total[key] += event.device_time_total / 1e3
-                    seen[key] += 1
-        if all(seen.values()):
-            return {key: total[key] / seen[key] for key in patterns}
-    check(False, f"the profiler kept no record of "
-          f"{[patterns[key] for key, n in seen.items() if not n]}")
+    return total
 
 
 def detect_errors(got: tuple, want: tuple) -> tuple[float, float]:
@@ -1470,145 +1086,12 @@ def detect_errors(got: tuple, want: tuple) -> tuple[float, float]:
     return float((corr - dot_w / scale).abs().max()), sums
 
 
-def row_name(kernel: str, mask: str, p: int) -> str:
-    """The kernels line's row name of the embed field or the detect tail
-    ("embed_field", "detect_partials") at mask and p."""
-    if p == 3:
-        return kernel + ("" if mask == "me" else "_nvf_p3")
-    return f"{kernel}_{mask}_p{p}"
-
-
-def device_split(frames_d: torch.Tensor, wm_d: torch.Tensor) -> dict:
-    """Device ms a call of the 3x3 Gram's two kernels (keyed
-    "me_gram_lags", "me_gram_assemble", and their sum "me_gram"), of the
-    8x8 solve kernel on the frames' Gram ("spd_solve8"), of the
-    wide Gram's two kernels and the wide solve kernel at p = 5, 7, 9 (keyed
-    "wide_lag_strips_p5", ..., "spd_solve_wide_p5", ...) and of the embed
-    field and the detect tail at ME and NVF p = 3, 5, 7, 9 (keyed by
-    kernel row name), of the standalone prediction error and NVF mask at
-    each p ("prediction_error_p3", ..., "nvf_mask_p3", ...) and of the
-    embed finish into f32 frames and u8 lumas ("embed_finish",
-    "embed_finish_u8"), from one ``device_ms`` session;
-    each
-    kernel is told apart by its name and template arguments. The 3x3
-    assembly kernel is a programmatic dependent launch: it may start
-    beside the lag kernel's last wave and wait there, so its device time
-    holds that wait and the sum counts the overlap twice; CUDA events
-    around ``me_gram`` (phase 4) time the pair as it runs."""
-    coeffs = predictor_coefficients(frames_d)
-    gram = kernels.me_gram(frames_d)
-    fns = [lambda: kernels.me_gram(frames_d),
-           lambda: kernels.spd_solve8(gram),
-           lambda: kernels.me_gram_solve8(frames_d)]
-    # the lag kernel serves both forms of the 3x3 Gram alike; the assembly
-    # kernel without the solve and with it
-    patterns = {"me_gram_lags": "me_gram_lags_kernel",
-                "me_gram_assemble": "me_gram_assemble_kernel<false>",
-                "me_gram_assemble_solve8": "me_gram_assemble_kernel<true>",
-                "spd_solve8": "spd_solve8_kernel"}
-    for p in WIDE_P:
-        fns.append(lambda p=p: kernels.me_gram_wide(frames_d, p))
-        for kernel in WIDE_GRAM_KERNELS:
-            patterns[f"{kernel}_p{p}"] = f"{kernel}_kernel<{p // 2}>"
-        wide_gram = kernels.me_gram_wide(frames_d, p)
-        fns.append(lambda g=wide_gram: kernels.spd_solve_wide(g))
-        patterns[f"spd_solve_wide_p{p}"] = (
-            f"spd_solve_wide_kernel<{p * p - 1}>")
-    for p in ALL_P:
-        for mask in ("me", "nvf"):
-            c = coeffs[p if mask == "me" else 3]
-            fns.append(lambda c=c, m=mask, p=p: kernels.embed_field(
-                frames_d, wm_d, c if m == "me" else None, m, p))
-            patterns[row_name("embed_field", mask, p)] = (
-                f"embed_field_kernel<{MASK_CODES[mask]}, {p // 2}>")
-            fns.append(lambda c=c, m=mask,
-                       p=p: kernels.detect_partials(frames_d, wm_d, c, m, p))
-            half = (p // 2, 0) if mask == "me" else (1, p // 2)
-            patterns[row_name("detect_partials", mask, p)] = (
-                f"detect_tail_kernel<{MASK_CODES[mask]}, {half[0]}, "
-                f"{half[1]}>")
-    # the standalone ops, which no main path runs
-    for p in ALL_P:
-        fns.append(lambda p=p: kernels.prediction_error(frames_d, coeffs[p],
-                                                        p))
-        patterns[f"prediction_error_p{p}"] = (
-            f"prediction_error_kernel<{p // 2}>")
-        fns.append(lambda p=p: kernels.nvf_mask(frames_d, p))
-        patterns[f"nvf_mask_p{p}"] = f"nvf_mask_kernel<{p // 2}>"
-    field = kernels.embed_field(frames_d, wm_d, coeffs[3], "me")
-    valid = torch.ones(BATCH, dtype=torch.bool, device=frames_d.device)
-    for name, output, dtype in (
-            ("embed_finish", frames_d, "float"),
-            ("embed_finish_u8", frames_d.to(torch.uint8), "unsigned char")):
-        fns.append(lambda o=output: kernels.embed_finish(
-            field[0], o, *field[1:], valid, finish_numerator(field[0]),
-            "me"))
-        patterns[name] = f"embed_finish_kernel<{dtype}"
-    split = device_ms(fns, patterns)
-    split["me_gram"] = sum(split[name] for name in GRAM_KERNELS)
-    split["me_gram_solve8"] = (split["me_gram_lags"]
-                               + split["me_gram_assemble_solve8"])
-    return split
-
-
-def step_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor, p: int,
-                 steps: int = 5) -> tuple[float, float, float]:
-    """(device kernels, device busy ms, host ms) a step of phase 4's
-    chained 8-frame ME embed+detect step at window p through the kernels:
-    the first two from torch.profiler's kernel records over ``steps``
-    steps after 3 (the records it drops make a count low, never high), the
-    host's enqueue time from ``host_ms`` over 20 steps."""
-    sf = strength_factor(PSNR)
-    state = {"frames": frames_d}
-
-    def step():
-        marked, _ = batch_embed(state["frames"], state["frames"], wm_d, sf,
-                                "me", p=p, impl="cuda")
-        batch_detect(marked, wm_d, "me", p=p, impl="cuda")
-        state["frames"] = marked
-    host = host_ms(step, iters=20)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    records = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (len(records) / steps,
-            sum(e.device_time_total for e in records) / 1e3 / steps, host)
-
-
-def halo_device_split(frames_d: torch.Tensor, wm_d: torch.Tensor,
-                      bank_d: torch.Tensor) -> dict:
-    """Device ms a call of the halo forms on an interior shard of 270 and
-    of 540 rows (phase 6's shards; ``halo_timing_pairs``), one
-    ``device_ms`` session a shard height: {(row name, shard rows): ms}, the
-    3x3 Gram as its two kernels' sum (counting the assembly's wait, as
-    ``device_split``), the wide Gram as its lag kernel."""
-    coeffs = predictor_coefficients(frames_d)
-    split = {}
-    for space in HALO_SPACES:
-        rows = ROWS // space
-        pairs = halo_timing_pairs(frames_d, wm_d, bank_d, coeffs, rows)
-        patterns = {}
-        for pair in pairs.values():
-            patterns.update(pair[-1])
-        times = device_ms([pair[3] for pair in pairs.values()], patterns)
-        times["me_gram"] = sum(times.pop(name) for name in GRAM_KERNELS)
-        split.update({(name, rows): ms for name, ms in times.items()})
-    return split
-
-
 def phase_identify_kernels(frames_d: torch.Tensor,
-                           bank_d: torch.Tensor) -> dict:
+                           bank_d: torch.Tensor) -> None:
     """The multi-candidate kernel at ME and NVF p = 3, 5, 7, 9 and the
     standalone prediction error and NVF mask at each p, against their plain
     versions on the same inputs, at 8 x 1080 x 1920 with the 64-candidate
-    bank and at 3 x 37 x 83 with 70 (a full chunk and a partial one).
-    Returns per-row (max abs err, max rel err) at the main path's shape: for
-    the standalone ops the error of the output, relative to its largest
-    value."""
-    errors = {}
+    bank and at 3 x 37 x 83 with 70 (a full chunk and a partial one)."""
     gen = np.random.default_rng(7)
     small = torch.from_numpy(np.clip(gen.normal(128, 40, (3, 37, 83)), 0,
                                      255).astype(np.float32)).cuda()
@@ -1618,7 +1101,7 @@ def phase_identify_kernels(frames_d: torch.Tensor,
         label = "x".join(str(n) for n in img.shape) + f" N={bank.shape[0]}"
         coeffs = predictor_coefficients(img)
         before = kernels.launch_counts()
-        worst = {}
+        worst, alone = {}, []
         for p in ALL_P:
             for mask in ("me", "nvf"):
                 c = coeffs[p if mask == "me" else 3]
@@ -1639,7 +1122,7 @@ def phase_identify_kernels(frames_d: torch.Tensor,
                 check(same_bits(got, want),
                       f"{name} {label}: not bit-identical to the plain "
                       f"version, max abs err {abs_err:.3e}")
-                worst[name] = (abs_err, abs_err / float(want.abs().max()))
+                alone.append(abs_err)
             # one (H, W) frame, as the JAX package's standalone ops take it
             check(same_bits(kernels.prediction_error(img[1], coeffs[p][1], p),
                             kernels.prediction_error_plain(
@@ -1653,17 +1136,12 @@ def phase_identify_kernels(frames_d: torch.Tensor,
                                                   *STANDALONE_KERNELS)),
               f"{label}: a launch counter did not rise: {before} -> {after}")
         torch.cuda.synchronize()
-        many = [v for k, v in worst.items() if k.startswith("detect_many")]
-        alone = [v[0] for k, v in worst.items()
-                 if not k.startswith("detect_many")]
+        many = worst.values()
         print(f"[2] {label}: detect_many at ME and NVF p = 3, 5, 7, 9: sums "
               f"rel {max(v[1] for v in many):.2e}, corr abs "
               f"{max(v[0] for v in many):.2e}; prediction_error and nvf_mask "
               f"at p = 3, 5, 7, 9, (B, H, W) and (H, W): bit-identical (max "
               f"abs {max(alone):.2e}): ok", flush=True)
-        if img is frames_d:
-            errors = worst
-    return errors
 
 
 # Computed by the JAX package (watermarking_gpu_tpu, impl="xla") on the CPU
@@ -1987,13 +1465,46 @@ JAX_IDENTIFY_REFERENCE = {
 }
 
 
+def check_plain_identify(engine: BatchedWatermark, frames_d: torch.Tensor,
+                         bank_d: torch.Tensor, mask: str) -> str:
+    """The plain identification route (``impl="torch"``) on the card:
+    ``frames_d`` against the bank in more than one chunk, its correlations
+    within CORR_ATOL of ``engine``'s kernel route, its peak allocation above
+    what was resident before it within the budget its chunks are sized
+    to."""
+    plain = BatchedWatermark(ROWS, COLS, SEED, p=engine.p, psnr=PSNR,
+                             impl="torch", device="cuda")
+    budget = plain._DETECT_MANY_BUDGET_BYTES
+    chunk = budget // (plain._PLAIN_PLANES * 4 * frames_d.numel())
+    check(chunk < bank_d.shape[0], f"the plain route takes the "
+          f"{bank_d.shape[0]} candidates in one chunk of {chunk}")
+    want = engine.detect_many(frames_d, bank_d, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    got = plain.detect_many(frames_d, bank_d, mask)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    err = float((got - want).abs().max())
+    check(err <= CORR_ATOL, f"plain identification route: correlations "
+          f"differ from the kernel route's by {err}")
+    check(peak <= budget, f"plain identification route: peak {peak} bytes "
+          f"above the resident, over its budget of {budget}")
+    return (f"plain route in chunks of {chunk}, max abs diff {err:.1e}, peak "
+            f"{peak / 2 ** 30:.2f} GiB above the resident (budget "
+            f"{budget / 2 ** 30:.0f} GiB)")
+
+
 def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
     """Identification through ``IdentifierService(BatchedWatermark(1080,
     1920, 28390211, p=P, psnr=40, device="cuda"), bank)`` at ME and NVF
     P = 3, 5, 7, 9: 16 single-frame requests, the 8 frames marked by the
-    engine, then the 8 clean ones. Returns each case's launch counts, zeroed
-    just before its requests and read just after."""
+    engine, then the 8 clean ones; at PLAIN_IDENTIFY_CASE the marked frames
+    through the plain route as well (``check_plain_identify``). Returns each
+    case's launch counts, zeroed just before its requests and read just
+    after."""
     frames_d = torch.from_numpy(frames).cuda()
+    bank_d = torch.from_numpy(bank).cuda()
     counts = {}
     for mask, p in IDENTIFY_CASES:
         engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR,
@@ -2007,10 +1518,8 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
             service.warmup()
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
-            start = time.perf_counter()
             futures = [service.submit(frame) for frame in requests]
             scores = np.stack([f.result(timeout=600) for f in futures])
-            seconds = time.perf_counter() - start
             torch.cuda.synchronize()
             counts[(mask, p)] = kernels.launch_counts()
             stats = service.stats()
@@ -2054,8 +1563,11 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
             check(jax_err <= CORR_ATOL,
                   f"{label}: correlations differ from JAX's by {jax_err}")
             jax_note = f", JAX max abs diff {jax_err:.2e}"
+        if (mask, p) == PLAIN_IDENTIFY_CASE:
+            jax_note += "; " + check_plain_identify(engine, marked, bank_d,
+                                                    mask)
         print(f"[3] identify {label}: {len(requests)} requests in "
-              f"{stats['batches']} batches, {seconds:.3f} s; argmax "
+              f"{stats['batches']} batches; argmax "
               f"{ENGINE_CANDIDATE} on every marked frame (corr "
               f"{own.mean():.6f}, best decoy "
               f"{np.delete(scores[:BATCH], ENGINE_CANDIDATE, 1).max():.2e}, "
@@ -2063,95 +1575,6 @@ def phase_identify(frames: np.ndarray, bank: np.ndarray) -> dict:
               f"{own_err:.1e}{jax_note}; launches {counts[(mask, p)]}: ok",
               flush=True)
     return counts
-
-
-def conv_prediction_error(img: torch.Tensor, weight: torch.Tensor,
-                          p: int) -> torch.Tensor:
-    """The prediction error by one PyTorch call: a grouped conv2d over the
-    edge-padded frames (the pad included), weight 1 at the centre and -c_k
-    at the taps (``prediction_weight``)."""
-    h = p // 2
-    padded = F.pad(img[None], (h, h, h, h), mode="replicate")
-    return F.conv2d(padded, weight, groups=img.shape[0])[0]
-
-
-def prediction_weight(coeffs: torch.Tensor, p: int) -> torch.Tensor:
-    h = p // 2
-    weight = torch.zeros(coeffs.shape[0], 1, p, p, device=coeffs.device)
-    weight[:, 0, h, h] = 1.0
-    for k, (dr, dc) in enumerate(neighbor_offsets(p)):
-        weight[:, 0, h + dr, h + dc] = -coeffs[:, k]
-    return weight
-
-
-def phase_identify_timing(frames_d: torch.Tensor,
-                          bank_d: torch.Tensor) -> dict:
-    """CUDA events: each new kernel beside its plain version (and the
-    prediction error beside one conv2d), then the identification of 8 frames
-    against 64 candidates (ME) at each p through the kernel, through the
-    plain route, and as 64 looped detects."""
-    coeffs = predictor_coefficients(frames_d)
-    times = {}
-    bounds = {f"detect_many_{mask}_p{p}": kernel_bound("detect_many", mask,
-                                                       p)[0]
-              for (mask, p) in IDENTIFY_CASES}
-    for p in ALL_P:
-        for mask in ("me", "nvf"):
-            c = coeffs[p if mask == "me" else 3]
-            times[f"detect_many_{mask}_p{p}"] = (
-                cuda_ms(lambda: kernels.detect_many_partials(
-                    frames_d, bank_d, c, mask, p), iters=5, warmup=1),
-                cuda_ms(lambda: kernels.detect_many_partials_plain(
-                    frames_d, bank_d, c, mask, p), iters=2, warmup=1))
-        weight = prediction_weight(coeffs[p], p)
-        library_err = float((conv_prediction_error(frames_d, weight, p)
-                             - kernels.prediction_error_plain(
-                                 frames_d, coeffs[p], p)).abs().max())
-        check(library_err < 1e-2, f"p={p}: conv2d's prediction error differs "
-              f"from the plain version by {library_err}")
-        times[f"prediction_error_p{p}"] = (
-            cuda_ms(lambda: kernels.prediction_error(frames_d, coeffs[p], p)),
-            cuda_ms(lambda: kernels.prediction_error_plain(frames_d,
-                                                           coeffs[p], p)),
-            cuda_ms(lambda: conv_prediction_error(frames_d, weight, p)))
-        times[f"nvf_mask_p{p}"] = (
-            cuda_ms(lambda: kernels.nvf_mask(frames_d, p)),
-            cuda_ms(lambda: kernels.nvf_mask_plain(frames_d, p)))
-        print(f"[4] p={p} at 8x1080x1920 (N=64): " + "; ".join(
-            f"{name} kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms"
-            + (f", conv2d {t[2]:.4f} ms (max abs diff {library_err:.1e})"
-               if len(t) > 2 else "")
-            + (f", {t[0] / bounds[name]:.2f}x its bound {bounds[name]:.4f} ms"
-               if name in bounds else "")
-            for name, t in times.items() if name.endswith(f"_p{p}")),
-            flush=True)
-
-    for p in ALL_P:
-        kernel_engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR,
-                                         device="cuda")
-        plain_engine = BatchedWatermark(ROWS, COLS, SEED, p=p, psnr=PSNR,
-                                        impl="torch", device="cuda")
-        kernel_ms = cuda_ms(lambda: kernel_engine.detect_many(frames_d,
-                                                              bank_d),
-                            iters=5, warmup=1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-        plain_ms = cuda_ms(lambda: plain_engine.detect_many(frames_d, bank_d),
-                           iters=2, warmup=1)
-        peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
-        looped_ms = cuda_ms(lambda: [batch_detect(frames_d, bank_d[c], "me",
-                                                  p=p)
-                                     for c in range(N_CANDIDATES)],
-                            iters=2, warmup=1)
-        print(f"[4] p={p} identify 8x1080p against 64 candidates (ME): "
-              f"kernel {kernel_ms:.3f} ms ({BATCH * 1e3 / kernel_ms:.1f} "
-              f"fps), plain route {plain_ms:.3f} ms "
-              f"({BATCH * 1e3 / plain_ms:.1f} fps, peak {peak_gb:.2f} GB "
-              f"above the resident {resident / 1e9:.2f}), 64 looped detects "
-              f"{looped_ms:.3f} ms ({BATCH * 1e3 / looped_ms:.1f} fps)",
-              flush=True)
-    return times
 
 
 # Phase 5: the entry points a user runs, at 1080 x 1920. The CLI reads
@@ -2242,8 +1665,9 @@ def write_cli_ini(directory: str, png: str, dat: str, p: int) -> str:
 
 
 def parse_cli(out: str) -> dict:
-    """The numbers the CLI printed: the load time, the four FPS lines (NVF
-    and ME embed, NVF and ME detect), strengths and correlations."""
+    """The strengths and correlations the CLI printed, after checking that
+    it printed the load time once and the four FPS lines (NVF and ME embed,
+    NVF and ME detect)."""
     found = {
         "load_s": re.findall(r"Time to load and transfer RGB image from "
                              r"disk to [^:]+: (\S+)", out),
@@ -2256,9 +1680,7 @@ def parse_cli(out: str) -> dict:
                               re.M)}
     check([len(v) for v in found.values()] == [1, 4, 2, 1, 1],
           f"the CLI printed other lines than expected:\n{out}")
-    return {"load_s": float(found["load_s"][0]),
-            "fps": [float(v) for v in found["fps"]],
-            "strength_nvf": float(found["strength"][0]),
+    return {"strength_nvf": float(found["strength"][0]),
             "strength_me": float(found["strength"][1]),
             "corr_nvf": float(found["corr_nvf"][0]),
             "corr_me": float(found["corr_me"][0])}
@@ -2325,21 +1747,15 @@ def phase_cli() -> None:
             psnr_db = 10 * np.log10(255.0 ** 2 / mse)
             check(abs(psnr_db - PSNR) <= PSNR_DB_ATOL,
                   f"CLI p={p}: *_W_ME.png at {psnr_db:.3f} dB")
-            fps = got["fps"]
-            print(f"[5] CLI p={p}, 1080x1920 PNG: load and upload "
-                  f"{got['load_s']:.6f} s; FPS NVF embed {fps[0]:.2f}, ME "
-                  f"embed {fps[1]:.2f}, NVF detect {fps[2]:.2f}, ME detect "
-                  f"{fps[3]:.2f} ({CLI_LOOPS} loops, CUDA events); "
+            print(f"[5] CLI p={p}, 1080x1920 PNG ({CLI_LOOPS} loops): "
                   f"{numbers}; *_W_ME.png byte-equal to the engine's "
                   f"truncated output, {psnr_db:.3f} dB; launches "
                   f"{launched(counts)}: ok", flush=True)
-        start = time.perf_counter()
         result = subprocess.run(
             [sys.executable, "-m", "watermarking_gpu_tpu_torch",
              write_cli_ini(tmp, png, dat, 3)],
             cwd=os.path.dirname(os.path.abspath(__file__)),
             capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - start
         check(result.returncode == 0, f"python -m watermarking_gpu_tpu_torch"
               f" exited {result.returncode}:\n{result.stdout}\n"
               f"{result.stderr}")
@@ -2347,8 +1763,8 @@ def phase_cli() -> None:
         numbers = check_cli_numbers(got, 3, "python -m")
         check("Using device [0]: " in result.stdout,
               f"python -m: no device banner:\n{result.stdout}")
-        print(f"[5] python -m watermarking_gpu_tpu_torch (p=3): rc 0 in "
-              f"{seconds:.1f} s, {numbers}: ok", flush=True)
+        print(f"[5] python -m watermarking_gpu_tpu_torch (p=3): rc 0, "
+              f"{numbers}: ok", flush=True)
 
 
 def check_marked_clip(marked: np.ndarray, original: np.ndarray,
@@ -2385,19 +1801,31 @@ def video_settings(path: str, dat: str, interval: int, **kw) -> Settings:
                     raw_video_size=f"{COLS}x{ROWS}", **kw)
 
 
-def stats_line(stats: dict) -> str:
-    return ", ".join(f"{key} {stats[key]:.4f}" if isinstance(stats[key],
-                                                             float)
-                     else f"{key} {stats[key]}"
-                     for key in ("read_s", "prep_s", "collect_s", "emit_s",
-                                 "write_s", "wall_s", "batches")
-                     if key in stats)
+# the waits (seconds) each video pipeline's ``stats`` holds
+EMBED_VIDEO_WAITS = ("read_s", "collect_s", "write_s", "prep_s", "emit_s")
+DETECT_VIDEO_WAITS = ("read_s", "collect_s", "prep_s")
+
+
+def check_video_stats(label: str, stats: dict, waits: tuple[str, ...],
+                      frames: int, interval: int) -> None:
+    """A video pipeline's ``stats``: its waits and wall time, each finite
+    and not negative, its frames, and one batch a VIDEO_BATCH of sampled
+    frames."""
+    sampled = len(range(0, frames, interval))
+    want = {"frames": frames, "batches": -(-sampled // VIDEO_BATCH)}
+    check(set(stats) == {*waits, "wall_s", *want}
+          and {k: stats[k] for k in want} == want
+          and all(math.isfinite(stats[k]) and stats[k] >= 0
+                  for k in (*waits, "wall_s")),
+          f"{label}: stats {stats}, expected the waits {waits}, wall_s and "
+          f"{want}")
 
 
 def phase_video() -> None:
     """``embed_video`` of the raw clip at intervals 1 and 5, then
     ``detect_video`` of both outputs and of the clean clip, on one engine,
-    each run's launch counts zeroed just before it and read just after."""
+    each run's launch counts zeroed just before it and read just after, and
+    its ``stats`` checked (``check_video_stats``)."""
     with tempfile.TemporaryDirectory() as tmp:
         clip = os.path.join(tmp, "clip.yuv")
         with open(clip, "wb") as f:
@@ -2425,6 +1853,8 @@ def phase_video() -> None:
             counts = kernels.launch_counts()
             name = f"embed interval {interval}"
             check(frames == VIDEO_FRAMES, f"{name}: {frames} frames")
+            check_video_stats(name, stats, EMBED_VIDEO_WAITS, frames,
+                              interval)
             check(all(counts[k] > 0 for k in (*GRAM_SOLVE_KERNELS,
                                                      *EMBED_KERNELS)),
                   f"{name}: a kernel was never launched: {counts}")
@@ -2432,9 +1862,8 @@ def phase_video() -> None:
                 original.shape), original, interval, engine)
             outputs[interval] = out_path
             print(f"[5] video {name}, 1080x1920 raw .yuv, {frames} frames, "
-                  f"batches of {VIDEO_BATCH}: {frames / stats['wall_s']:.1f}"
-                  f" fps ({stats_line(stats)}); chroma and the frames "
-                  f"between samples equal the input, the marked lumas "
+                  f"batches of {VIDEO_BATCH}: chroma and the frames between "
+                  f"samples equal the input, the marked lumas "
                   f"byte-equal to a synchronous embed_luma_u8; launches "
                   f"{launched(counts)}: ok", flush=True)
         corrs = {}
@@ -2450,6 +1879,8 @@ def phase_video() -> None:
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
             label = f"detect {name}"
+            check_video_stats(label, stats, DETECT_VIDEO_WAITS, frames,
+                              interval)
             check(all(counts[k] > 0 for k in (*GRAM_SOLVE_KERNELS,
                                                       "detect_partials")),
                   f"{label}: a kernel was never launched: {counts}")
@@ -2462,8 +1893,7 @@ def phase_video() -> None:
             check(err <= CORR_ATOL, f"{label}: correlations "
                   f"{corrs[name].tolist()} vs JAX {ref}")
             print(f"[5] video {label}: {frames} frames, {len(results)} "
-                  f"sampled, {frames / stats['wall_s']:.1f} fps "
-                  f"({stats_line(stats)}); corr min {corrs[name].min():.6f}"
+                  f"sampled; corr min {corrs[name].min():.6f}"
                   f" max {corrs[name].max():.6f}, JAX max abs diff "
                   f"{err:.2e}; launches {launched(counts)}: ok",
                   flush=True)
@@ -2659,8 +2089,9 @@ HALO_SPACES = (4, 2)                               # 270- and 540-row shards
 # card: the same kernels' sums over other row splits and in another order
 # (__graft_entry__.py:78-80)
 MESH_CORR_ATOL, MESH_STRENGTH_RTOL, MESH_PIXEL_ATOL = 1e-4, 1e-4, 1e-2
-# timed runs of each hybrid route after its first, cold one
-HYBRID_WARM_RUNS = 3
+# runs of each hybrid route: the first builds what the route keeps, the
+# second must launch the same kernels as it
+HYBRID_RUNS = 2
 # identification over the mesh against JAX_IDENTIFY_REFERENCE
 MESH_IDENTIFY_ATOL = 3e-4
 
@@ -2808,89 +2239,16 @@ def check_many_halo(frames_d: torch.Tensor, bank_d: torch.Tensor,
             f"rel {frame_err:.2e}")
 
 
-def halo_timing_pairs(frames_d: torch.Tensor, wm_d: torch.Tensor,
-                      bank_d: torch.Tensor, coeffs: dict,
-                      rows: int) -> dict:
-    """The halo forms on the first interior shard of ``rows`` rows, each
-    beside its plain halo form: the p=3 kernels at ME and NVF, the wide
-    Gram's lag kernel at ME p = 5, 7, 9 and the multi-candidate kernel at
-    MANY_HALO_CASES: {row name: (kernel, mask, p, kernel fn, plain fn,
-    halo, {kernel name: its profiler pattern})}."""
-    start, stop = rows, 2 * rows
-    pairs = {}
-    for mask in ("me", "nvf"):
-        reach = stencil_reach(mask, 3)
-        ext = halo_extended(frames_d, start, stop, reach)
-        w_ext = halo_extended(wm_d, start, stop, reach)
-        e_ext = halo_extended(frames_d, start, stop, 1)
-        w_own = wm_d[start:stop]
-        c = coeffs[3] if mask == "me" else None
-        code = MASK_CODES[mask]
-        name = row_name("embed_field", mask, 3)
-        pairs[name] = (
-            "embed_field", mask, 3,
-            lambda c=c, m=mask, e=e_ext: kernels.embed_field(
-                e, w_own, c, m, 3, 1, 1),
-            lambda m=mask, e=e_ext: kernels.embed_field_plain(
-                e, w_own, coeffs[3], m, 3, 1, 1),
-            1, {name: f"embed_field_kernel<{code}, 1>"})
-        name = row_name("detect_partials", mask, 3)
-        where = (mask, 3, reach, reach, start, ROWS)
-        pairs[name] = (
-            "detect_partials", mask, 3,
-            lambda x=ext, w=w_ext, a=where: kernels.detect_partials(
-                x, w, coeffs[3], *a),
-            lambda x=ext, w=w_ext, a=where: kernels.detect_partials_plain(
-                x, w, coeffs[3], *a),
-            reach, {name: f"detect_tail_kernel<{code}, 1, {code}>"})
-        if mask == "me":
-            pairs["me_gram"] = (
-                "me_gram", mask, 3,
-                lambda x=ext, r=reach: kernels.me_gram(x, r, r, start, ROWS),
-                lambda x=ext, r=reach: kernels.me_gram_plain(x, r, r),
-                reach, {gram: f"{gram}_kernel" for gram in GRAM_KERNELS})
-    for p in WIDE_P:
-        reach = stencil_reach("me", p)
-        ext = halo_extended(frames_d, start, stop, reach)
-        name = f"me_gram_wide_p{p}"
-        pairs[name] = (
-            "me_gram_wide", "me", p,
-            lambda x=ext, p=p, r=reach: kernels.wide_lag_strips(
-                x, p, r, r, start, ROWS),
-            lambda x=ext, p=p, r=reach: kernels.lag_strips_plain(x, p, r, r),
-            reach, {name: f"wide_lag_strips_kernel<{p // 2}>"})
-    for mask, p in MANY_HALO_CASES:
-        reach = stencil_reach(mask, p)
-        ext = halo_extended(frames_d, start, stop, reach)
-        bank = halo_extended(bank_d, start, stop, reach)
-        c = coeffs[p if mask == "me" else 3]
-        where = (mask, p, reach, reach, start, ROWS)
-        half = (p // 2, 0) if mask == "me" else (1, p // 2)
-        name = f"detect_many_{mask}_p{p}"
-        pairs[name] = (
-            "detect_many", mask, p,
-            lambda x=ext, b=bank, c=c, a=where: kernels.detect_many_partials(
-                x, b, c, *a),
-            lambda x=ext, b=bank, c=c, a=where:
-                kernels.detect_many_partials_plain(x, b, c, *a),
-            reach, {name: f"detect_many_kernel<{MASK_CODES[mask]}, "
-                          f"{half[0]}, {half[1]}>"})
-    return pairs
-
-
 def phase_halo_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor,
-                       bank_d: torch.Tensor) -> dict:
+                       bank_d: torch.Tensor) -> None:
     """[6] The halo-form kernels against their plain halo forms at 270- and
     540-row shards (space 4 and 2) at every shard position: the p=3
     kernels at HALO_CASES, the shards' 3x3 Grams at each halo summed
     against the unsharded kernel Gram; the wide Gram's two kernels at ME
     p = 5, 7, 9 (``check_wide_halo``); the multi-candidate kernel at
-    MANY_HALO_CASES against the 64-candidate bank (``check_many_halo``).
-    Then each kernel's ms in its halo form on an interior shard. Returns
-    {(row name, shard rows): (ms, plain ms, bound ms, bound by)}."""
+    MANY_HALO_CASES against the 64-candidate bank (``check_many_halo``)."""
     coeffs = predictor_coefficients(frames_d)
     frame_gram = kernels.me_gram(frames_d)
-    times = {}
     for space in HALO_SPACES:
         rows = ROWS // space
         for mask, p in HALO_CASES:
@@ -2930,61 +2288,16 @@ def phase_halo_kernels(frames_d: torch.Tensor, wm_d: torch.Tensor,
                   f"{N_CANDIDATES}, {space} shards of {rows} rows (top, "
                   f"interior, bottom): {text}: ok", flush=True)
         torch.cuda.empty_cache()
-        # times on the first interior shard
-        for name, (kernel, mask, p, kernel_fn, plain_fn, halo,
-                   _) in halo_timing_pairs(frames_d, wm_d, bank_d, coeffs,
-                                           rows).items():
-            bound_ms, bound_by = kernel_bound(kernel, mask, p, rows=rows,
-                                              halo=halo)
-            # the plain multi-candidate form takes ~0.1-1 s a call
-            many = kernel == "detect_many"
-            times[(name, rows)] = (
-                cuda_ms(kernel_fn, *((5, 1) if many else ())),
-                cuda_ms(plain_fn, *((2, 1) if many else ())),
-                bound_ms, bound_by)
-            ms, plain_ms = times[(name, rows)][:2]
-            print(f"[6] {name} halo form, {rows}-row interior shard of "
-                  f"8x{COLS} (halo {halo}): kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), {bound_ms / ms:.0%} of it", flush=True)
-        torch.cuda.empty_cache()
-    return times
 
 
 def run_counted(fn):
-    """(fn's result, the kernels' launches in it, its ms by CUDA events):
-    the counters zeroed just before, read just after."""
+    """(fn's result, the kernels' launches in it): the counters zeroed just
+    before, read just after."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
     result = fn()
-    end.record()
-    end.synchronize()
     torch.cuda.synchronize()
-    return result, kernels.launch_counts(), start.elapsed_time(end)
-
-
-def add_counts(total: dict, counts: dict, mask: str, p: int) -> None:
-    """Add a run's launches to the kernels line's rows (row name ->
-    launches), a run at one mask and p."""
-    for kernel, n in counts.items():
-        if not n or kernel in CHAIN_COUNTERS:
-            continue
-        if kernel in GRAM_KERNELS:
-            name = "me_gram"
-        elif kernel in ("spd_solve8", "me_gram_solve8", "embed_finish"):
-            name = kernel
-        elif kernel == "spd_solve_wide":
-            name = f"spd_solve_wide_p{p}"
-        elif kernel in WIDE_GRAM_KERNELS:
-            name = f"me_gram_wide_p{p}"
-        elif kernel == "detect_many":
-            name = f"detect_many_{mask}_p{p}"
-        else:
-            name = row_name(kernel, mask, p)
-        total[name] = total.get(name, 0) + n
+    return result, kernels.launch_counts()
 
 
 def jax_numbers(mask: str, p: int) -> dict:
@@ -3028,18 +2341,18 @@ def check_jax(label: str, corr: np.ndarray, strength, ref: dict) -> str:
     return text
 
 
-def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
+def phase_mesh(frames: np.ndarray, bank: np.ndarray) -> Counter:
     """[6] The sharded routes through their entry points on one card;
-    returns the launches of every run by kernels-line row."""
+    returns the launches of every run by kernel."""
     frames_d = torch.from_numpy(frames).cuda()
     wm_d = torch.from_numpy(
         generate_watermark(ROWS, COLS, SEED).astype(np.float32)).cuda()
     bank_d = torch.from_numpy(bank).cuda()
     sf = strength_factor(PSNR)
-    launches: dict[str, int] = {}
+    launches = Counter()
     hybrid = one_card_mesh(2, 2)
     print(f"[6] one card: every mesh names cuda:0 for each shard, e.g. "
-          f"{hybrid}; no transfer between devices is measured", flush=True)
+          f"{hybrid}; no transfer between devices is made", flush=True)
 
     # hybrid embed then detect, data=2 x space=2 (540-row shards)
     for mask, p in MESH_CASES:
@@ -3050,11 +2363,8 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
                 frames_d, frames_d, wm_d)
             return marked, strength, make_hybrid_detect(hybrid, mask, p=p)(
                 marked, wm_d)
-        # the first run warms the route up (its time printed as "cold"),
-        # then HYBRID_WARM_RUNS timed ones
-        runs = [run_counted(step) for _ in range(1 + HYBRID_WARM_RUNS)]
-        (marked, strength, corr), counts, _ = runs[-1]
-        cold_ms, warm_ms = runs[0][2], [ms for _, _, ms in runs[1:]]
+        runs = [run_counted(step) for _ in range(HYBRID_RUNS)]
+        (marked, strength, corr), counts = runs[-1]
         # per data row, one launch a space shard of the embed field, the
         # embed finish and the detect tail, and of the Gram's lag kernel (ME
         # embed and detect, NVF detect); the Gram's assembly and its solve
@@ -3067,10 +2377,10 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             want = {"me_gram_lags": grams, "me_gram_assemble": grams,
                     "spd_solve8": grams // 2}
         want.update(embed_field=4, embed_finish=4, detect_partials=4)
-        for _, run, _ in runs:
+        for _, run in runs:
             check({k: n for k, n in run.items() if n} == want,
                   f"{label}: launches {launched(run)}, expected {want}")
-            add_counts(launches, run, mask, p)
+            launches.update(launched(run))
         marked, strength, corr = (t.gather() for t in (marked, strength,
                                                        corr))
         ref_marked, ref_strength = batch_embed(frames_d, frames_d, wm_d, sf,
@@ -3082,9 +2392,8 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
                                  strength.cpu().numpy(), jax_numbers(mask, p))
         print(f"[6] {label}: corr {float(corr.mean()):.6f}, strength "
               f"{float(strength.mean()):.5f}; vs single device {text}; "
-              f"embed+detect {min(warm_ms):.2f}–{max(warm_ms):.2f} ms warm "
-              f"({len(warm_ms)} runs), {cold_ms:.2f} ms cold ({power}); "
-              f"launches {launched(counts)} a run: ok", flush=True)
+              f"launches {launched(counts)} in each of {HYBRID_RUNS} runs: "
+              f"ok", flush=True)
     del marked, ref_marked
 
     # spatial detect, data=1 x space=4 (270-row shards)
@@ -3095,7 +2404,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
                                  p=p)
         ref = batch_detect(marked0, wm_d, "me", p=p)
         detect = make_spatial_detect(spatial, "me", p=p, impl=impl)
-        corr, counts, ms = run_counted(lambda: detect(marked0[0], wm_d))
+        corr, counts = run_counted(lambda: detect(marked0[0], wm_d))
         if impl == "cuda":
             want = ({"me_gram_lags": 4, "me_gram_assemble": 4,
                      "spd_solve8": 1} if p == 3
@@ -3107,14 +2416,14 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         else:
             check(not any(counts.values()), f"{label}: the plain route "
                   f"launched kernels: {counts}")
-        add_counts(launches, counts, "me", p)
+        launches.update(launched(counts))
         corr = float(corr)
         err = abs(corr - float(ref[0]))
         check(err <= MESH_CORR_ATOL, f"{label}: corr {corr} vs single "
               f"device {float(ref[0])}")
         text = check_jax(label, np.array([corr]), None, jax_numbers("me", p))
         print(f"[6] {label}: corr {corr:.6f}, vs single device {err:.1e}, "
-              f"{text}; detect {ms:.2f} ms ({power}); launches "
+              f"{text}; launches "
               f"{launched(counts)}: ok", flush=True)
 
     # frame-parallel, data=4, ME p=5: the wide Gram per shard
@@ -3125,11 +2434,11 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
         marked, strength = make_dp_embed(dp, "me", sf, p=5)(
             frames_d, frames_d, wm_d)
         return marked, strength, make_dp_detect(dp, "me", p=5)(marked, wm_d)
-    (marked, strength, corr), counts, ms = run_counted(dp_step)
+    (marked, strength, corr), counts = run_counted(dp_step)
     check(all(counts[k] > 0 for k in (*WIDE_GRAM_SOLVE_KERNELS,
                                       *EMBED_KERNELS, "detect_partials")),
           f"{label}: a kernel was never launched: {counts}")
-    add_counts(launches, counts, "me", 5)
+    launches.update(launched(counts))
     marked, strength, corr = (t.gather() for t in (marked, strength, corr))
     ref_marked, ref_strength = batch_embed(frames_d, frames_d, wm_d, sf,
                                            "me", p=5)
@@ -3139,7 +2448,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
     text += ", " + check_jax(label, corr.cpu().numpy(),
                              strength.cpu().numpy(), jax_numbers("me", 5))
     print(f"[6] {label}: corr {float(corr.mean()):.6f}; vs single device "
-          f"{text}; embed+detect {ms:.2f} ms ({power}); launches "
+          f"{text}; launches "
           f"{launched(counts)}: ok", flush=True)
     del marked, ref_marked
 
@@ -3158,7 +2467,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
                                  p=p)
         ref = detect_many_pipeline(marked0[0], bank_d, mask, p=p)
         fn = make(mesh, mask, p=p, impl=impl)
-        scores, counts, ms = run_counted(lambda: fn(marked0[0], bank_d))
+        scores, counts = run_counted(lambda: fn(marked0[0], bank_d))
         if impl == "torch":
             want = {}
         elif mesh is dp:       # the single-device kernels on each shard
@@ -3175,7 +2484,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             want["detect_many"] = 4
         check({k: n for k, n in counts.items() if n} == want,
               f"{label}: launches {launched(counts)}, expected {want}")
-        add_counts(launches, counts, mask, p)
+        launches.update(launched(counts))
         scores = scores.gather()
         check(int(scores.argmax()) == ENGINE_CANDIDATE,
               f"{label}: argmax {int(scores.argmax())}, not "
@@ -3189,7 +2498,7 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
               f"{jax_err:.3e}")
         print(f"[6] {label}: argmax {ENGINE_CANDIDATE} (corr "
               f"{float(scores[ENGINE_CANDIDATE]):.6f}), vs single device "
-              f"{err:.1e}, JAX {jax_err:.1e}; {ms:.2f} ms ({power}); "
+              f"{err:.1e}, JAX {jax_err:.1e}; "
               f"launches {launched(counts)}: ok", flush=True)
 
     # the services over a mesh of data=2 (the detector and embedder with
@@ -3228,12 +2537,12 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
             def serve():
                 return [f.result(timeout=600)
                         for f in [service.submit(x) for x in requests]]
-            answers, counts, ms = run_counted(serve)
+            answers, counts = run_counted(serve)
         finally:
             service.close()
         gram = "me_gram_lags" if p == 3 else "wide_lag_strips"
         check(counts[gram] > 0, f"{name} p={p}: launches {counts}")
-        add_counts(launches, counts, "me", p)
+        launches.update(launched(counts))
         want = direct()
         if name == "EmbedderService":
             got_px = np.stack([a[0] for a in answers])
@@ -3247,11 +2556,11 @@ def phase_mesh(frames: np.ndarray, bank: np.ndarray, power: str) -> dict:
                           if n > 1)
         check(same, f"{name} p={p} over {shape}: answers differ from the "
               f"mesh function's")
-        print(f"[6] {name} me p={p} (mesh {shape}): {len(requests)} requests "
-              f"in {ms:.1f} ms ({power}), answers equal to the mesh "
-              f"function's; launches {launched(counts)}: ok", flush=True)
-    print(f"[6] launches of the sharded routes by kernels-line row: "
-          f"{launches}", flush=True)
+        print(f"[6] {name} me p={p} (mesh {shape}): {len(requests)} requests, "
+              f"answers equal to the mesh function's; launches "
+              f"{launched(counts)}: ok", flush=True)
+    print(f"[6] launches of the sharded routes by kernel: "
+          f"{dict(launches)}", flush=True)
     return launches
 
 
@@ -3285,13 +2594,13 @@ class CountsAtLines(io.StringIO):
 
 
 def run_entry(fn, prefixes: tuple[str, ...] = ()):
-    """(fn's result, its standard output, the kernels' launches in it, its
-    seconds by CUDA events, the counts at ``prefixes``' lines):
-    ``run_counted`` with the standard output captured."""
+    """(fn's result, its standard output, the kernels' launches in it, the
+    counts at ``prefixes``' lines): ``run_counted`` with the standard output
+    captured."""
     buffer = CountsAtLines(prefixes)
     with contextlib.redirect_stdout(buffer):
-        result, counts, ms = run_counted(fn)
-    return result, buffer.getvalue(), counts, ms / 1e3, buffer.at
+        result, counts = run_counted(fn)
+    return result, buffer.getvalue(), counts, buffer.at
 
 
 def check_ran(label: str, counts: dict, names) -> None:
@@ -3306,7 +2615,7 @@ def phase_tools_generate(tmp: str) -> None:
     for repeat in (1, 4):
         path = os.path.join(tmp, f"generated_{repeat}.dat")
         extra = [] if repeat == 1 else ["--repeat-blocks", str(repeat)]
-        rc, out, counts, seconds, _ = run_entry(lambda: generate_tool.main(
+        rc, out, counts, _ = run_entry(lambda: generate_tool.main(
             [str(ROWS), str(COLS), str(SEED), path, *extra]))
         check(rc == 0 and out == f"Successfully wrote {ROWS * COLS} random "
               f"floats to {path}.\n", f"generate_watermark: rc {rc}:\n{out}")
@@ -3318,19 +2627,19 @@ def phase_tools_generate(tmp: str) -> None:
                   f"{extra}: the .dat differs from save_watermark's")
         check(not launched(counts), f"generate_watermark launched {counts}")
         print(f"[7] generate_watermark {ROWS} {COLS} {SEED} "
-              f"{' '.join(extra)}: rc 0 in {seconds:.2f} s, the .dat "
+              f"{' '.join(extra)}: rc 0, the .dat "
               f"byte-equal to save_watermark(generate_watermark(...)); no "
               f"launch: ok", flush=True)
 
 
-def phase_tools_calibrate(png: str, power: str, launches: dict) -> None:
+def phase_tools_calibrate(png: str, launches: Counter) -> None:
     """``calibrate_threshold`` at its defaults (8 images, 256 nulls, FPR
     1e-6) for each of CALIBRATE_RUNS, held to JAX_TOOLS_REFERENCE."""
     for name, argv in CALIBRATE_RUNS.items():
         mask, p = name.split(":")
         p = int(p)
         res = {}
-        rc, out, counts, seconds, _ = run_entry(
+        rc, out, counts, _ = run_entry(
             lambda: calibrate_threshold.main([png, *argv], results=res))
         label = f"calibrate_threshold {name}"
         check(rc == 0 and res["misses"] == 0, f"{label}: rc {rc}:\n{out}")
@@ -3354,12 +2663,9 @@ def phase_tools_calibrate(png: str, power: str, launches: dict) -> None:
                                   "detect_many"))
         check(counts["detect_many"] == 1, f"{label}: the null matrix took "
               f"{counts['detect_many']} dispatches")
-        add_counts(launches, counts, mask, p)
+        launches.update(launched(counts))
         print(f"[7] {label} (1080x1920 PNG, 8 images x 256 nulls, FPR "
-              f"1e-6): rc 0 in {seconds:.1f} s; host matrices "
-              f"{res['host_s']:.2f} s, images and bank upload "
-              f"{res['upload_ms']:.1f} ms, null dispatch {res['null_ms']:.3f} ms (CUDA events, "
-              f"{power}); threshold {res['threshold']:.6f} (JAX "
+              f"1e-6): rc 0; threshold {res['threshold']:.6f} (JAX "
               f"{ref['threshold']:.6f}), null mean {res['mean']:+.2e} std "
               f"{res['std_min']:.6f}..{res['std_max']:.6f} max "
               f"{res['max']:.6f}, signals mean {res['signal_mean']:.6f} min "
@@ -3383,7 +2689,7 @@ def pillow_hidden():
             sys.modules["PIL"] = saved
 
 
-def phase_tools_robustness(png: str, launches: dict) -> None:
+def phase_tools_robustness(png: str, launches: Counter) -> None:
     """``evaluate_robustness`` at its defaults for each mask, then ME with
     Pillow hidden (the JPEG rows skipped, 9 attacks in the batch), held to
     JAX_TOOLS_REFERENCE: each correlation that ran, the strength, and the
@@ -3398,7 +2704,7 @@ def phase_tools_robustness(png: str, launches: dict) -> None:
                          ("me", True)):
         res = {}
         with pillow_hidden() if hidden else contextlib.nullcontext():
-            rc, out, counts, seconds, _ = run_entry(
+            rc, out, counts, _ = run_entry(
                 lambda: evaluate_robustness.main([png, "--mask", mask],
                                                  results=res))
         jpeg = installed and not hidden
@@ -3434,7 +2740,7 @@ def phase_tools_robustness(png: str, launches: dict) -> None:
         check(counts["embed_field"] == counts["embed_finish"]
               == counts["detect_partials"] == 1,
               f"{label}: not one embed and one batched detect: {counts}")
-        add_counts(launches, counts, mask, 3)
+        launches.update(launched(counts))
         note = ""
         if hidden:
             other = dict(first[mask])
@@ -3443,8 +2749,8 @@ def phase_tools_robustness(png: str, launches: dict) -> None:
             note = f", against the run with every attack {diff:.1e}"
         first.setdefault(mask, res["rows"])
         print(f"[7] {label} (1080x1920 PNG, p=3, PSNR 40; "
-              f"{'Pillow hidden' if hidden else pillow}): rc 0 "
-              f"in {seconds:.2f} s; strength {res['strength']:.5f} (JAX "
+              f"{'Pillow hidden' if hidden else pillow}): rc 0; strength "
+              f"{res['strength']:.5f} (JAX "
               f"{ref['strength']:.5f}); {res['batch']} attacks in one "
               f"detect, none {rows['none']:+.6f}, clean "
               f"{rows['clean image (no mark)']:+.6f} (lead {lead:.6f}, JAX "
@@ -3453,11 +2759,12 @@ def phase_tools_robustness(png: str, launches: dict) -> None:
               f" launches {launched(counts)}: ok", flush=True)
 
 
-def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
+def phase_examples(png: str, dat: str, tmp: str,
+                   launches: Counter) -> None:
     """The four examples through their ``main(..., device="cuda")``, held to
     JAX_TOOLS_REFERENCE."""
     ref = JAX_TOOLS_REFERENCE["image_example"]
-    got, _, counts, seconds, at = run_entry(
+    got, _, counts, at = run_entry(
         lambda: load_example("image_watermark").main(
             png, dat, device="cuda", out_dir=tmp), ("NVF:",))
     nvf = at["NVF:"]
@@ -3472,8 +2779,8 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
               f"image example: {got[mask]['path']} not written")
         check_ran(f"image example {mask}", run, (
             *GRAM_SOLVE_KERNELS, *EMBED_KERNELS, "detect_partials"))
-        add_counts(launches, run, mask.lower(), 3)
-    print(f"[7] image_watermark example (1080x1920 PNG): {seconds:.2f} s; "
+        launches.update(launched(run))
+    print(f"[7] image_watermark example (1080x1920 PNG): "
           + "; ".join(f"{mask} strength {got[mask]['strength']:.5f} "
                       f"corr(marked) {got[mask]['corr_marked']:.6f} "
                       f"corr(clean) {got[mask]['corr_clean']:+.6f}"
@@ -3482,7 +2789,7 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
           f"{launched(nvf)}, ME {launched(me)}: ok", flush=True)
 
     ref = JAX_TOOLS_REFERENCE["identify_example"]
-    got, _, counts, seconds, _ = run_entry(
+    got, _, counts, _ = run_entry(
         lambda: load_example("identify_watermark").main(
             png, IDENTIFY_N, device="cuda"))
     err = float(np.abs(got["corrs"] - ref["corrs"]).max())
@@ -3491,14 +2798,14 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
           f"identify example: {got} vs JAX {ref}")
     check_ran("identify example", counts, (*GRAM_SOLVE_KERNELS,
                                            *EMBED_KERNELS, "detect_many"))
-    add_counts(launches, counts, "me", 3)
+    launches.update(launched(counts))
     print(f"[7] identify_watermark example (1080x1920 PNG, "
-          f"{IDENTIFY_N} candidates): {seconds:.2f} s; identified "
+          f"{IDENTIFY_N} candidates): identified "
           f"#{got['best']} (corr {got['corrs'][got['best']]:.6f}), JAX max "
           f"abs diff {err:.1e}; launches {launched(counts)}: ok", flush=True)
 
     ref = JAX_TOOLS_REFERENCE["video_example"]
-    got, _, counts, seconds, _ = run_entry(
+    got, _, counts, _ = run_entry(
         lambda: load_example("video_watermark").main(device="cuda"))
     corrs = {name: np.array([c for _, c in got[name]]) for name in got}
     err = max(float(np.abs(corrs[name] - ref[name]).max())
@@ -3509,15 +2816,15 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
           f"video example: {corrs} vs JAX {ref}")
     check_ran("video example", counts, (*GRAM_SOLVE_KERNELS,
                                         *EMBED_KERNELS, "detect_partials"))
-    add_counts(launches, counts, "me", 3)
+    launches.update(launched(counts))
     print(f"[7] video_watermark example (640x360, 60 frames, interval 10):"
-          f" {seconds:.2f} s; marked min {corrs['marked'].min():.6f}, clean "
+          f" marked min {corrs['marked'].min():.6f}, clean "
           f"max |corr| {np.abs(corrs['clean']).max():.2e}, margin "
           f"{margin:.6f} (JAX {jax_margin:.6f}), JAX max abs diff "
           f"{err:.1e}; launches {launched(counts)}: ok", flush=True)
 
     ref = JAX_TOOLS_REFERENCE["serving_example"]
-    got, _, counts, seconds, _ = run_entry(
+    got, _, counts, _ = run_entry(
         lambda: load_example("serving_demo").main(device="cuda"))
     err = float(np.abs(np.asarray(got["corrs"]) - ref["corrs"]).max())
     score_err = float(np.abs(got["scores"] - ref["scores"]).max())
@@ -3527,162 +2834,59 @@ def phase_examples(png: str, dat: str, tmp: str, launches: dict) -> None:
     check_ran("serving example", counts, (*GRAM_SOLVE_KERNELS,
                                           *EMBED_KERNELS, "detect_partials",
                                           "detect_many"))
-    add_counts(launches, counts, "me", 3)
-    print(f"[7] serving_demo example (32 frames of 360x640): {seconds:.2f} s"
-          f" ({len(got['corrs']) / got['seconds']:.1f} fps embed+detect "
-          f"through the services); correlations {min(got['corrs']):.6f}.."
+    launches.update(launched(counts))
+    print(f"[7] serving_demo example (32 frames of 360x640, embed+detect "
+          f"through the services): correlations {min(got['corrs']):.6f}.."
           f"{max(got['corrs']):.6f}, JAX max abs diff {err:.1e}; identified "
           f"candidate 0 (scores JAX max abs diff {score_err:.1e}); launches "
           f"{launched(counts)}: ok", flush=True)
 
 
-def phase_tools(power: str) -> dict:
+def phase_tools() -> Counter:
     """[7] The tools and the examples a user runs, each through its entry
-    point on the card; returns their launches by kernels-line row."""
-    launches: dict = {}
+    point on the card; returns their launches by kernel."""
+    launches = Counter()
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "frame.png")
         write_png(png, make_cli_image())
         dat = os.path.join(tmp, "w.dat")
         save_watermark(dat, generate_watermark(ROWS, COLS, SEED))
         phase_tools_generate(tmp)
-        phase_tools_calibrate(png, power, launches)
+        phase_tools_calibrate(png, launches)
         phase_tools_robustness(png, launches)
         phase_examples(png, dat, tmp, launches)
-    print(f"[7] launches of the tools and examples by kernels-line row: "
-          f"{launches}", flush=True)
+    print(f"[7] launches of the tools and examples by kernel: "
+          f"{dict(launches)}", flush=True)
     return launches
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(least ms, what binds it) for moving ``nbytes`` and doing ``flops``
-    on an H100 SXM at its data-sheet peaks."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
-
-
-def cholesky_ops(n: int) -> int:
-    """Operations of an n-unknown Cholesky solve, as SOLVE_OPS counts them
-    at n = 8: per column j of the factor j products and sums, a
-    subtraction, a square root and a reciprocal, and per entry below it j
-    products and sums, a subtraction and a product; per row of each
-    substitution i products and sums, a subtraction and a division."""
-    factor = sum(2 * j + 3 + (n - 1 - j) * (2 * j + 2) for j in range(n))
-    return factor + 2 * sum(2 * i + 2 for i in range(n))
-
-
-def kernel_bound(kernel: str, mask: str, p: int, rows: int = ROWS,
-                 halo: int = 0, channels: int = 1,
-                 itemsize: int = 4) -> tuple[float, str]:
-    """The bound of one kernel call at 8 x 1080 x 1920 (or, in its halo
-    form, on a shard of 8 x ``rows`` x 1920 extended by ``halo`` rows each
-    side: the extended frames, and the detect tail's extended watermark
-    and the multi-candidate kernel's extended bank, read once, the wide
-    Gram's lag kernel reading only the rows below; the outputs over the
-    owned rows): each input read once, each output written once, and the
-    flops the function needs, per owned pixel (a multiply-add counts 2;
-    the detect tail's ring is not counted):
-
-    * the 3x3 Gram: 13 lag products (the TPU kernel's lag form);
-    * the wide Gram: one product per canonical lag and lane of each row;
-    * the NVF mask: separable p x p box sums of x and x^2, shared by
-      neighbouring centres as ops/nvf.py shares its row sums (4(p-1) adds),
-      one square, and 6 for the mean, E[x^2], the variance and var/(1+var);
-    * a (p*p-1)-tap prediction error: a product and a subtraction a tap;
-    * the multi-candidate detect: it reads the frames and the 64-candidate
-      bank once each and writes two sums per frame and candidate; per
-      frame, candidate and pixel u = mask * W_c, e_u and the two sums
-      (2k + 5 flops, k taps), and per frame and pixel e_z, the mask and
-      e_z^2;
-    * the 8x8 solve: it reads what a Cholesky solve of each frame's system
-      needs, Rx's lower triangle (36) and rx (8), and writes 8
-      coefficients and a valid byte; SOLVE_OPS operations a system;
-    * the 3x3 Gram with the solve in its assembly: the Gram's frames read,
-      its Gram, 8 coefficients and a valid byte written a frame; the
-      Gram's 13 lag products a pixel and SOLVE_OPS a frame;
-    * the wide solve: likewise Rx's lower triangle (k(k + 1)/2) and rx (k)
-      read, k coefficients and a valid byte written; ``cholesky_ops(k)``
-      operations a system;
-    * the embed finish: u_raw (4 bytes a pixel) read, the output (``channels``
-      elements a pixel of ``itemsize`` bytes) read and the marked frames
-      written, sum u_raw^2, max |e| and valid read and the strength written
-      a frame; a product, a sum and the clamp's two comparisons an element.
-    """
-    pixels = BATCH * rows * COLS
-    frame_bytes = 4 * BATCH * (rows + 2 * halo) * COLS   # read
-    out_bytes = 4 * pixels                               # written
-    wm_bytes = 4 * rows * COLS
-    k = p * p - 1
-    nvf_flops = 4 * (p - 1) + 1 + 6
-    if kernel == "me_gram":
-        return bound(frame_bytes + 4 * BATCH * 81, 2 * 13 * pixels)
-    if kernel == "embed_finish":
-        elems = pixels * channels
-        return bound(4 * pixels + 2 * itemsize * elems + 13 * BATCH,
-                     4 * elems)
-    if kernel == "spd_solve8":
-        return bound(BATCH * (4 * (36 + 8) + 4 * 8 + 1), BATCH * SOLVE_OPS)
-    if kernel == "me_gram_solve8":
-        return bound(frame_bytes + BATCH * (4 * 81 + 4 * 8 + 1),
-                     2 * 13 * pixels + BATCH * SOLVE_OPS)
-    if kernel == "spd_solve_wide":
-        return bound(BATCH * (4 * (k * (k + 1) // 2 + k) + 4 * k + 1),
-                     BATCH * cholesky_ops(k))
-    if kernel == "me_gram_wide":
-        h = p // 2
-        lags = ((4 * h + 1) ** 2 + 1) // 2
-        lanes = BATCH * lags * (COLS + 2 * h)
-        return bound(4 * BATCH * (rows + halo) * COLS + 4 * lanes,
-                     2 * lanes * rows)
-    if kernel == "embed_field":
-        mask_flops = 2 * k + 1 if mask == "me" else nvf_flops
-        return bound(frame_bytes + out_bytes + wm_bytes + 8 * BATCH,
-                     (mask_flops + 4) * pixels)    # u, u^2, max
-    if kernel == "prediction_error":
-        return bound(frame_bytes + out_bytes + 4 * BATCH * k,
-                     2 * k * pixels)
-    if kernel == "nvf_mask":
-        return bound(frame_bytes + out_bytes, nvf_flops * pixels)
-    taps = k if mask == "me" else 8
-    mask_flops = 1 if mask == "me" else nvf_flops
-    if kernel == "detect_many":
-        n = N_CANDIDATES
-        bank_bytes = 4 * n * (rows + 2 * halo) * COLS
-        return bound(frame_bytes + bank_bytes + 4 * BATCH * (taps + 2 * n
-                                                             + 1),
-                     ((2 * taps + 5) * n + 2 * taps + mask_flops + 2)
-                     * pixels)
-    wm_bytes = 4 * (rows + 2 * halo) * COLS
-    return bound(frame_bytes + wm_bytes + 12 * BATCH,       # detect tail
-                 (4 * taps + mask_flops + 7) * pixels)      # u, three sums
-
-
-def kernel_row(name: str, kernel: str, mask: str, p: int, launches: int,
-               errors: tuple, times: tuple,
-               device: dict | None = None) -> dict:
-    """One row of the kernels line; ``times`` is (ms, plain ms) or (ms,
-    plain ms, library ms); ``device`` maps row names to the kernel's
-    device ms (``device_ms``; rows without a kernel of their own there
-    have none)."""
-    source, replaces = KERNEL_SOURCES[kernel]
-    bound_ms, bound_by = kernel_bound(kernel, mask, p)
-    row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces,
-           "replaces_kind": "xla" if kernel in XLA_KERNELS else "pallas",
-           "launches": launches,
-           "max_abs_err": errors[0], "max_rel_err": errors[1],
-           "ms": times[0], "plain_ms": times[1], "bound_ms": bound_ms,
-           "bound_by": bound_by,
-           "library_ms": times[2] if len(times) > 2 else None}
-    if device is not None and name in device:
-        row["device_ms"] = device[name]
-    return row
+def check_routes(single: list[dict], sharded: Counter,
+                 tools: Counter) -> None:
+    """The routes, from the launch counts of phase 3's runs (``single``)
+    and of phases 6 and 7: no main path runs a standalone kernel, the wide
+    solve runs once a wide Gram, and every launch of phases 6 and 7 is one
+    of ROUTE_KERNELS."""
+    total = Counter()
+    for run in single:
+        check(not any(run[k] for k in STANDALONE_KERNELS),
+              f"a standalone kernel ran on a main path: {launched(run)}")
+        total.update(run)
+    total.update(sharded)
+    total.update(tools)
+    check(total["spd_solve_wide"] == total["wide_assemble"],
+          f"{total['spd_solve_wide']} wide solves against "
+          f"{total['wide_assemble']} wide Grams")
+    unknown = set(sharded) | set(tools)
+    unknown -= {*ROUTE_KERNELS, *CHAIN_COUNTERS}
+    check(not unknown, f"phases 6 and 7 launched {sorted(unknown)}, which "
+          f"no main path runs")
+    print(f"[7] launches of phases 3, 6 and 7: {launched(total)}; no "
+          f"standalone kernel, one wide solve a wide Gram, every launch of "
+          f"phases 6 and 7 a main path's kernel: ok", flush=True)
 
 
 def main() -> int:
-    kind, power = phase_card_and_build()
+    kind = phase_card_and_build()
     frames = make_frames()
     check(abs(float(frames.astype(np.float64).sum())
               - JAX_REFERENCE["frames_sum"]) < 1e-3,
@@ -3691,219 +2895,19 @@ def main() -> int:
     frames_d = torch.from_numpy(frames).cuda()
     wm_d = torch.from_numpy(
         generate_watermark(ROWS, COLS, SEED).astype(np.float32)).cuda()
-
     bank = make_bank()
     bank_d = torch.from_numpy(bank).cuda()
 
-    errors = phase_kernels(frames_d, wm_d)
-    errors.update(phase_wide_kernels(frames_d, wm_d))
-    errors.update(phase_identify_kernels(frames_d, bank_d))
-    counts = phase_main_path(frames)
-    wide_counts = {p: phase_wide_main_path(frames, p) for p in WIDE_P}
-    identify_counts = phase_identify(frames, bank)
-    times = phase_timing(frames_d, wm_d)
-    for p in WIDE_P:
-        times.update(phase_wide_timing(frames_d, wm_d, p))
-    times.update(phase_identify_timing(frames_d, bank_d))
-    # phases 5 and 6 time their runs too, so they run before the
-    # profiler's timings
+    phase_kernels(frames_d, wm_d)
+    phase_wide_kernels(frames_d, wm_d)
+    phase_identify_kernels(frames_d, bank_d)
+    single = [phase_main_path(frames),
+              *(phase_wide_main_path(frames, p) for p in WIDE_P),
+              *phase_identify(frames, bank).values()]
     phase_cli()
     phase_video()
-    halo_times = phase_halo_kernels(frames_d, wm_d, bank_d)
-    mesh_launches = phase_mesh(frames, bank, power)
-    tool_launches = phase_tools(power)
-    split = device_split(frames_d, wm_d)
-    halo_split = halo_device_split(frames_d, wm_d, bank_d)
-    for (name, shard_rows), ms in sorted(halo_split.items()):
-        print(f"[6] {name} halo form, {shard_rows}-row interior shard of "
-              f"8x{COLS} (device time a call, torch.profiler): {ms:.4f} ms "
-              f"(CUDA events with the wrapper "
-              f"{halo_times[(name, shard_rows)][0]:.4f} ms; {power})",
-              flush=True)
-    print(f"[4] 3x3 Gram split (device time a call, torch.profiler): lag "
-          f"kernel {split['me_gram_lags']:.4f} ms, assembly kernel "
-          f"{split['me_gram_assemble']:.4f} ms, together "
-          f"{split['me_gram']:.4f} ms (CUDA events with the wrapper "
-          f"{times['me_gram'][0]:.4f} ms; launches on the p=3 main path "
-          f"{counts['all']['me_gram_lags']} + "
-          f"{counts['all']['me_gram_assemble']})", flush=True)
-    print(f"[4] spd_solve8 (device time a call, torch.profiler): "
-          f"{split['spd_solve8']:.4f} ms (CUDA events with the wrapper "
-          f"{times['spd_solve8'][0]:.4f} ms; launches on the folded Grams "
-          f"of phase 6 {mesh_launches.get('spd_solve8', 0)}, on phase 3's "
-          f"single-device paths {counts['all']['spd_solve8']})", flush=True)
-    print(f"[4] me_gram_solve8 (device time a call, torch.profiler): lag "
-          f"kernel {split['me_gram_lags']:.4f} ms + assembly kernel with the "
-          f"solve {split['me_gram_assemble_solve8']:.4f} ms = "
-          f"{split['me_gram_solve8']:.4f} ms, against the two calls' "
-          f"{split['me_gram']:.4f} + {split['spd_solve8']:.4f} = "
-          f"{split['me_gram'] + split['spd_solve8']:.4f} ms (the assembly "
-          f"alone {split['me_gram_assemble']:.4f}); CUDA events with the "
-          f"wrapper {times['me_gram_solve8'][0]:.4f} ms against "
-          f"{times['me_gram_solve8_two_calls']:.4f} ms; launches on the p=3 "
-          f"main path {counts['all']['me_gram_solve8']} calls, in "
-          f"identification at ME p=3 "
-          f"{identify_counts[('me', 3)]['me_gram_solve8']}", flush=True)
-    for p in ALL_P:
-        n_kernels, busy, host = step_kernels(frames_d, wm_d, p)
-        print(f"[4] p={p} ME embed+detect step through the kernels: "
-              f"{n_kernels:.0f} device kernels a step, device busy "
-              f"{busy:.4f} ms a step (torch.profiler, 5 steps), host "
-              f"{host:.4f} ms a step (enqueue, host_ms; {power})",
-              flush=True)
-    for p in WIDE_P:
-        name = f"spd_solve_wide_p{p}"
-        bound_ms, bound_by = kernel_bound("spd_solve_wide", "me", p)
-        print(f"[4] spd_solve_wide p={p} ({p * p - 1} unknowns, B={BATCH}; "
-              f"device time a call, torch.profiler): {split[name]:.4f} ms, "
-              f"its bound {bound_ms:.7f} ms ({bound_by}), the library pair "
-              f"{times[name][2]:.4f} ms "
-              f"(CUDA events with the wrapper {times[name][0]:.4f} ms; "
-              f"launches on the main path "
-              f"{wide_counts[p]['me']['spd_solve_wide']}, in identification "
-              f"{identify_counts[('me', p)]['spd_solve_wide']})", flush=True)
-    for p in WIDE_P:
-        print(f"[4] p={p} wide Gram split (device time a call, "
-              f"torch.profiler): lag kernel "
-              f"{split[f'wide_lag_strips_p{p}']:.4f} ms, assembly kernel "
-              f"{split[f'wide_assemble_p{p}']:.4f} ms "
-              f"(me_gram_wide_p{p} times both with the wrappers, "
-              f"{times[f'me_gram_wide_p{p}'][0]:.4f} ms; launches on the "
-              f"main path {wide_counts[p]['me']['wide_lag_strips']} + "
-              f"{wide_counts[p]['me']['wide_assemble']})", flush=True)
-    finish_runs = [counts["all"], *(wide_counts[p][mask] for p in WIDE_P
-                                    for mask in ("me", "nvf")),
-                   *identify_counts.values()]
-    finish_launches = sum(run["embed_finish"] for run in finish_runs)
-    for name, form, itemsize in (("embed_finish", "f32 frames", 4),
-                                 ("embed_finish_u8", "u8 lumas", 1)):
-        bound_ms = kernel_bound("embed_finish", "me", 3,
-                                itemsize=itemsize)[0]
-        print(f"[4] embed finish into {form} (8x1080x1920, device time a "
-              f"call, torch.profiler): {split[name]:.4f} ms, "
-              f"{split[name] / bound_ms:.2f}x its bytes bound "
-              f"{bound_ms:.4f} ms (CUDA events with the wrapper "
-              f"{times[name][0]:.4f} ms, the plain tail {times[name][1]:.4f}"
-              f" ms; {power}; launches on the main paths of phase 3 "
-              f"{finish_launches}, either form)", flush=True)
-    for p in ALL_P:
-        for kernel, label in (("embed_field", "embed field"),
-                              ("detect_partials", "detect tail")):
-            print(f"[4] p={p} {label} (device time a call, torch.profiler): "
-                  + "; ".join(
-                      f"{mask.upper()} kernel "
-                      f"{split[row_name(kernel, mask, p)]:.4f} ms (CUDA "
-                      f"events with the wrapper "
-                      f"{times[row_name(kernel, mask, p)][0]:.4f} ms)"
-                      for mask in ("me", "nvf")), flush=True)
-
-    for p in ALL_P:
-        print(f"[4] p={p} standalone ops (device time a call, "
-              f"torch.profiler): " + "; ".join(
-                  f"{kernel} {split[f'{kernel}_p{p}']:.4f} ms (CUDA events "
-                  f"with the wrapper {times[f'{kernel}_p{p}'][0]:.4f} ms, "
-                  f"its bound {kernel_bound(kernel, 'me', p)[0]:.4f} ms)"
-                  for kernel in STANDALONE_KERNELS), flush=True)
-
-    rows = [kernel_row("me_gram", "me_gram", "me", 3,
-                       sum(counts["all"][n] for n in GRAM_KERNELS),
-                       errors["me_gram"], times["me_gram"], split)]
-    # the 8x8 solve: every phase-3 run that solves a 3x3-predictor system
-    solve_runs = [counts["all"], *(wide_counts[p]["nvf"] for p in WIDE_P),
-                  *identify_counts.values()]
-    rows.append(kernel_row("spd_solve8", "spd_solve8", "me", 3,
-                           sum(run["spd_solve8"] for run in solve_runs),
-                           errors["spd_solve8"], times["spd_solve8"],
-                           split))
-    # row 13's fused variant: the Gram with the solve in its assembly, one
-    # count a call, beside the two calls it replaces
-    fused = kernel_row("me_gram_solve8", "me_gram_solve8", "me", 3,
-                       sum(run["me_gram_solve8"] for run in solve_runs),
-                       errors["me_gram_solve8"],
-                       (*times["me_gram_solve8"], None), split)
-    fused["two_calls"] = {
-        "ms": times["me_gram_solve8_two_calls"],
-        "device_ms": split["me_gram"] + split["spd_solve8"],
-        "host_ms": times["me_gram_solve8_host"]["two calls"]}
-    fused["host_ms"] = times["me_gram_solve8_host"]["fused"]
-    fused["solve_tail_device_ms"] = (split["me_gram_assemble_solve8"]
-                                     - split["me_gram_assemble"])
-    rows.append(fused)
-    for kernel in ("embed_field", "detect_partials"):
-        nvf_launches = counts["nvf"][kernel]
-        rows.append(kernel_row(kernel, kernel, "me", 3,
-                               counts["all"][kernel] - nvf_launches,
-                               errors[kernel], times[kernel], split))
-        name = f"{kernel}_nvf_p3"
-        rows.append(kernel_row(name, kernel, "nvf", 3, nvf_launches,
-                               errors[name], times[name], split))
-    # the embed finish: one row for every mask, p and form, timed at the
-    # step's (ME, f32 frames), its u8 form beside it
-    finish = kernel_row("embed_finish", "embed_finish", "me", 3,
-                        finish_launches, errors["embed_finish"],
-                        times["embed_finish"], split)
-    u8_bound = kernel_bound("embed_finish", "me", 3, itemsize=1)
-    finish["u8_form"] = {"ms": times["embed_finish_u8"][0],
-                         "plain_ms": times["embed_finish_u8"][1],
-                         "bound_ms": u8_bound[0], "bound_by": u8_bound[1],
-                         "device_ms": split["embed_finish_u8"]}
-    rows.append(finish)
-    for p in WIDE_P:
-        me, nvf = wide_counts[p]["me"], wide_counts[p]["nvf"]
-        rows.append(kernel_row(f"me_gram_wide_p{p}", "me_gram_wide", "me", p,
-                               sum(run[n] for run in (me, nvf)
-                                   for n in WIDE_GRAM_KERNELS),
-                               errors[f"me_gram_wide_p{p}"],
-                               times[f"me_gram_wide_p{p}"]))
-        # the wide solve: once an ME analysis (phase 3's ME part, and
-        # identification at ME p)
-        name = f"spd_solve_wide_p{p}"
-        rows.append(kernel_row(name, "spd_solve_wide", "me", p,
-                               me["spd_solve_wide"]
-                               + identify_counts[("me", p)]["spd_solve_wide"],
-                               errors[name], times[name], split))
-        for kernel in ("embed_field", "detect_partials"):
-            for mask, launched in (("me", me), ("nvf", nvf)):
-                name = f"{kernel}_{mask}_p{p}"
-                rows.append(kernel_row(name, kernel, mask, p,
-                                       launched[kernel], errors[name],
-                                       times[name], split))
-    for p in ALL_P:
-        for mask in ("me", "nvf"):
-            name = f"detect_many_{mask}_p{p}"
-            rows.append(kernel_row(
-                name, "detect_many", mask, p,
-                identify_counts[(mask, p)]["detect_many"], errors[name],
-                times[name]))
-    # the standalone ops: no main path launches them (their modules say why)
-    runs = [counts["all"], *(wide_counts[p][mask] for p in WIDE_P
-                             for mask in ("me", "nvf")),
-            *identify_counts.values()]
-    for kernel in STANDALONE_KERNELS:
-        launched = sum(run[kernel] for run in runs)
-        check(launched == 0, f"{kernel} ran on a main path {launched} times")
-        for p in ALL_P:
-            name = f"{kernel}_p{p}"
-            rows.append(kernel_row(name, kernel, "me", p, launched,
-                                   errors[name], times[name], split))
-    # the sharded routes' launches (phase 6) and the halo forms' times
-    for row in rows:
-        row["launches"] += mesh_launches.pop(row["name"], 0)
-        halo = {str(shard_rows): dict(
-            zip(("ms", "plain_ms", "bound_ms", "bound_by"), timing),
-            device_ms=halo_split[(name, shard_rows)])
-            for (name, shard_rows), timing in halo_times.items()
-            if name == row["name"]}
-        if halo:
-            row["halo_form"] = halo
-    check(not mesh_launches, f"phase 6 launches without a row: "
-          f"{mesh_launches}")
-    # the tools' and examples' launches (phase 7)
-    for row in rows:
-        row["launches"] += tool_launches.pop(row["name"], 0)
-    check(not tool_launches, f"phase 7 launches without a row: "
-          f"{tool_launches}")
-    print(json.dumps({"kernels": rows}), flush=True)
+    phase_halo_kernels(frames_d, wm_d, bank_d)
+    check_routes(single, phase_mesh(frames, bank), phase_tools())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

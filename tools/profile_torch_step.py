@@ -5,7 +5,7 @@
     python tools/profile_torch_step.py --identify --p 3 5 7 9 --impl cuda
 
 For each window p and route, the chained 8-frame 1080p ME embed+detect
-step that ``chip_smoke.py`` phase 4 times: 20 warm-up steps, then
+step on ``chip_smoke.py``'s frames: 20 warm-up steps, then
 ``torch.profiler`` (CPU and CUDA activities) over 5 steps. With
 ``--identify`` the step is instead ``BatchedWatermark.detect_many`` of the
 8 frames against ``chip_smoke.make_bank()``'s 64 candidates (ME), after 3

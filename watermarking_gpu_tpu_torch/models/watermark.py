@@ -20,7 +20,7 @@ import torch
 from ..io.matfile import generate_watermark, load_watermark
 from ..ops.embed import strength_factor
 from ..ops.pipelines import (IMPLS, detect_many_pipeline, detect_pipeline,
-                             embed_pipeline, fused_detect_many_applies)
+                             embed_pipeline)
 from ..utils.profiling import begin
 from .masks import MaskType
 
@@ -211,9 +211,7 @@ class Watermark:
                 torch.float32)
             batch = image.shape[0] if image.ndim == 3 else 1
             n = watermarks.shape[0]
-            if (self.device.type == "cuda" and fused_detect_many_applies(
-                    n, self.rows, self.cols, mask_type.value, self.p,
-                    self.impl)):
+            if self.device.type == "cuda" and self.impl == "cuda":
                 chunk = n   # the kernel keeps no per-candidate planes
             else:
                 per_candidate = (self._PLAIN_PLANES * batch * 4 * self.rows

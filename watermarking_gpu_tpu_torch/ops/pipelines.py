@@ -208,24 +208,6 @@ def detect_pipeline(image: torch.Tensor, watermark: torch.Tensor,
             span.end()
 
 
-def fused_detect_many_applies(n: int, rows: int, cols: int, mask_type: str,
-                              p: int, impl: str) -> bool:
-    """Will ``detect_many_pipeline`` run the multi-candidate kernel? The one
-    place the routing is decided; ``Watermark.detect_many`` sizes its
-    candidate chunks by it.
-
-    True for ``impl="cuda"`` at every geometry, bank size and window. The
-    JAX package's kernel has an envelope (its strips of nc candidate planes
-    must fit a TPU core's VMEM, so large frames shrink nc and the largest
-    fall back to XLA); this one has none: a block stages one fixed tile of
-    one frame, whatever the frame's size, and scores the bank in chunks of a
-    fixed size read in place, so its shared memory does not grow with the
-    frame or the bank.
-    """
-    del n, rows, cols, mask_type, p
-    return impl == "cuda"
-
-
 def detect_many_pipeline(image: torch.Tensor, watermarks: torch.Tensor,
                          mask_type: MaskTypeName, p: int = 3,
                          impl: ImplName = "cuda") -> torch.Tensor:
@@ -237,8 +219,12 @@ def detect_many_pipeline(image: torch.Tensor, watermarks: torch.Tensor,
     is shared by all N candidates; the reference can only loop N full
     detections (``Watermark.cpp:234-250``). ``impl="cuda"`` runs the Gram
     kernel and then the multi-candidate kernel, which never materializes the
-    (B, N, H, W) u and e_u of ``impl="torch"``'s formulation. Returns 0 for
-    every candidate of an unsolvable image.
+    (B, N, H, W) u and e_u of ``impl="torch"``'s formulation, at every
+    geometry, bank size and window: unlike the JAX package's kernel, whose
+    strips of candidate planes must fit a TPU core's VMEM, a block stages one
+    fixed tile of one frame and scores the bank in chunks of a fixed size
+    read in place, so its shared memory grows with neither the frame nor the
+    bank. Returns 0 for every candidate of an unsolvable image.
     """
     span = begin("pipeline.detect_many")
     try:
@@ -247,7 +233,7 @@ def detect_many_pipeline(image: torch.Tensor, watermarks: torch.Tensor,
         n, rows, cols = watermarks.shape
         batch_shape = image.shape[:-2]
         pred_p = predictor_p(mask_type, p)
-        if fused_detect_many_applies(n, rows, cols, mask_type, p, impl):
+        if impl == "cuda":
             img3 = image.reshape(-1, rows, cols).contiguous()
             coefficients, valid = _fused_analysis(img3, pred_p)
             dot, norm_u, norm_z = detect_many_partials(
