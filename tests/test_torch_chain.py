@@ -134,6 +134,37 @@ def test_chain_matches_both_routes_on_card(device, mask_type, p, shape):
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
+@pytest.mark.parametrize("shape", [(8, 2160, 3840), (9, 150, 90),
+                                   (1, 70, 130)])
+@pytest.mark.parametrize("mask_type", ["me", "nvf"])
+def test_chain_detect_pipelined_on_card(device, mask_type, shape):
+    """At ME p = 3 the chain's detect tail takes the pipelined schedule,
+    each frame finished by its last block over the grid's blocks (NVF p = 3
+    keeps a block a tile): on the 4K cell's batch, nine frames (two chunks)
+    and one small frame, its correlations equal the per-wrapper route's up
+    to the order of the blocks' sums (abs 1e-6), two calls give the same
+    bits, and at ME ``detect_partials.pipelined`` counts every launch
+    (``detect_partials.launches``), at NVF none."""
+    frames, wm = make_inputs(shape, device)
+    marked, _ = pipelines.embed_pipeline(frames, frames, wm, SF, mask_type,
+                                         p=3, impl="cuda")
+    launches = kernels.detect_partials.launches
+    pipelined = kernels.detect_partials.pipelined
+    chains = kernels.detect_chain.launches
+    got = pipelines.detect_pipeline(marked, wm, mask_type, p=3, impl="cuda")
+    again = pipelines.detect_pipeline(marked, wm, mask_type, p=3,
+                                      impl="cuda")
+    assert kernels.detect_chain.launches - chains == 2
+    assert kernels.detect_partials.launches - launches == 2
+    assert kernels.detect_partials.pipelined - pipelined == (
+        2 if mask_type == "me" else 0)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, per_wrapper_detect(marked, wm, mask_type,
+                                                       3), rtol=0, atol=1e-6)
+    if shape[1] >= 1080:
+        assert (got > 0.02).all()
+
+
 @pytest.mark.parametrize("mask_type, p", [("me", 3), ("nvf", 3), ("me", 5)])
 def test_chain_u8_lumas_on_card(device, mask_type, p):
     """uint8 lumas through ``batch_embed_luma_u8`` (the video's embed):

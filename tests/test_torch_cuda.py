@@ -40,7 +40,8 @@ from watermarking_gpu_tpu_torch.models import BatchedWatermark, pad_to_batch
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import pipelines
 from watermarking_gpu_tpu_torch.ops.cuda.detect_many import cluster_size
-from watermarking_gpu_tpu_torch.ops.cuda.fused import _mask_code
+from watermarking_gpu_tpu_torch.ops.cuda.fused import (_mask_code,
+                                                      detect_blocks)
 from watermarking_gpu_tpu_torch.ops.me import (GRAM_STRIP_ROWS,
                                                solve_coefficients)
 from watermarking_gpu_tpu_torch.ops.pipelines import _analysis
@@ -111,6 +112,44 @@ def check_detect_tail(frames, wm, coeffs, mask_type, p):
     many = kernels.detect_many_partials(frames, wm[None], coeffs, mask_type,
                                         p)
     torch.testing.assert_close(got[2], many[2], rtol=1e-5, atol=1e-6)
+
+
+# The pipelined detect tail of ME p = 3: the flagship batch, the 4K cell's,
+# a frame smaller than two tiles each way, three 1080p frames, and nine
+# frames, more than one chunk of eight
+PIPELINED_SHAPES = [(8, 1080, 1920), (8, 2160, 3840), (1, 70, 130),
+                    (3, 1080, 1920), (9, 150, 90)]
+
+
+@pytest.mark.parametrize("shape", PIPELINED_SHAPES)
+@pytest.mark.parametrize("mask_type", ["me", "nvf"])
+def test_pipelined_detect_tail_on_card(device, shape, mask_type):
+    """At ME p = 3 the detect tail takes the pipelined schedule: its sums
+    against the plain version's and two calls bit-identical
+    (``check_detect_tail``), every launch counted in
+    ``detect_partials.pipelined``, and its partials one a block of a grid
+    no larger than the frame's tiles that spreads them evenly (fewer
+    blocks than tiles at 4K). NVF p = 3 and ME p = 5 keep a block a tile,
+    and ``pipelined`` does not count NVF's launches."""
+    frames, wm, coeffs = make_inputs(shape, device)
+    me = mask_type == "me"
+    c = coeffs if me else coeffs[:, :8]
+    launches = kernels.detect_partials.launches
+    pipelined = kernels.detect_partials.pipelined
+    check_detect_tail(frames, wm, c, mask_type, 3)
+    assert kernels.detect_partials.launches - launches == 2
+    assert kernels.detect_partials.pipelined - pipelined == (2 if me else 0)
+    rows, cols = shape[1:]
+    tiles = -(-rows // 64) * -(-cols // 64)
+    blocks = detect_blocks(device, rows, cols, _mask_code(mask_type, 3), 3)
+    if me:
+        rounds = -(-tiles // blocks)
+        assert blocks <= tiles and blocks * (rounds - 1) < tiles
+        if rows == 2160:
+            assert blocks < tiles
+    else:
+        assert blocks == tiles
+    assert detect_blocks(device, rows, cols, _mask_code("me", 5), 5) == tiles
 
 
 def check_solve(gram):
@@ -813,7 +852,9 @@ def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
     Gram. The multi-candidate launches of an even batch at a 3 x 3
     predictor run in clusters (``detect_many_partials.clustered``): at 8
     frames of 256 columns the interior tiles share each candidate's copy,
-    clamped rows and seams included."""
+    clamped rows and seams included. At ME p = 3 the detect tail's halo
+    form takes the pipelined schedule (``detect_partials.pipelined``); two
+    of its calls give the same bits."""
     frames, wm, coeffs = make_inputs(shape, device)
     if mask_type == "me" and p != 3:
         coeffs = torch.zeros(shape[0], p * p - 1, device=device)
@@ -875,9 +916,16 @@ def test_halo_kernels_match_plain_on_card(device, shape, mask_type, p):
             (got[0] - want[0]).abs().max())
         assert torch.equal(got[2], want[2])
         torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+        pipelined = kernels.detect_partials.pipelined
         got = kernels.detect_partials(ext, w_ext, coeffs if mask_type == "me"
                                       else coeffs[:, :8], mask_type, p,
                                       reach, reach, start, total)
+        assert kernels.detect_partials.pipelined - pipelined == (
+            mask_type == "me" and p == 3)
+        again = kernels.detect_partials(
+            ext, w_ext, coeffs if mask_type == "me" else coeffs[:, :8],
+            mask_type, p, reach, reach, start, total)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
         want = kernels.detect_partials_plain(
             ext, w_ext, coeffs if mask_type == "me" else coeffs[:, :8],
             mask_type, p, reach, reach, start, total)

@@ -27,6 +27,7 @@ from watermarking_gpu_tpu.ops.pallas.me_kernel import (
     me_gram_pallas, me_gram_raw, me_normal_equations_pallas)
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import me as tme
+from watermarking_gpu_tpu_torch.ops.cuda import fused
 from watermarking_gpu_tpu_torch.ops.me import (solve_coefficients,
                                                solve_coefficients_spd)
 
@@ -99,6 +100,26 @@ def test_detect_partials_plain_matches_pallas(shape, mask_type):
                                         jnp.asarray(coeffs), mask_type))
     np.testing.assert_allclose(corr, want.ravel(), atol=2e-4)
     assert (corr > 0.05).all()
+
+
+def test_cpu_detect_counts_no_launch_and_no_pipelined():
+    """CPU tensors take the plain detect tail: neither ``launches`` nor
+    ``pipelined`` counts; ``launch_counts`` leaves ``pipelined`` out and
+    ``reset_launch_counts`` zeroes it. The pipelined schedule is ME
+    p = 3's."""
+    kernels.detect_partials.pipelined = 3
+    before = kernels.launch_counts()
+    frames, wm, coeffs = make_inputs((3, 40, 96))
+    kernels.detect_partials(torch.from_numpy(frames), torch.from_numpy(wm),
+                            torch.from_numpy(coeffs), "me", 3)
+    assert kernels.launch_counts() == before
+    assert kernels.detect_partials.pipelined == 3
+    assert "pipelined" not in kernels.launch_counts()
+    kernels.reset_launch_counts()
+    assert kernels.detect_partials.pipelined == 0
+    assert not any(kernels.launch_counts().values())
+    assert [fused.pipelined(mask_type, p) for mask_type in ("me", "nvf")
+            for p in (3, 5, 7, 9)] == [True] + [False] * 7
 
 
 def gram_lag_shape(shape):

@@ -40,7 +40,8 @@ from watermarking_gpu_tpu_torch.ops.cuda import build  # noqa: E402
 # behind it, so that the host's launches do not set their pace
 SLEEP_CYCLES = 2_000_000
 # what a profiler trace says of a kernel's launch
-LAUNCH_KEYS = ("registers per thread", "shared memory", "blocks per SM")
+LAUNCH_KEYS = ("registers per thread", "shared memory", "blocks per SM",
+               "grid")
 # a profiler timing's calls a session, and its sessions before it gives up
 PROFILED_CALLS, PROFILED_TRIES = 20, 3
 

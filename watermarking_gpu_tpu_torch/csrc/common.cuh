@@ -281,4 +281,81 @@ __device__ __forceinline__ bool frame_total(const float* parts, int blocks,
   return true;
 }
 
+// Hopper's shared-memory mbarriers and asynchronous copies (PTX ISA 8.0,
+// sm_90), for the kernels that copy by cp.async.bulk (detect_many.cu) or a
+// tensor copy (fused.cu).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// This thread's generic-proxy accesses of shared memory before it are
+// ordered before the bulk copies that later overwrite the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+#endif
+}
+
+// Makes the mbarrier inits visible to the cluster's other blocks (before a
+// cluster barrier).
+__device__ __forceinline__ void mbar_init_fence() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+#endif
+}
+
+// Arrive once, and count `bytes` more that bulk copies will complete.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+#endif
+}
+
+// Arrive once.
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+#endif
+}
+
+// Arrive once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+#endif
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "{\n\t.reg .pred done;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT;\n\t"
+      "}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+#endif
+}
+
 }  // namespace wm

@@ -119,11 +119,15 @@ __host__ __device__ constexpr int many_scratch(int mask, int ph, int nh,
 }
 
 // Hopper's cluster primitives (PTX ISA 8.0, sm_90): the block's place in
-// its cluster, shared-memory mbarriers, the bulk copy that lands in every
-// block of the cluster and the cluster-wide barrier.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+// its cluster, the remote arrival at an mbarrier (common.cuh holds the
+// block's own), the bulk copy that lands in every block of the cluster and
+// the cluster-wide barrier.
+using wm::fence_proxy_async;
+using wm::mbar_expect_tx;
+using wm::mbar_init;
+using wm::mbar_init_fence;
+using wm::mbar_wait;
+using wm::smem_addr;
 
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned rank = 0;
@@ -163,43 +167,6 @@ __device__ __forceinline__ void cluster_wait() {
 #endif
 }
 
-// This thread's generic-proxy accesses of shared memory before it are
-// ordered before the bulk copies that later overwrite the same bytes.
-__device__ __forceinline__ void fence_proxy_async() {
-#ifdef __CUDA_ARCH__
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-#endif
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-#ifdef __CUDA_ARCH__
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-#endif
-}
-
-// Makes the mbarrier inits visible to the cluster's other blocks (before a
-// cluster barrier).
-__device__ __forceinline__ void mbar_init_fence() {
-#ifdef __CUDA_ARCH__
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-#endif
-}
-
-// Arrive once, and count `bytes` more that bulk copies will complete.
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               unsigned bytes) {
-#ifdef __CUDA_ARCH__
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-#endif
-}
-
 // Arrive once at the barrier at bar's place in block `rank` of the cluster.
 __device__ __forceinline__ void mbar_arrive_remote(unsigned long long* bar,
                                                    unsigned rank) {
@@ -210,21 +177,6 @@ __device__ __forceinline__ void mbar_arrive_remote(unsigned long long* bar,
       "mbarrier.arrive.shared::cluster.b64 _, [remote];\n\t"
       "}" ::"r"(smem_addr(bar)),
       "r"(rank)
-      : "memory");
-#endif
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-#ifdef __CUDA_ARCH__
-  asm volatile(
-      "{\n\t.reg .pred done;\n\t"
-      "WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
-      "@!done bra WAIT;\n\t"
-      "}" ::"r"(smem_addr(bar)),
-      "r"(parity)
       : "memory");
 #endif
 }

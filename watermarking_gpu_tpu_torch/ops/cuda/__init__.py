@@ -18,7 +18,9 @@ adds it to the output, one launch a fused embed.
 calls (their modules say why); the rest carry the embed, detect and
 identification paths. ``detect_many_partials.clustered`` counts, beside its
 launches, those that ran in clusters of frames sharing each candidate's
-copy; ``launch_counts`` leaves it out, ``reset_launch_counts`` zeroes it.
+copy, and ``detect_partials.pipelined`` the detect tail's launches (by its
+wrapper or ``detect_chain``) that took the pipelined schedule of ME p=3;
+``launch_counts`` leaves both out, ``reset_launch_counts`` zeroes them.
 Each wrapper of ``KERNELS``, ``me_gram`` and ``me_gram_wide`` opens a
 ``kernels.<name>`` span (``utils/profiling.py``) over its checks,
 allocations and launch.
@@ -28,16 +30,16 @@ fused embed and detect of whole CUDA frames, each one call into the
 library: the predictor's analysis (the 3x3 lag kernel and solving
 assembly, or the wide lag kernel, wide assembly and blocked solve; none
 for NVF's embed), then the embed field and the embed finish, or the detect
-tail, whose last block of a frame finishes that frame's sums or its
-correlation. Each of their launches counts in its kernel's wrapper, as the
-wrappers called one by one count it (``me_gram_solve8`` once a 3x3
-analysis), and each call once in ``embed_chain.launches`` or
-``detect_chain.launches``, which ``launch_counts`` and
-``reset_launch_counts`` cover; their spans are ``kernels.embed_chain`` and
-``kernels.detect_chain``. The wrappers one by one remain the route of CPU
-tensors, the halo forms (``parallel/spatial.py``), frames too small for
-the wide Gram's lag form, identification (``detect_many_partials``), the
-tools and the tests.
+tail, whose last block of a frame (the detect tail's at ME p=3: of a chunk
+of frames) finishes that frame's sums or its correlation. Each of their
+launches counts in its kernel's wrapper, as the wrappers called one by one
+count it (``me_gram_solve8`` once a 3x3 analysis), and each call once in
+``embed_chain.launches`` or ``detect_chain.launches``, which
+``launch_counts`` and ``reset_launch_counts`` cover; their spans are
+``kernels.embed_chain`` and ``kernels.detect_chain``. The wrappers one by
+one remain the route of CPU tensors, the halo forms
+(``parallel/spatial.py``), frames too small for the wide Gram's lag form,
+identification (``detect_many_partials``), the tools and the tests.
 """
 
 from ..me import (assemble_lags_plain, assemble_strips_plain, frame_banks,
@@ -73,6 +75,7 @@ def reset_launch_counts() -> None:
     for wrapper in KERNELS.values():
         wrapper.launches = 0
     detect_many_partials.clustered = 0
+    detect_partials.pipelined = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -55,7 +55,7 @@ SIGNATURES = {
     "wm_embed_field_num_blocks": (_INT, _INT, _INT, _INT),
     "wm_embed_field": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                        _INT, _INT, _INT, _PTR),
-    "wm_detect_partials_num_blocks": (_INT, _INT),
+    "wm_detect_partials_num_blocks": (_INT, _INT, _INT, _INT),
     "wm_detect_partials": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                            _INT, _INT, _INT, _INT, _INT, _PTR),
     "wm_detect_many_chunk": (),
@@ -197,8 +197,9 @@ def raw_stream(index: int) -> int:
 
 def num_blocks(name: str, *dims: int) -> int:
     """Blocks per frame of kernel ``name``'s grid (its partials' dim 1), for
-    the dims its C function takes: (rows, cols), and for the embed field,
-    whose grid depends on them, the mask type and p."""
+    the dims its C function takes: (rows, cols), and for the embed field
+    and the detect tail, whose grids depend on them, the mask type and p
+    (the detect tail's on the current device too)."""
     return int(getattr(library(), f"{name}_num_blocks")(*dims))
 
 

@@ -8,8 +8,9 @@ enqueued by one call into the kernel library (``csrc/chain.cu``).
   u_raw^2 and max mask, and the embed finish. Returns (marked, strength)
   as ``embed_finish`` does.
 * ``detect_chain``: the predictor's analysis (NVF's is the 3x3 one), then
-  the detect tail, whose last block of a frame writes the frame's
-  correlation dot / sqrt(||e_u||^2 ||e_z||^2), 0 where its solve failed.
+  the detect tail, whose last block of a frame (at ME p=3, of a chunk of
+  frames) writes the frame's correlation dot / sqrt(||e_u||^2 ||e_z||^2),
+  0 where its solve failed.
 
 The kernels are those of the per-kernel wrappers, launched through the
 same C entries, and each launch counts in its own wrapper's ``launches``
@@ -44,7 +45,7 @@ from ..me import _bank_rows
 from . import build
 from .finish import embed_finish
 from .fused import MASK_CODES, _mask_code, detect_partials, embed_field
-from .fused import predictor_p
+from .fused import detect_blocks, pipelined, predictor_p
 from .me_gram_wide import _tables, wide_assemble, wide_lag_strips
 from .me_kernel import me_gram_assemble, me_gram_lags, me_gram_solve8
 from .solve import spd_solve_wide
@@ -77,8 +78,8 @@ class _Plan:
         self.wide = self.pred_p > 3
         sizes = {}
         if detect:
-            self.field_blocks = build.num_blocks("wm_detect_partials", rows,
-                                                 cols)
+            self.field_blocks = detect_blocks(device, rows, cols,
+                                              MASK_CODES[mask_type], p)
             sizes["partials"] = 4 * batch * self.field_blocks * 3
         else:
             self.field_blocks = build.num_blocks(
@@ -265,6 +266,7 @@ def detect_chain(image: torch.Tensor, watermark: torch.Tensor,
               *plan.pointers(base, ("partials",)), build.raw_stream(index))
         _count_analysis(plan)
         detect_partials.launches += 1
+        detect_partials.pipelined += pipelined(mask_type, p)
         detect_chain.launches += 1
         return corr
     finally:

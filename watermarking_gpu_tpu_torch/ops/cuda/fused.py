@@ -34,6 +34,9 @@ u only at the frame's top (``row_start == 0``) and bottom (``row_start + H
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 from ...utils.profiling import begin
@@ -54,6 +57,29 @@ def _mask_code(mask_type: str, p: int) -> int:
 def predictor_p(mask_type: str, p: int) -> int:
     """The predictor's window: p for ME, the reference's 3x3 for NVF."""
     return p if mask_type == "me" else 3
+
+
+def pipelined(mask_type: str, p: int) -> bool:
+    """Does the detect tail take the pipelined schedule? At ME p=3 the
+    kernel's persistent blocks walk each tile through the batch's frames;
+    NVF and the wider windows keep a block a tile (``csrc/fused.cu``'s
+    launcher chooses so from mask and p)."""
+    return mask_type == "me" and p == 3
+
+
+@functools.cache
+def detect_blocks(device: torch.device, rows: int, cols: int, code: int,
+                  p: int) -> int:
+    """Blocks a frame's detect-tail partials hold on ``device``: the
+    pipelined kernel's grid (as many blocks as the card holds at once,
+    spread evenly over the tiles) or a block a tile."""
+    with (torch.cuda.device(device) if device.type == "cuda"
+          else contextlib.nullcontext()):
+        blocks = build.num_blocks("wm_detect_partials", rows, cols, code, p)
+    if blocks < 1:
+        raise RuntimeError(f"wm_detect_partials_num_blocks: CUDA error "
+                           f"{-blocks}")
+    return blocks
 
 
 def stencil_reach(mask_type: str, p: int) -> int:
@@ -249,7 +275,8 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
     same rows, and the shard's place in the frame (module docstring).
 
     CPU tensors take ``detect_partials_plain``; CUDA tensors launch the
-    kernel.
+    kernel; ``detect_partials.pipelined`` counts the launches that took
+    the pipelined schedule (``pipelined``).
     """
     span = begin("kernels.detect_partials")
     try:
@@ -265,13 +292,14 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
         batch, cols = _check_launch(image, watermark, coefficients, True, taps,
                                     image.shape[1])
         partials = torch.empty(
-            (batch, build.num_blocks("wm_detect_partials", rows, cols), 3),
+            (batch, detect_blocks(image.device, rows, cols, code, p), 3),
             dtype=torch.float32, device=image.device)
         build.launch("wm_detect_partials", image.device, image.data_ptr(),
                      watermark.data_ptr(), coefficients.data_ptr(),
                      partials.data_ptr(), batch, rows, cols, code, p, top,
                      bottom, row_start, total_rows)
         detect_partials.launches += 1
+        detect_partials.pipelined += pipelined(mask_type, p)
         sums = partials.sum(dim=1)
         return sums[:, 0], sums[:, 1], sums[:, 2]
     finally:
@@ -281,3 +309,4 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
 
 embed_field.launches = 0
 detect_partials.launches = 0
+detect_partials.pipelined = 0
