@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from watermarking_gpu_tpu_torch.models import batch_embed_luma_u8
+from watermarking_gpu_tpu_torch.models import (batch_detect, batch_embed,
+                                               batch_embed_luma_u8)
 from watermarking_gpu_tpu_torch.ops import cuda as kernels
 from watermarking_gpu_tpu_torch.ops import pipelines
 from watermarking_gpu_tpu_torch.ops.cuda import chain
@@ -242,6 +243,31 @@ def test_chains_on_two_streams_at_once(device):
         torch.cuda.synchronize()
         for got, want in zip(results, serial):
             assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("mask_type", ["nvf", "me"])
+def test_nvf_counters_on_card(device, mask_type):
+    """One bulk step (``batch_embed`` then ``batch_detect``) at NVF p = 3
+    counts one launch in ``embed_field.nvf`` and one in
+    ``detect_partials.nvf``, both through the chains; at ME none. The
+    wrappers called one by one count NVF's launches too."""
+    frames, wm = make_inputs((8, 150, 90), device)
+    names = ("embed_field", "detect_partials")
+    nvf = [getattr(kernels, name).nvf for name in names]
+    chains = [kernels.embed_chain.launches, kernels.detect_chain.launches]
+    marked, _ = batch_embed(frames, frames, wm, SF, mask_type, p=3,
+                            impl="cuda")
+    batch_detect(marked, wm, mask_type, p=3, impl="cuda")
+    torch.cuda.synchronize()
+    want = 1 if mask_type == "nvf" else 0
+    assert [getattr(kernels, name).nvf - n
+            for name, n in zip(names, nvf)] == [want, want]
+    assert [kernels.embed_chain.launches - chains[0],
+            kernels.detect_chain.launches - chains[1]] == [1, 1]
+    per_wrapper_embed(frames, frames, wm, mask_type, 3)
+    per_wrapper_detect(marked, wm, mask_type, 3)
+    assert [getattr(kernels, name).nvf - n
+            for name, n in zip(names, nvf)] == [2 * want, 2 * want]
 
 
 def test_chain_rejects_bad_inputs_on_card(device):

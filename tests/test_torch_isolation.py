@@ -232,6 +232,31 @@ def test_cpu_tensors_keep_the_per_wrapper_route(monkeypatch):
     assert kernels.KERNELS["embed_chain"] is kernels.embed_chain
 
 
+def test_cpu_tensors_count_no_nvf_launch():
+    """CPU tensors launch no NVF kernel: ``embed_field.nvf`` and
+    ``detect_partials.nvf`` stay 0 through the pipelines at every p and
+    through the wrappers; ``launch_counts`` leaves them out and
+    ``reset_launch_counts`` zeroes them."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(np.clip(rng.normal(128, 40, (2, 30, 40)), 0,
+                                      255).astype(np.float32))
+    wm = torch.from_numpy(rng.normal(size=(30, 40)).astype(np.float32))
+    for p in (3, 5, 7, 9):
+        marked, _ = pipelines.embed_pipeline(frames, frames, wm, 2.55, "nvf",
+                                             p=p, impl="cuda")
+        pipelines.detect_pipeline(marked, wm, "nvf", p=p, impl="cuda")
+    kernels.embed_field(frames, wm, None, "nvf", 3)
+    kernels.detect_partials(frames, wm, torch.full((2, 8), 0.125), "nvf", 3)
+    assert kernels.embed_field.nvf == kernels.detect_partials.nvf == 0
+    assert not any(kernels.launch_counts().values())
+    assert set(kernels.launch_counts()) == set(kernels.KERNELS)
+    kernels.embed_field.nvf = kernels.detect_partials.nvf = 2
+    assert not any(kernels.launch_counts().values())
+    kernels.reset_launch_counts()
+    assert kernels.embed_field.nvf == kernels.detect_partials.nvf == 0
+
+
 @pytest.mark.parametrize("mask_type, p, detect",
                          [("me", 3, False), ("me", 3, True), ("me", 9, False),
                           ("me", 5, True), ("nvf", 7, False),

@@ -18,9 +18,12 @@ adds it to the output, one launch a fused embed.
 calls (their modules say why); the rest carry the embed, detect and
 identification paths. ``detect_many_partials.clustered`` counts, beside its
 launches, those that ran in clusters of frames sharing each candidate's
-copy, and ``detect_partials.pipelined`` the detect tail's launches (by its
-wrapper or ``detect_chain``) that took the pipelined schedule of ME p=3;
-``launch_counts`` leaves both out, ``reset_launch_counts`` zeroes them.
+copy, ``detect_partials.pipelined`` the detect tail's launches (by its
+wrapper or ``detect_chain``) that took the pipelined schedule of ME p=3,
+and ``embed_field.nvf`` and ``detect_partials.nvf`` the embed field's and
+the detect tail's launches at the NVF mask (by their wrappers or
+``embed_chain`` / ``detect_chain``); ``launch_counts`` leaves these four
+out, ``reset_launch_counts`` zeroes them.
 Each wrapper of ``KERNELS``, ``me_gram`` and ``me_gram_wide`` opens a
 ``kernels.<name>`` span (``utils/profiling.py``) over its checks,
 allocations and launch.
@@ -76,6 +79,8 @@ def reset_launch_counts() -> None:
         wrapper.launches = 0
     detect_many_partials.clustered = 0
     detect_partials.pipelined = 0
+    detect_partials.nvf = 0
+    embed_field.nvf = 0
 
 
 def launch_counts() -> dict[str, int]:

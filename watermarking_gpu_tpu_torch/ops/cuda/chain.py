@@ -15,11 +15,13 @@ enqueued by one call into the kernel library (``csrc/chain.cu``).
 The kernels are those of the per-kernel wrappers, launched through the
 same C entries, and each launch counts in its own wrapper's ``launches``
 (``me_gram_solve8`` one a 3x3 analysis, as the per-wrapper route counts
-it); the call counts once in ``embed_chain.launches`` or
-``detect_chain.launches``. Per call: the inputs are checked once, one
-allocation holds every intermediate (lag sums, the wide Gram's edges, the
-Gram, coefficients, valid, the frames' done counters, u_raw, the partials
-and the frames' totals), one each the outputs; the wide analysis also
+it; ``detect_partials.pipelined``, ``embed_field.nvf`` and
+``detect_partials.nvf`` as those wrappers count them); the call counts
+once in ``embed_chain.launches`` or ``detect_chain.launches``. Per call:
+the inputs are checked once, one allocation holds every intermediate
+(lag sums, the wide Gram's edges, the Gram, coefficients, valid, the
+frames' done counters, u_raw, the partials and the frames' totals), one
+each the outputs; the wide analysis also
 gathers the frames' boundary banks (``ops.me.frame_banks``) before the
 call. No torch op runs between the kernels. Only the frames' sums differ
 from the per-wrapper route's, in order: the blocks' partials are added in
@@ -239,6 +241,7 @@ def embed_chain(image: torch.Tensor, output: torch.Tensor,
               build.raw_stream(index))
         _count_analysis(plan)
         embed_field.launches += 1
+        embed_field.nvf += code == MASK_CODES["nvf"]
         embed_finish.launches += 1
         embed_chain.launches += 1
         return marked, strength
@@ -267,6 +270,7 @@ def detect_chain(image: torch.Tensor, watermark: torch.Tensor,
         _count_analysis(plan)
         detect_partials.launches += 1
         detect_partials.pipelined += pipelined(mask_type, p)
+        detect_partials.nvf += code == MASK_CODES["nvf"]
         detect_chain.launches += 1
         return corr
     finally:

@@ -236,7 +236,8 @@ def embed_field(image: torch.Tensor, watermark: torch.Tensor,
     may be None for NVF) -> (u_raw (B, H, W), sum_u2 (B,), max_e (B,)). The
     halo form takes (B, top + H + bottom, W) frames (module docstring).
 
-    CPU tensors take ``embed_field_plain``; CUDA tensors launch the kernel.
+    CPU tensors take ``embed_field_plain``; CUDA tensors launch the kernel;
+    ``embed_field.nvf`` counts the launches at the NVF mask.
     """
     span = begin("kernels.embed_field")
     try:
@@ -258,6 +259,7 @@ def embed_field(image: torch.Tensor, watermark: torch.Tensor,
                      u_raw.data_ptr(), partials.data_ptr(), batch, rows, cols,
                      code, p, top, bottom)
         embed_field.launches += 1
+        embed_field.nvf += code == MASK_CODES["nvf"]
         return u_raw, partials[..., 0].sum(dim=1), partials[..., 1].amax(dim=1)
     finally:
         if span:
@@ -276,7 +278,8 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
 
     CPU tensors take ``detect_partials_plain``; CUDA tensors launch the
     kernel; ``detect_partials.pipelined`` counts the launches that took
-    the pipelined schedule (``pipelined``).
+    the pipelined schedule (``pipelined``), ``detect_partials.nvf`` those
+    at the NVF mask.
     """
     span = begin("kernels.detect_partials")
     try:
@@ -300,6 +303,7 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
                      bottom, row_start, total_rows)
         detect_partials.launches += 1
         detect_partials.pipelined += pipelined(mask_type, p)
+        detect_partials.nvf += code == MASK_CODES["nvf"]
         sums = partials.sum(dim=1)
         return sums[:, 0], sums[:, 1], sums[:, 2]
     finally:
@@ -308,5 +312,7 @@ def detect_partials(image: torch.Tensor, watermark: torch.Tensor,
 
 
 embed_field.launches = 0
+embed_field.nvf = 0
 detect_partials.launches = 0
 detect_partials.pipelined = 0
+detect_partials.nvf = 0
